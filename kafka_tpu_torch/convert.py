@@ -1,0 +1,59 @@
+"""Carry state from the JAX package into the port.
+
+Takes plain numpy (e.g. ``np.asarray`` of JAX arrays — this module never
+imports JAX) and returns the port's tensors on a device, so both
+packages can compute the same thing from the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .core.propagators import PixelPrior
+from .core.types import BandBatch
+from .engine.priors import FixedGaussianPrior
+
+
+def tensor(a, device=None, dtype=torch.float32) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor on ``device``."""
+    return torch.as_tensor(np.asarray(a), dtype=dtype,
+                           device=resolve_device(device))
+
+
+def pixel_prior(mean, cov, inv_cov, device=None) -> PixelPrior:
+    """``PixelPrior`` from numpy mean (p,), cov and inv_cov (p, p)."""
+    return PixelPrior(mean=tensor(mean, device), cov=tensor(cov, device),
+                      inv_cov=tensor(inv_cov, device))
+
+
+def fixed_gaussian_prior(mean, cov, inv_cov, parameter_list: Sequence[str],
+                         device=None) -> FixedGaussianPrior:
+    """``FixedGaussianPrior`` from the numpy fields of a JAX one."""
+    return FixedGaussianPrior(pixel_prior(mean, cov, inv_cov, device),
+                              parameter_list)
+
+
+def band_batch(y, r_inv, mask, device=None) -> BandBatch:
+    """``BandBatch`` from numpy ``y``/``r_inv`` (float) and ``mask``."""
+    return BandBatch(y=tensor(y, device), r_inv=tensor(r_inv, device),
+                     mask=tensor(mask, device, dtype=torch.bool))
+
+
+def state(x, p_inv, device=None):
+    """``(x, p_inv)`` state tensors; ``p_inv`` may be None."""
+    return tensor(x, device), None if p_inv is None else tensor(p_inv,
+                                                               device)
+
+
+def solver_options(opts, device=None) -> dict:
+    """A solver-option dict with array-valued ``state_bounds`` moved to
+    ``device``; every other option passes through unchanged."""
+    out = dict(opts or {})
+    if out.get("state_bounds") is not None:
+        lo, hi = out["state_bounds"]
+        out["state_bounds"] = (tensor(lo, device), tensor(hi, device))
+    return out

@@ -1,0 +1,78 @@
+"""Observation-operator protocol (port of ``kafka_tpu/obsops/protocol.py``).
+
+An operator is a differentiable PyTorch function of one pixel's state,
+``forward_pixel(aux, x_pixel) -> (n_bands,)``; the batched ``forward``
+and ``linearize`` derive from it with ``torch.func`` (``vmap`` over
+pixels, ``jacfwd`` per pixel) — the counterparts of ``jax.vmap`` and
+``jax.jacfwd`` in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch.func import jacfwd, vmap
+
+from ..core.types import Linearization
+
+
+def _aux_in_dims(aux: Any, n_pix: int):
+    """vmap in_dims for an aux tree of tensors (dict / list / tuple):
+    leaves with a leading ``n_pix`` axis are mapped, the rest broadcast."""
+    if isinstance(aux, dict):
+        return {k: _aux_in_dims(v, n_pix) for k, v in aux.items()}
+    if isinstance(aux, (list, tuple)):
+        return type(aux)(_aux_in_dims(v, n_pix) for v in aux)
+    if isinstance(aux, torch.Tensor) and aux.ndim > 0 \
+            and aux.shape[0] == n_pix:
+        return 0
+    return None
+
+
+class ObservationModel:
+    """Base class: subclasses implement ``forward_pixel``; ``forward`` and
+    ``linearize`` derive from it."""
+
+    n_bands: int
+    n_params: int
+    #: False disables the leading-axis aux detection (shared weights).
+    aux_per_pixel: bool = True
+    #: Optional (lower, upper) per-parameter physical domain.
+    state_bounds = None
+    #: Operators implementing ``kernel_linearize_rows`` set this True: the
+    #: whole Gauss-Newton loop then runs in the fused kernel
+    #: (``core.fused_gn.fused_gn_rows``).
+    inkernel_linearize: bool = False
+
+    def forward_pixel(self, aux: Any, x_pixel: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def kernel_linearize_rows(self, x_rows):
+        """Row-layout value + Jacobian: a tuple of ``p`` state rows ->
+        ``(h0, jac)`` with ``h0`` a list of ``n_bands`` rows and
+        ``jac[b][k]`` the ``dH0[b]/dx[k]`` row.  Only consulted when
+        ``inkernel_linearize`` is True."""
+        raise NotImplementedError
+
+    def aux_in_axes(self, aux: Any, n_pix: int):
+        if not self.aux_per_pixel:
+            return None if aux is None else _aux_in_dims(aux, -1)
+        return _aux_in_dims(aux, n_pix)
+
+    def forward(self, aux: Any, x: torch.Tensor) -> torch.Tensor:
+        """(n_pix, p) -> (n_bands, n_pix) predicted observations."""
+        dims = self.aux_in_axes(aux, x.shape[0])
+        return vmap(self.forward_pixel, in_dims=(dims, 0))(aux, x).T
+
+    def linearize(self, aux: Any, x: torch.Tensor) -> Linearization:
+        """(n_pix, p) -> Linearization(h0 (B, n_pix), jac (B, n_pix, p))."""
+        dims = self.aux_in_axes(aux, x.shape[0])
+
+        def value_and_jac(a, xi):
+            h0 = self.forward_pixel(a, xi)
+            jac = jacfwd(lambda z: self.forward_pixel(a, z))(xi)
+            return h0, jac
+
+        h0, jac = vmap(value_and_jac, in_dims=(dims, 0))(aux, x)
+        return Linearization(h0=h0.T, jac=jac.permute(1, 0, 2))

@@ -1,0 +1,229 @@
+"""Synthetic observation source + in-memory output sink (port of
+``kafka_tpu/testing/synthetic.py``).
+
+Noise and masks are drawn with numpy from the same seeds, in the same
+order and with the same shapes as the JAX package, so both packages see
+the same observations; only the clean forward model runs in PyTorch.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.types import BandBatch
+from ..engine.protocols import DateObservation
+from ..engine.state import PixelGather
+from ..obsops.protocol import ObservationModel
+
+
+class SyntheticObservations:
+    """Observations from a forward operator (without per-date aux) on a
+    known truth plus noise, with random masking; tensors are made on
+    ``device``."""
+
+    def __init__(self, dates: Sequence[datetime.datetime],
+                 operator: ObservationModel, truth_fn, sigma: float = 0.01,
+                 mask_prob: float = 0.1, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        self._dates = list(dates)
+        self.operator = operator
+        self.truth_fn = truth_fn
+        self.sigma = sigma
+        self.mask_prob = mask_prob
+        self.seed = seed
+
+    @property
+    def dates(self):
+        return self._dates
+
+    def get_observations(self, date, gather: PixelGather) -> DateObservation:
+        truth = self.truth_fn(date)
+        x_true = torch.as_tensor(gather.gather(truth), dtype=torch.float32,
+                                 device=self.device)
+        y_clean = self.operator.forward(None, x_true).cpu().numpy()
+        rng = np.random.default_rng((self.seed, date.toordinal()))
+        noise = rng.normal(0.0, self.sigma, y_clean.shape)
+        y = (y_clean + noise).astype(np.float32)
+        mask = rng.uniform(size=y.shape) > self.mask_prob
+        mask &= gather.valid[None, :]
+        r_inv = np.where(mask, 1.0 / self.sigma**2, 0.0).astype(np.float32)
+        dev = self.device
+        bands = BandBatch(
+            y=torch.as_tensor(np.where(mask, y, 0.0), device=dev),
+            r_inv=torch.as_tensor(r_inv, device=dev),
+            mask=torch.as_tensor(mask, device=dev),
+        )
+        return DateObservation(bands=bands, operator=self.operator, aux=None)
+
+
+def make_tip_problem(n_pix: int, seed: int = 0, sigma: float = 0.005,
+                     mask_prob: float = 0.1, device=None):
+    """The synthetic TIP/two-stream problem of the JAX package (same
+    draws): returns ``(operator, bands, x0, p_inv0)`` on ``device`` with
+    ``x0``/``p_inv0`` the broadcast TIP prior (expanded views)."""
+    from ..core.propagators import tip_prior_arrays
+    from ..obsops.twostream import TwoStreamOperator
+
+    dev = resolve_device(device)
+    op = TwoStreamOperator()
+    rng = np.random.default_rng(seed)
+    mean_h, _, inv_h = tip_prior_arrays()
+    truth = np.clip(mean_h + rng.normal(0, 0.05, (n_pix, op.n_params)),
+                    0.05, 0.95).astype(np.float32)
+    y = op.forward(None, torch.as_tensor(truth, device=dev)).cpu().numpy()
+    y = y + rng.normal(0, sigma, y.shape)
+    mask = rng.uniform(size=y.shape) > mask_prob
+    r_inv = np.where(mask, 1.0 / sigma**2, 0.0).astype(np.float32)
+    y_masked = np.where(mask, y, 0.0).astype(np.float32)
+    bands = BandBatch(
+        y=torch.as_tensor(y_masked, device=dev),
+        r_inv=torch.as_tensor(r_inv, device=dev),
+        mask=torch.as_tensor(mask, device=dev),
+    )
+    p = op.n_params
+    x0 = torch.as_tensor(mean_h, device=dev).expand(n_pix, p)
+    p_inv0 = torch.as_tensor(inv_h, device=dev).expand(n_pix, p, p)
+    return op, bands, x0, p_inv0
+
+
+def plant_solver_faults(y, r_inv, mask_f, xf_rows, pf_rows,
+                        n_each: int = 64, seed: int = 0):
+    """Copies of the fused solve's TIP row inputs with disjoint sets of
+    ``n_each`` pixels planted to drive each solve-health branch.  Returns
+    ``(rows, corrupt, planted)``: ``rows`` the planted copies under the
+    argument names, ``corrupt`` the (n,) float32 corruption row, and
+    ``planted`` each branch's pixel indices:
+
+    - ``corrupt``: flagged in the corruption row, so the forward model
+      reads NaN -> quarantined;
+    - ``breakdown``: P_f^-1[0, 0] = -1e9, so every Cholesky breaks down,
+      LM inflation included -> quarantined;
+    - ``recovered``: forecast omega_vis (parameter 0) above the
+      two-stream's clip, so its Jacobian column is zero, and P_f^-1 row 0
+      = (-1e-4, 0, ...): the first factorisation breaks down, the state
+      bound then pulls omega inside the clip and the escalated, damped
+      steps succeed -> damped-recovered;
+    - ``nodata``: NaN y under a zero mask in both bands -> NODATA, inert;
+    - ``half_nan``: NaN y under a zero mask in band 0 only -> band 1
+      alone drives the solve.
+
+    The first three are drawn from pixels observed in both bands."""
+    rows = {"y": y.clone(), "r_inv": r_inv.clone(),
+            "mask_f": mask_f.clone(), "xf_rows": xf_rows.clone(),
+            "pf_rows": pf_rows.clone()}
+    n = y.shape[1]
+    p = xf_rows.shape[0]
+    both = (mask_f > 0).all(dim=0).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    pick = rng.permutation(np.nonzero(both)[0])[:5 * n_each]
+    if pick.size < 5 * n_each:
+        raise ValueError(f"{pick.size} pixels observed in both bands; "
+                         f"{5 * n_each} needed")
+    names = ("corrupt", "breakdown", "recovered", "nodata", "half_nan")
+    planted = {
+        nm: torch.as_tensor(np.sort(pick[i * n_each:(i + 1) * n_each]),
+                            device=y.device)
+        for i, nm in enumerate(names)
+    }
+    corrupt = torch.zeros(n, dtype=torch.float32, device=y.device)
+    corrupt[planted["corrupt"]] = 1.0
+    rows["pf_rows"][0, planted["breakdown"]] = -1e9
+    rec = planted["recovered"]
+    rows["xf_rows"][0, rec] = 0.9999999
+    rows["pf_rows"][0, rec] = -1e-4
+    for r in range(1, p):
+        rows["pf_rows"][r * (r + 1) // 2, rec] = 0.0
+    for px, bands in ((planted["nodata"], slice(None)),
+                      (planted["half_nan"], slice(0, 1))):
+        idx = (bands, px)
+        rows["y"][idx] = float("nan")
+        rows["r_inv"][idx] = 0.0
+        rows["mask_f"][idx] = 0.0
+    return rows, corrupt, planted
+
+
+def run_tip_engine(obs_days: Sequence[int] = (1, 3, 5, 7),
+                   grid_days: Sequence[int] = (0, 2, 4, 6, 8),
+                   ny: int = 12, nx: int = 14, pad_multiple: int = 128,
+                   solver_options=None, device=None):
+    """A complete (tiny) TIP assimilation through ``KalmanFilter.run``
+    with prior-only advance — the port of the JAX ``run_tip_engine``
+    (scan_window 1, no mesh).  ``solver_options`` defaults to the JAX
+    run's ``{"relaxation": 0.7, "max_iterations": 40}``.
+
+    Returns ``(kf, out, x_analysis, p_inv_analysis)``."""
+    from ..core.propagators import PixelPrior, tip_prior_arrays
+    from ..engine.filter import KalmanFilter
+    from ..engine.priors import TIP_PARAMETER_LIST, FixedGaussianPrior
+    from ..obsops.twostream import TwoStreamOperator
+
+    dev = resolve_device(device)
+
+    def day(i):
+        return datetime.datetime(2021, 3, 1) + datetime.timedelta(days=i)
+
+    yy, xx = np.mgrid[:ny, :nx]
+    mask = (yy - ny / 2) ** 2 + (xx - nx / 2) ** 2 \
+        < (min(ny, nx) / 2.4) ** 2
+    mean = tip_prior_arrays()[0].copy()
+    mean[6] = np.exp(-0.5 * 2.0)  # the jrc_prior mean
+    truth = np.broadcast_to(mean, mask.shape + (7,)).copy()
+    truth[..., 6] = 0.45
+    sigma = np.full(7, 0.01, np.float32)
+    sigma[6] = 0.5
+    cov = np.diag(sigma**2).astype(np.float32)
+    op = TwoStreamOperator()
+    obs = SyntheticObservations(
+        dates=[day(i) for i in obs_days], operator=op,
+        truth_fn=lambda date: truth, sigma=0.001, mask_prob=0.05,
+        device=dev,
+    )
+    out = MemoryOutput()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    prior = FixedGaussianPrior(
+        PixelPrior(mean=t(mean), cov=t(cov), inv_cov=t(np.linalg.inv(cov))),
+        TIP_PARAMETER_LIST,
+    )
+    if solver_options is None:
+        solver_options = {"relaxation": 0.7, "max_iterations": 40}
+    kf = KalmanFilter(
+        obs, out, mask, TIP_PARAMETER_LIST, state_propagation=None,
+        prior=prior, pad_multiple=pad_multiple,
+        solver_options=solver_options, device=dev,
+    )
+    kf.set_trajectory_uncertainty(np.zeros(7))
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    x_a, _, p_inv_a = kf.run([day(i) for i in grid_days], x0, None, p_inv0)
+    return kf, out, x_a, p_inv_a
+
+
+class MemoryOutput:
+    """In-memory output sink: per-parameter mean and sigma rasters, and
+    the ``solver_qa`` band, keyed by timestep (numpy on the host)."""
+
+    def __init__(self):
+        self.output: Dict[datetime.datetime, Dict[str, np.ndarray]] = {}
+
+    def dump_data(self, timestep, x, p_inv_diag, gather: PixelGather,
+                  parameter_list) -> None:
+        sol = self.output.setdefault(timestep, {})
+        x = x.detach().cpu().numpy()
+        diag = None if p_inv_diag is None \
+            else p_inv_diag.detach().cpu().numpy()
+        for ii, param in enumerate(parameter_list):
+            sol[param] = gather.scatter(x[:, ii])
+            if diag is not None:
+                sigma = 1.0 / np.sqrt(np.maximum(diag[:, ii], 1e-30))
+                sol[param + "_unc"] = gather.scatter(sigma.astype(np.float32))
+
+    def dump_qa(self, timestep, verdicts, gather: PixelGather) -> None:
+        self.output.setdefault(timestep, {})["solver_qa"] = \
+            gather.scatter(verdicts.cpu().numpy().astype(np.uint8))

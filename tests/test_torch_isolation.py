@@ -1,0 +1,161 @@
+"""The port stands alone: no JAX and nothing of kafka_tpu in the package
+or in chip_smoke.py, entry points that refuse to run without CUDA unless
+asked for the CPU, and a CUDA build that fails loudly."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "kafka_tpu_torch"
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    return files
+
+
+def test_import_leaves_jax_and_kafka_tpu_out():
+    code = (
+        "import sys, kafka_tpu_torch, kafka_tpu_torch.engine, "
+        "kafka_tpu_torch.convert, kafka_tpu_torch.testing.synthetic, "
+        "kafka_tpu_torch.core.solvers\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_kafka_tpu_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "kafka_tpu"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def _entry_points():
+    from kafka_tpu_torch import resolve_device
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+    from kafka_tpu_torch.core.propagators import tip_prior
+    from kafka_tpu_torch.core.solvers import assimilate_date
+    from kafka_tpu_torch.core.types import BandBatch
+    from kafka_tpu_torch.engine import KalmanFilter, jrc_prior
+    from kafka_tpu_torch.obsops import TwoStreamOperator
+    from kafka_tpu_torch.testing.synthetic import (SyntheticObservations,
+                                                   make_tip_problem,
+                                                   run_tip_engine)
+
+    op = TwoStreamOperator()
+    z = np.zeros((2, 4), np.float32)
+    return {
+        "resolve_device": lambda: resolve_device(None),
+        "KalmanFilter": lambda: KalmanFilter(None, None, np.ones((2, 2)),
+                                             ["a"] * 7),
+        "assimilate_date": lambda: assimilate_date(
+            op.linearize, BandBatch(z, z, z > 0), np.zeros((4, 7)),
+            np.zeros((4, 7, 7))),
+        "fused_gn_rows": lambda: fused_gn_rows(
+            op.kernel_linearize_rows, *(torch.zeros(r, 4) for r in
+                                        (2, 2, 2, 7, 28)),
+            1e-3, 2, 25, 1.0, None, 28.0),
+        "make_tip_problem": lambda: make_tip_problem(16),
+        "run_tip_engine": lambda: run_tip_engine(),
+        "jrc_prior": lambda: jrc_prior(),
+        "tip_prior": lambda: tip_prior(),
+        "SyntheticObservations": lambda: SyntheticObservations([], op, None),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(
+    ["resolve_device", "KalmanFilter", "assimilate_date", "fused_gn_rows",
+     "make_tip_problem", "run_tip_engine", "jrc_prior", "tip_prior",
+     "SyntheticObservations"]))
+def test_entry_points_raise_without_cuda(name, monkeypatch):
+    """device=None means CUDA; without a CUDA device it raises instead of
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_explicit_cpu_runs():
+    from kafka_tpu_torch.testing.synthetic import make_tip_problem
+
+    op, bands, x0, p_inv0 = make_tip_problem(16, device="cpu")
+    assert bands.y.device.type == "cpu" and x0.shape == (16, 7)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from kafka_tpu_torch.core import _build
+
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("fused_gn")
+    assert not (tmp_path / "build").exists() or not any(
+        (tmp_path / "build").rglob("*.so"))
+
+
+def test_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    """A failing nvcc raises with its output; nothing is cached."""
+    from kafka_tpu_torch.core import _build
+
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: fake compiler refuses' >&2\n"
+                    "exit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(fake))
+    with pytest.raises(RuntimeError, match="fake compiler refuses"):
+        _build.build("fused_gn")
+    assert not any((tmp_path / "build").rglob("*.so"))
+
+
+def test_build_key_tracks_sources_and_flags(monkeypatch):
+    from kafka_tpu_torch.core import _build
+
+    key = _build._source_hash("fused_gn")
+    assert key == _build._source_hash("fused_gn")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._source_hash("fused_gn") != key
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without a card,
+    and also when it stands alone in a directory."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

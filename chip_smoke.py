@@ -4,26 +4,51 @@
 
 Needs one CUDA device; exits non-zero without one, and without the
 kafka_tpu_torch package beside it.  Imports neither JAX nor kafka_tpu.
-Phases, each printing one JSON line:
+The three kernels (csrc/fused_gn.cu, fused_update.cu, solve_rows.cu) are
+built at the start, one nvcc each, in parallel.  Phases, each printing
+one JSON line:
 
-1. device — card, torch/CUDA versions, kernel build time and registers;
-2. reference — a small TIP engine run through the kernel path against
-   the port's plain loop (use_pallas=False), date by date;
-3. main — KalmanFilter.run over one 2400 x 2400 MODIS tile under a
+1. device — card, torch/CUDA versions, build time, registers and spills;
+2. reference — a small TIP engine run through the fused Gauss-Newton
+   kernel against the port's plain loop (use_pallas=False), date by date;
+3. reference_s2 — a small Sentinel-2 PROSAIL engine run through the row
+   loop (fused update at (10, 10)) against the plain loop, and the small
+   TIP run with inkernel_linearize=False (fused update at (7, 2)) against
+   it too;
+4. main — KalmanFilter.run over one 2400 x 2400 MODIS tile under a
    seeded land mask: TwoStreamOperator, jrc_prior, prior-only advance,
    3 windows of 16 days with 2 acquisitions each.  Kernel launch counts
-   are reset just before and read just after; the kernel's inputs on the
-   second date (an advanced state) are kept;
-4. kernel — the fused Gauss-Newton CUDA kernel against its plain PyTorch
+   are reset just before and read just after; the fused Gauss-Newton
+   kernel's inputs on the second date (an advanced state) are kept;
+5. kernel — the fused Gauss-Newton kernel against its plain PyTorch
    version on those kept inputs (the main path's shapes and data), then
-   on make_tip_problem(2**19) (the JAX bench's device size): held to
-   the plain version run in float64 as set out below, and timed;
-5. faults — the kept inputs with planted corrupt, Cholesky-breakdown,
+   on make_tip_problem(2**19) (the JAX bench's device size): held to the
+   plain version run in float64 as set out below, and timed;
+6. faults — the kept inputs with planted corrupt, Cholesky-breakdown,
    recoverable and NaN-nodata pixels under a one-iteration cap, so every
    verdict branch fires: verdicts of the planted pixels, the quarantined
    set and the quarantined outputs must be identical;
-6. profile — one tile-size date under torch.profiler (device busy time
-   and time by kernel).
+7. main_s2 — KalmanFilter.run over one 1098 x 1098 Sentinel-2 sub-tile
+   (1,205,604 px): ProsailOperator, sail_prior, no propagation with
+   Q = 0, relaxation 0.7, the Barrax grid (2017-07-03 to 07-11, 2-day
+   steps), one acquisition per step.  Launch counts reset before, read
+   after: fused-update launches must equal the dates' iterations.  The
+   fused update's inputs of the second date's first iteration are kept;
+8. kernel_update — the fused update against its plain version on those
+   kept inputs and on make_prosail_problem(2**19), by the same float64
+   rule; flags equal; timed;
+9. faults_update — the kept inputs with planted indefinite P_f^-1, LM
+   escalation, NaN y under a false mask and a non-finite Jacobian entry:
+   x, A and the flags identical to the plain version's on those pixels,
+   and no NaN leaks;
+10. kernel_solve — the packed solve on the normal equations of the kept
+   S2 date (p=10) and TIP date (p=7): first once through
+   solve_spd_packed_kernel with the counts reset (its own path), then
+   against its plain version and a float64 solve, timed beside
+   torch.linalg.solve on the dense batch;
+11. profile, profile_s2 — one TIP tile date and one S2 sub-tile date
+   under torch.profiler (device busy time, idle share, time by kernel);
+   the TIP phase also times the dense<->packed information copies.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -91,6 +116,11 @@ FLOPS_PER_PIXEL_TRIP = 670 + 30 + 168 + 133 + 28 + 147 + 98 + 35 + 46 + 21
 
 TILE = 2400
 KERNEL_REPLACES = "kafka_tpu/core/pallas_solve.py:255"
+UPDATE_REPLACES = "kafka_tpu/core/pallas_solve.py:124"
+SOLVE_REPLACES = "kafka_tpu/core/pallas_solve.py:72"
+#: one Sentinel-2 sub-tile: the JAX harness's S2 chunk (BASELINE.md:32-33).
+S2_TILE = 1098
+KERNELS = ("fused_gn", "fused_update", "solve_rows")
 #: kernel inputs kept from this main-path date (0-based).
 KEEP_DATE = 1
 #: positional arguments of the solver's fused_gn_rows call.
@@ -148,7 +178,7 @@ def problem_rows(n_pix: int, device, seed: int = 0):
     """The port's make_tip_problem in the kernel's row layout."""
     import torch
 
-    from kafka_tpu_torch.core.solvers import _pack_rows
+    from kafka_tpu_torch.core.linalg import pack_rows
     from kafka_tpu_torch.testing.synthetic import make_tip_problem
 
     op, bands, x0, p_inv0 = make_tip_problem(n_pix, seed=seed,
@@ -160,7 +190,7 @@ def problem_rows(n_pix: int, device, seed: int = 0):
         r_inv=bands.r_inv.to(f32).contiguous(),
         mask_f=bands.mask.to(f32).contiguous(),
         xf_rows=x0.T.contiguous(),
-        pf_rows=_pack_rows(p_inv0, op.n_params).contiguous(),
+        pf_rows=pack_rows(p_inv0),
         tol=1e-3, min_iterations=2, max_iterations=25, relaxation=1.0,
         state_bounds_rows=op.state_bounds,
         norm_denominator=float(n_pix * op.n_params),
@@ -206,30 +236,10 @@ def summary(err: dict) -> dict:
     import torch
 
     budget = {"x": X_ATOL, "A": A_RTOL, "diag": DIAG_ATOL}
-    out = {}
-    for nm, lim in budget.items():
-        s = torch.sort(err[nm].double()).values
-        n = s.numel()
-        out[nm] = {**{str(q): float(s[min(n - 1, int(q * n))])
-                      for q in QUANTILES},
-                   "max": float(s[-1]), "beyond_budget": int((s > lim).sum())}
+    out = {nm: quantile_summary(err[nm], lim) for nm, lim in budget.items()}
     out["verdict_mismatch_pixels"] = int(err["verdict"].sum())
     out["max_group_trip_diff"] = float(err["trips"].max())
     return out
-
-
-def held(kernel_vs_ref: dict, plain_vs_ref: dict) -> list:
-    """Failures: each quantile where the kernel is further than ERR_FLOOR
-    and more than ERR_MARGIN times as far from the float64 reference as
-    the float32 plain version."""
-    failures = []
-    for nm in ("x", "A", "diag"):
-        for q in map(str, QUANTILES):
-            kq, pq = kernel_vs_ref[nm][q], plain_vs_ref[nm][q]
-            if kq > max(ERR_MARGIN * pq, ERR_FLOOR):
-                failures.append(f"{nm} error at quantile {q}: kernel {kq:.3g}"
-                                f" > {ERR_MARGIN} x plain {pq:.3g}")
-    return failures
 
 
 def phase_kernel(device, label: str, rows: dict, kernel_reps: int = 20,
@@ -282,7 +292,7 @@ def phase_kernel(device, label: str, rows: dict, kernel_reps: int = 20,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
     emit(rec)
-    failures = held(vs_ref, plain_vs_ref)
+    failures = held_quantiles(vs_ref, plain_vs_ref, ("x", "A", "diag"))
     if not finite:
         failures.append("non-finite kernel output")
     if vs_plain["max_group_trip_diff"] > 0:
@@ -378,7 +388,7 @@ def phase_faults(device, rows: dict, n_each: int = 64) -> dict:
     other = {who: int((err["verdict"] & ~planted_any).sum())
              for who, err in (("kernel", err_k), ("plain", err_q))}
     vs_ref, plain_vs_ref = summary(err_k), summary(err_q)
-    failures += held(vs_ref, plain_vs_ref)
+    failures += held_quantiles(vs_ref, plain_vs_ref, ("x", "A", "diag"))
     if other["kernel"] > ERR_MARGIN * other["plain"]:
         failures.append(f"{other['kernel']} other verdicts differ from the "
                         f"float64 reference, float32 plain {other['plain']}")
@@ -408,21 +418,39 @@ def phase_reference(device) -> dict:
         solver_options={"relaxation": 0.7, "max_iterations": 40,
                         "use_pallas": False},
     )
-    worst = 0.0
-    qa_equal = True
-    for ts in out_p.output:
-        for key, ref in out_p.output[ts].items():
-            got = out_k.output[ts][key]
-            if key == "solver_qa":
-                qa_equal = qa_equal and bool((got == ref).all())
-            else:
-                worst = max(worst, float(np.abs(got - ref).max()))
     rec = {"phase": "reference", "dates": len(out_p.output),
-           "max_abs_err": worst, "solver_qa_equal": qa_equal}
+           **compare_runs(out_k, out_p)}
     emit(rec)
-    if worst > X_ATOL or not qa_equal:
+    if rec["max_abs_err"] > X_ATOL or not rec["solver_qa_equal"]:
         raise AssertionError(f"engine kernel path vs plain loop: {rec}")
     return rec
+
+
+def outputs_finite(out, shape) -> bool:
+    """All of a MemoryOutput's rasters finite; raises on a wrong shape."""
+    finite = True
+    for ts, rasters in out.output.items():
+        for key, arr in rasters.items():
+            finite = finite and bool(np.isfinite(arr).all())
+            if arr.shape != shape:
+                raise AssertionError(f"{key} raster has shape {arr.shape}")
+    return finite
+
+
+def date_records(dates, peaks=None) -> list:
+    """The per-date diagnostics a main-path phase prints."""
+    recs = [{
+        "date": str(r["date"].date()), "n_iterations": r["n_iterations"],
+        "convergence_norm": r["convergence_norm"],
+        "chi2_per_band": r["chi2_per_band"],
+        "cap_bailouts": r["cap_bailouts"],
+        "damped_recovered": r["damped_recovered"],
+        "quarantined": r["quarantined"], "nonfinite": r["nonfinite"],
+        "wall_s": r["wall_s"],
+    } for r in dates]
+    for rec, peak in zip(recs, peaks or ()):
+        rec["peak_device_bytes"] = peak
+    return recs
 
 
 def land_mask(ny: int, nx: int, seed: int, land_frac: float = 0.8):
@@ -499,21 +527,8 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     finally:
         solvers.fused_gn_rows = fused_gn_rows
     dates = kf.diagnostics_log
-    finite = True
-    for ts, rasters in out.output.items():
-        for key, arr in rasters.items():
-            finite = finite and bool(np.isfinite(arr).all())
-            if arr.shape != mask.shape:
-                raise AssertionError(f"{key} raster has shape {arr.shape}")
-    per_date = [{
-        "date": str(r["date"].date()), "n_iterations": r["n_iterations"],
-        "convergence_norm": r["convergence_norm"],
-        "chi2_per_band": r["chi2_per_band"],
-        "cap_bailouts": r["cap_bailouts"],
-        "damped_recovered": r["damped_recovered"],
-        "quarantined": r["quarantined"], "nonfinite": r["nonfinite"],
-        "wall_s": r["wall_s"],
-    } for r in dates]
+    finite = outputs_finite(out, mask.shape)
+    per_date = date_records(dates)
     rec = {
         "phase": "main", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
         "n_pad": kf.gather.n_pad, "windows": len(grid_days) - 1,
@@ -535,13 +550,17 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     return rec, kept
 
 
-def phase_profile(device, n_pix: int, top: int = 6) -> dict:
+def phase_profile(device, n_pix: int) -> dict:
     """One ``assimilate_date`` at the main path's pixel count under
     ``torch.profiler``: host wall, device busy time and the device time
-    by kernel — where a date's time goes."""
+    by kernel — where a date's time goes.  Then the dense <-> packed
+    copies of the information matrix on that date's shapes: the one
+    indexed gather each way (``linalg.pack_rows`` / ``unpack_rows``)
+    beside the slice-stacking they replace, both timed here and held
+    bit-identical."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from kafka_tpu_torch.core.linalg import pack_rows, unpack_rows
     from kafka_tpu_torch.core.solvers import assimilate_date
     from kafka_tpu_torch.testing.synthetic import make_tip_problem
 
@@ -551,12 +570,536 @@ def phase_profile(device, n_pix: int, top: int = 6) -> dict:
     assimilate_date(op.linearize, bands, x0, p_inv0, None, opts,
                     device=device)
     _sync(device)
+    out = {}
+
+    def run():
+        out["r"] = assimilate_date(op.linearize, bands, x0, p_inv0, None,
+                                   opts, device=device)
+        int(out["r"][2].n_iterations)
+
+    prof = profile_device(run, device, top=6,
+                          match=("fused_gn_kernel", "scatter_gather"))
+    a_dense = out["r"][1].contiguous()
+    p = 7
+
+    def stack_pack(a):
+        return torch.stack([a[:, i, j].to(torch.float32) for i in range(p)
+                            for j in range(i + 1)])
+
+    def stack_unpack(rows):
+        def at(i, j):
+            return rows[tri(max(i, j)) + min(i, j)]
+        return torch.stack([torch.stack([at(i, j) for j in range(p)],
+                                        dim=-1) for i in range(p)], dim=-2)
+
+    rows = pack_rows(a_dense)
+    copies = {
+        "bit_identical": bool(torch.equal(rows, stack_pack(a_dense)))
+        and bool(torch.equal(unpack_rows(rows), stack_unpack(rows))),
+        "pack_gather_ms": time_ms(lambda: pack_rows(a_dense), device, 10),
+        "pack_stack_ms": time_ms(lambda: stack_pack(a_dense), device, 10),
+        "unpack_gather_ms": time_ms(lambda: unpack_rows(rows), device, 10),
+        "unpack_stack_ms": time_ms(lambda: stack_unpack(rows), device, 10),
+    }
+    rec = {"phase": "profile", "n_pix": n_pix, **prof,
+           "information_copies": copies}
+    emit(rec)
+    if not copies["bit_identical"]:
+        raise AssertionError("gather pack/unpack differs from stacking")
+    return rec
+
+
+def tri(p: int) -> int:
+    from kafka_tpu_torch.core.linalg import tri_rows
+
+    return tri_rows(p)
+
+
+def chol_solve_flops(p: int) -> int:
+    """float32 operations of one packed Cholesky and substitution,
+    counted from csrc/packed_chol.cuh."""
+    chol = sum(2 * j + 2 + (p - 1 - j) * (2 * j + 1) for j in range(p))
+    return chol + 2 * p * p
+
+
+def update_flops(p: int, nb: int) -> int:
+    """float32 operations per pixel of one fused update, counted from
+    csrc/fused_update.cu: the P_f^-1 x_f product, per band J.x_lin, y~,
+    the innovation, w J and the rank-1 updates of A and rhs, the LM
+    inflation, then the factor and the substitution."""
+    per_band = (2 * p - 1) + 3 + p + 2 * tri(p) + 2 * p
+    return p * (2 * p - 1) + nb * per_band + 5 * p + chol_solve_flops(p)
+
+
+def update_floats(p: int, nb: int) -> tuple:
+    """(read, written) floats per pixel of the fused update: J, H0, y, w,
+    mask, x_lin, x_f, packed P_f^-1 and esc in; x, packed A, the
+    innovations and the two flags out."""
+    return nb * p + 4 * nb + 2 * p + tri(p) + 1, p + tri(p) + nb + 2
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def same_or_both_nan(a, b):
+    return (a == b) | (a.isnan() & b.isnan())
+
+
+def quantile_summary(err, limit=None) -> dict:
+    """QUANTILES and max of a per-pixel error (and the count over
+    ``limit``)."""
+    import torch
+
+    s = torch.sort(err.double()).values
+    n = s.numel()
+    out = {str(q): float(s[min(n - 1, int(q * n))]) for q in QUANTILES}
+    out["max"] = float(s[-1])
+    if limit is not None:
+        out["beyond_budget"] = int((s > limit).sum())
+    return out
+
+
+def held_quantiles(kernel_vs_ref: dict, plain_vs_ref: dict, names) -> list:
+    failures = []
+    for nm in names:
+        for q in map(str, QUANTILES):
+            kq, pq = kernel_vs_ref[nm][q], plain_vs_ref[nm][q]
+            if kq > max(ERR_MARGIN * pq, ERR_FLOOR):
+                failures.append(f"{nm} error at quantile {q}: kernel {kq:.3g}"
+                                f" > {ERR_MARGIN} x plain {pq:.3g}")
+    return failures
+
+
+def compare_runs(engine_a, engine_b) -> dict:
+    """Largest output difference (QA excluded) and QA equality of two
+    MemoryOutput runs over the same timesteps."""
+    worst = 0.0
+    qa_equal = sorted(engine_a.output) == sorted(engine_b.output)
+    for ts in engine_b.output:
+        for key, ref in engine_b.output[ts].items():
+            got = engine_a.output[ts][key]
+            if key == "solver_qa":
+                qa_equal = qa_equal and bool((got == ref).all())
+            else:
+                worst = max(worst, float(np.abs(got - ref).max()))
+    return {"max_abs_err": worst, "solver_qa_equal": qa_equal}
+
+
+def phase_reference_s2(device) -> dict:
+    """Small engine runs through the fused update: S2 PROSAIL (row loop,
+    the default) and TIP with inkernel_linearize=False, each against the
+    port's plain loop, date by date."""
+    from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.testing.synthetic import run_s2_engine, \
+        run_tip_engine
+
+    fused_update_rows.launches = 0
+    _, out_k, _, _ = run_s2_engine(32, 32, device=device)
+    s2_launches = fused_update_rows.launches
+    _, out_p, _, _ = run_s2_engine(
+        32, 32, device=device,
+        solver_options={"relaxation": 0.7, "use_pallas": False})
+    s2 = compare_runs(out_k, out_p)
+    tip_opts = {"relaxation": 0.7, "max_iterations": 40}
+    fused_update_rows.launches = 0
+    _, tip_k, _, _ = run_tip_engine(
+        device=device, solver_options={**tip_opts,
+                                       "inkernel_linearize": False})
+    tip_launches = fused_update_rows.launches
+    _, tip_p, _, _ = run_tip_engine(
+        device=device, solver_options={**tip_opts, "use_pallas": False})
+    tip = compare_runs(tip_k, tip_p)
+    rec = {"phase": "reference_s2", "s2_32x32": {**s2,
+                                                  "launches": s2_launches},
+           "tip_rowloop": {**tip, "launches": tip_launches}}
+    emit(rec)
+    for name, r in (("s2", s2), ("tip row loop", tip)):
+        if r["max_abs_err"] > X_ATOL or not r["solver_qa_equal"]:
+            raise AssertionError(f"{name} fused update vs plain loop: {r}")
+    if s2_launches == 0 or tip_launches == 0:
+        raise AssertionError(f"fused update not launched: {rec}")
+    return rec
+
+
+def s2_truth(ny: int, nx: int, seed: int):
+    """The S2 sub-tile's truth: the SAIL mean with LAI 3 plus a seeded
+    per-pixel N(0, 0.02), clipped into the operator's bounds."""
+    from kafka_tpu_torch.engine.priors import sail_prior_arrays
+    from kafka_tpu_torch.obsops.prosail import ProsailOperator
+
+    mean = sail_prior_arrays()[0].copy()
+    mean[6] = np.exp(-1.5)
+    rng = np.random.default_rng(seed)
+    lo, hi = ProsailOperator.state_bounds
+    return np.clip(mean + rng.normal(0, 0.02, (ny, nx, 10)), lo, hi) \
+        .astype(np.float32)
+
+
+def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
+                  seed: int = 0):
+    """KalmanFilter.run over one S2 sub-tile through the row loop.
+    Returns the record, the fused update's inputs of the first iteration
+    of date KEEP_DATE, and that date's assimilate_date arguments."""
+    import torch
+
+    from kafka_tpu_torch.core import fused_update as fu_mod
+    from kafka_tpu_torch.core import solvers
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+    from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.solve_rows import solve_rows
+    from kafka_tpu_torch.engine import filter as filter_mod
+    from kafka_tpu_torch.engine import (PROSAIL_PARAMETER_LIST,
+                                        KalmanFilter, sail_prior)
+    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
+                                                   s2_observations)
+
+    def day(i):
+        return datetime.datetime(2017, 7, 3) + datetime.timedelta(days=i)
+
+    t_setup = time.perf_counter()
+    mask = np.ones((ny, nx), bool)
+    truth = s2_truth(ny, nx, seed)
+    grid_days = (0, 2, 4, 6, 8)
+    obs_days = (1, 3, 5, 7)
+    obs = s2_observations([day(i) for i in obs_days], lambda date: truth,
+                          angles=(30.5, 5.0, -50.0), sigma=0.005,
+                          mask_prob=0.1, seed=seed, device=device)
+    out = MemoryOutput()
+    prior = sail_prior(device)
+    kf = KalmanFilter(obs, out, mask, PROSAIL_PARAMETER_LIST,
+                      state_propagation=None, prior=prior,
+                      solver_options={"relaxation": 0.7}, device=device)
+    kf.set_trajectory_uncertainty(np.zeros(10))
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    setup_s = time.perf_counter() - t_setup
+
+    # Keep the fused update's inputs on the first iteration of date
+    # KEEP_DATE (clones: the solver's call goes through unchanged), the
+    # date's assimilate_date arguments, and each date's peak memory.
+    date_idx = [-1]
+    kept, kept_date_args, peaks = {}, {}, []
+    names = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
+             "pf_rows", "esc_row")
+    real_date = filter_mod.assimilate_date
+
+    def date_wrap(*args, **kwargs):
+        date_idx[0] += 1
+        if date_idx[0] == KEEP_DATE:
+            kept_date_args.update(args=args, kwargs=kwargs)
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        res = real_date(*args, **kwargs)
+        _sync(device)
+        peaks.append(torch.cuda.max_memory_allocated(device) if cuda
+                     else None)
+        return res
+
+    def keep(*args, **kwargs):
+        if date_idx[0] == KEEP_DATE and not kept:
+            kept.update((k, v.clone()) for k, v in zip(names, args))
+        return fused_update_rows(*args, **kwargs)
+
+    filter_mod.assimilate_date = date_wrap
+    solvers.fused_update_rows = keep
+    try:
+        fused_gn_rows.launches = fused_update_rows.launches = \
+            solve_rows.launches = 0
+        t0 = time.perf_counter()
+        kf.run([day(i) for i in grid_days], x0, None, p_inv0)
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        launches = {"fused_gn": fused_gn_rows.launches,
+                    "fused_update": fused_update_rows.launches,
+                    "solve_rows": solve_rows.launches}
+    finally:
+        filter_mod.assimilate_date = real_date
+        solvers.fused_update_rows = fu_mod.fused_update_rows
+    dates = kf.diagnostics_log
+    finite = outputs_finite(out, mask.shape)
+    per_date = date_records(dates, peaks)
+    iterations = sum(r["n_iterations"] for r in dates)
+    rec = {
+        "phase": "main_s2", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
+        "n_pad": kf.gather.n_pad, "windows": len(grid_days) - 1,
+        "dates_assimilated": len(dates), "kernel_launches": launches,
+        "iterations": iterations, "outputs_finite": finite,
+        "setup_s": setup_s, "run_s": run_s, "kept_date": KEEP_DATE,
+        "per_date": per_date,
+    }
+    emit(rec)
+    if len(dates) != len(obs_days):
+        raise AssertionError(f"{len(dates)} dates assimilated")
+    if launches["fused_update"] != iterations or iterations == 0:
+        raise AssertionError(f"{launches} launches for {iterations} "
+                             "iterations")
+    if not finite:
+        raise AssertionError("non-finite output raster")
+    if not kept or not kept_date_args:
+        raise AssertionError(f"no fused update on date {KEEP_DATE}")
+    return rec, kept, kept_date_args
+
+
+def prosail_update_rows(n_pix: int, device, seed: int = 11) -> dict:
+    """make_prosail_problem(n_pix) linearised at its forecast, as the
+    fused update's row inputs (no escalation)."""
+    import torch
+
+    from kafka_tpu_torch.core.fused_update import jac_to_rows
+    from kafka_tpu_torch.core.linalg import pack_rows
+    from kafka_tpu_torch.testing.synthetic import make_prosail_problem
+
+    op, bands, x0, p0, aux = make_prosail_problem(n_pix, seed=seed,
+                                                  device=device)
+    lin = op.linearize(aux, x0)
+    f32 = torch.float32
+    return dict(
+        jac_rows=jac_to_rows(lin.jac), h0=lin.h0.contiguous(),
+        y=bands.y.contiguous(), w=bands.r_inv.contiguous(),
+        m=bands.mask.to(f32).contiguous(), xl_rows=x0.T.contiguous(),
+        xf_rows=x0.T.contiguous(), pf_rows=pack_rows(p0),
+        esc_row=torch.zeros((1, n_pix), dtype=f32, device=device),
+    )
+
+
+def update_errors(out, ref) -> dict:
+    """Per-pixel errors of fused-update outputs against ``ref``: x (max
+    abs), A (max over entries, of the matrix's scale sqrt(A_ii A_jj)),
+    inn (max abs)."""
+    import torch
+
+    x, a, inn = out[0], out[1], out[2]
+    rx, ra, rinn = ref[0], ref[1], ref[2]
+    p = x.shape[0]
+    diag = ra[[i * (i + 1) // 2 + i for i in range(p)]].abs()
+    scale = torch.stack([torch.sqrt(diag[i] * diag[j])
+                         for i in range(p) for j in range(i + 1)])
+    return {"x": (x - rx).abs().max(dim=0).values,
+            "A": ((a - ra).abs() / scale.clamp_min(1e-30)).max(dim=0).values,
+            "inn": (inn - rinn).abs().max(dim=0).values}
+
+
+def phase_kernel_update(device, label: str, rows: dict,
+                        kernel_reps: int = 20, plain_reps: int = 2) -> dict:
+    """The fused-update kernel against its plain version on ``rows``
+    (float32 and float64), timed, with the function's bound."""
+    import torch
+
+    from kafka_tpu_torch.core import fused_update as fu
+
+    p, n = rows["xf_rows"].shape
+    nb = rows["h0"].shape[0]
+    kern = fu.fused_update_rows(**rows)
+    plain = fu.fused_update_raw_plain(**rows)
+    ref = [t.float() for t in fu.fused_update_raw_plain(
+        **{k: v.double() for k, v in rows.items()})]
+    _sync(device)
+    exact = {nm: int((~same_or_both_nan(a, b)).sum())
+             for nm, a, b in zip(("x", "A", "inn", "hb"), kern, plain)}
+    finite = all(bool(torch.isfinite(t).all()) for t in kern[:3])
+    vs_plain = {k: quantile_summary(v) for k, v in
+                update_errors(kern, plain).items()}
+    vs_ref = {k: quantile_summary(v) for k, v in
+              update_errors(kern, ref).items()}
+    plain_vs_ref = {k: quantile_summary(v) for k, v in
+                    update_errors(plain, ref).items()}
+    ms = time_ms(lambda: fu.fused_update_rows(**rows), device, kernel_reps)
+    plain_ms = time_ms(lambda: fu.fused_update_raw_plain(**rows), device,
+                       plain_reps)
+    read, written = update_floats(p, nb)
+    rec = {
+        "phase": "kernel_update", "case": label, "n_pix": n, "p": p,
+        "bands": nb, "finite": finite,
+        "max_abs_err": {nm: float((a - b).nan_to_num().abs().max())
+                        for nm, a, b in zip(("x", "A", "inn"), kern, plain)},
+        "pixels_differing_from_plain": exact,
+        "kernel_vs_plain": vs_plain, "kernel_vs_f64": vs_ref,
+        "plain_vs_f64": plain_vs_ref, "ms": ms, "plain_ms": plain_ms,
+        "floats_per_px": {"read": read, "written": written},
+        **bound(4.0 * (read + written) * n, update_flops(p, nb) * n),
+    }
+    emit(rec)
+    failures = held_quantiles(vs_ref, plain_vs_ref, ("x", "A", "inn"))
+    if not finite:
+        failures.append("non-finite kernel output")
+    if exact["hb"]:
+        failures.append(f"{exact['hb']} flag entries differ")
+    if failures:
+        raise AssertionError(f"kernel_update ({label}): "
+                             + "; ".join(failures))
+    return rec
+
+
+def phase_faults_update(device, rows: dict, n_each: int = 64) -> dict:
+    """Planted pixels on the kept fused-update inputs: indefinite P_f^-1
+    (breakdown), LM escalation, NaN y under a false mask in half the
+    bands, and a non-finite Jacobian entry.  x, A, inn and the flags must
+    be identical (NaN where NaN) to the plain version's on every planted
+    pixel, and the NaN y must not leak."""
+    import torch
+
+    from kafka_tpu_torch.core import fused_update as fu
+
+    r = {k: v.clone() for k, v in rows.items()}
+    p, n = r["xf_rows"].shape
+    nb = r["h0"].shape[0]
+    rng = np.random.default_rng(7)
+    pick = rng.permutation(n)[:4 * n_each]
+    names = ("breakdown", "escalated", "nan_y", "nonfinite_jac")
+    planted = {nm: torch.as_tensor(np.sort(pick[i * n_each:(i + 1)
+                                                * n_each]), device=device)
+               for i, nm in enumerate(names)}
+    r["pf_rows"][0, planted["breakdown"]] = -1e9
+    r["esc_row"][0, planted["escalated"]] = 1.0
+    half = slice(0, nb // 2)
+    px = planted["nan_y"]
+    r["y"][half, px] = float("nan")
+    r["m"][half, px] = 0.0
+    r["w"][half, px] = 0.0
+    r["jac_rows"][3, planted["nonfinite_jac"]] = float("inf")
+    kern = fu.fused_update_rows(**r)
+    plain = fu.fused_update_raw_plain(**r)
+    unplanted = fu.fused_update_rows(**{**r, "esc_row": rows["esc_row"]})
+    _sync(device)
+    k = dict(zip(("x", "A", "inn", "hb"), kern))
+    q = dict(zip(("x", "A", "inn", "hb"), plain))
+    failures, branches = [], {}
+    for nm, idx in planted.items():
+        equal = all(bool(same_or_both_nan(k[o][:, idx], q[o][:, idx]).all())
+                    for o in k)
+        hb0, hb1 = k["hb"][0, idx], k["hb"][1, idx]
+        if nm in ("breakdown", "nonfinite_jac"):
+            expected = bool((hb0 == 1).all())
+        elif nm == "escalated":
+            moved = ~same_or_both_nan(k["x"][:, idx],
+                                      unplanted[0][:, idx]).any(dim=0)
+            expected = bool((hb0 == 0).all()) and bool(moved.all()) and bool(
+                (k["A"][:, idx] == unplanted[1][:, idx]).all())
+        else:
+            expected = bool((hb0 == 0).all()) and all(
+                bool(torch.isfinite(k[o][:, idx]).all())
+                for o in ("x", "A", "inn")) and bool(
+                (k["inn"][half, idx] == 0).all())
+        branches[nm] = {"equal": equal, "expected": expected,
+                        "flagged": int((hb0 > 0).sum()),
+                        "nonfinite_x": int((hb1 > 0).sum())}
+        if not (equal and expected):
+            failures.append(f"{nm}: {branches[nm]}")
+    others = torch.ones(n, dtype=torch.bool, device=device)
+    others[torch.as_tensor(pick, device=device)] = False
+    rest = {o: int((~same_or_both_nan(k[o], q[o]))[:, others].sum())
+            for o in k}
+    rec = {"phase": "faults_update", "n_pix": n, "planted_per_branch":
+           n_each, "branches": branches,
+           "other_entries_differing_from_plain": rest}
+    emit(rec)
+    if failures:
+        raise AssertionError("faults_update: " + "; ".join(failures))
+    return rec
+
+
+def normal_equation_rows(rows: dict):
+    """(a_rows, rhs_rows) of the packed normal equations of fused-update
+    row inputs (the plain assembly)."""
+    import torch
+
+    from kafka_tpu_torch.core.fused_update import assemble_rows
+
+    a, rhs, _ = assemble_rows(*(rows[k] for k in (
+        "jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows", "pf_rows")))
+    return torch.stack(a), torch.stack(rhs)
+
+
+def tip_update_rows(kept: dict) -> dict:
+    """The kept TIP date's inputs as fused-update rows, linearised at the
+    forecast by the two-stream operator."""
+    import torch
+
+    x_rows = kept["xf_rows"]
+    h0, jac = kept["lin_rows"](tuple(x_rows[k] for k in range(7)))
+    return dict(
+        jac_rows=torch.stack([jac[b][k] for b in range(2)
+                              for k in range(7)]).contiguous(),
+        h0=torch.stack(h0).contiguous(), y=kept["y"], w=kept["r_inv"],
+        m=kept["mask_f"], xl_rows=x_rows, xf_rows=x_rows,
+        pf_rows=kept["pf_rows"])
+
+
+def phase_kernel_solve(device, label: str, a_rows, b_rows,
+                       kernel_reps: int = 20, plain_reps: int = 2) -> dict:
+    """The packed solve on one date's normal equations: once through
+    solve_spd_packed_kernel with the launch count reset (the kernel's
+    path), then against its plain version and a float64 solve, timed
+    beside torch.linalg.solve on the same systems as a dense batch."""
+    import torch
+
+    from kafka_tpu_torch.core import solve_rows as sr
+    from kafka_tpu_torch.core.linalg import unpack_rows
+
+    p, n = b_rows.shape
+    a_packed = [[None] * p for _ in range(p)]
+    for i in range(p):
+        for j in range(i + 1):
+            a_packed[i][j] = a_packed[j][i] = a_rows[tri(i) + j]
+    sr.solve_rows.launches = 0
+    x_path = sr.solve_spd_packed_kernel(a_packed, b_rows.T)
+    _sync(device)
+    launches = sr.solve_rows.launches
+    kern = sr.solve_rows(a_rows, b_rows)
+    plain = sr.solve_rows_plain(a_rows, b_rows)
+    ref = sr.solve_rows_plain(a_rows.double(), b_rows.double()).float()
+    dense = unpack_rows(a_rows)
+    rhs = b_rows.T.contiguous()[..., None]
+    lib = torch.linalg.solve(dense, rhs)[..., 0].T
+    _sync(device)
+    finite = bool(torch.isfinite(kern).all())
+    errs = {who: quantile_summary((out - ref).abs().max(dim=0).values)
+            for who, out in (("kernel", kern), ("plain", plain),
+                             ("library", lib))}
+    ms = time_ms(lambda: sr.solve_rows(a_rows, b_rows), device, kernel_reps)
+    plain_ms = time_ms(lambda: sr.solve_rows_plain(a_rows, b_rows), device,
+                       plain_reps)
+    library_ms = time_ms(lambda: torch.linalg.solve(dense, rhs), device,
+                         plain_reps)
+    rec = {
+        "phase": "kernel_solve", "case": label, "n_pix": n, "p": p,
+        "launches_on_path": launches, "finite": finite,
+        "path_equals_kernel": bool((x_path.T == kern).all()),
+        "max_abs_err": float((kern - plain).abs().max()),
+        "pixels_differing_from_plain": int((kern != plain).any(dim=0).sum()),
+        "x_err_vs_f64": errs, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        **bound(4.0 * (tri(p) + 2 * p) * n, chol_solve_flops(p) * n),
+    }
+    emit(rec)
+    failures = held_quantiles({"x": errs["kernel"]}, {"x": errs["plain"]},
+                              ("x",))
+    if not finite:
+        failures.append("non-finite kernel output")
+    if launches != 1 or not rec["path_equals_kernel"]:
+        failures.append(f"path: {launches} launches")
+    if failures:
+        raise AssertionError(f"kernel_solve ({label}): "
+                             + "; ".join(failures))
+    return rec
+
+
+def profile_device(fn, device, top: int = 8, match=()) -> dict:
+    """``fn()`` under torch.profiler: host wall, device busy time, idle
+    share, device time by kernel (the ``top`` ones), and the summed time
+    of the kernels whose names contain each string of ``match``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = assimilate_date(op.linearize, bands, x0, p_inv0, None, opts,
-                              device=device)
-        int(out[2].n_iterations)
+        fn()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -568,14 +1111,56 @@ def phase_profile(device, n_pix: int, top: int = 6) -> dict:
             rows.append((evt.key, dev_us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    rec = {"phase": "profile", "n_pix": n_pix, "wall_ms": wall_ms,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
-                                 if wall_ms else None),
-           "top_kernels": [{"name": k[:80], "ms": ms, "count": c}
-                           for k, ms, c in rows[:top]]}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
+                                  if wall_ms else None),
+            "device_kernel_launches": sum(r[2] for r in rows),
+            "top_kernels": [{"name": k[:80], "ms": ms, "count": c}
+                            for k, ms, c in rows[:top]],
+            "matched": {m: {"ms": sum(r[1] for r in rows if m in r[0]),
+                            "count": sum(r[2] for r in rows if m in r[0])}
+                        for m in match}}
+
+
+def phase_profile_s2(device, date_args: dict) -> dict:
+    """The kept S2 date's assimilate_date once more under torch.profiler,
+    with the fused update's share of the device time, and the wall time
+    of one blocked linearisation of the date alone."""
+    from kafka_tpu_torch.core import solvers
+    from kafka_tpu_torch.core.solvers import assimilate_date
+
+    args, kwargs = date_args["args"], date_args["kwargs"]
+    out = {}
+
+    def run():
+        out["r"] = assimilate_date(*args, **kwargs)
+        int(out["r"][2].n_iterations)
+
+    prof = profile_device(run, device, match=("fused_update_kernel",))
+    # One blocked linearisation of the date's forecast on its own: the
+    # layer the prediction says dominates an S2 date.
+    linearize, x_f, aux, opts = args[0], args[2], args[4], args[5]
+    block = int(opts.get("linearize_block", x_f.shape[0]))
+    linearize_ms = time_ms(lambda: solvers._blocked_linearize(
+        linearize, aux, x_f, block), device, 2)
+    rec = {"phase": "profile_s2", "n_pix": int(x_f.shape[0]),
+           "n_iterations": int(out["r"][2].n_iterations),
+           "linearize_block": block,
+           "linearize_wall_ms": linearize_ms, **prof}
     emit(rec)
     return rec
+
+
+def kernel_entry(name, route, source, replaces, launches, path, rec,
+                 err_key="x", library_ms=None, **extra) -> dict:
+    """One entry of the ``kernels`` line from a kernel phase record."""
+    err = rec["max_abs_err"]
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": err[err_key] if isinstance(err, dict) else err,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": library_ms, "n_pix": rec["n_pix"], **extra}
 
 
 def main() -> int:
@@ -585,45 +1170,82 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kafka_tpu_torch.core import _build, fused_gn
+    from kafka_tpu_torch.core import _build, fused_gn, fused_update, \
+        solve_rows
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    _build.load("fused_gn")
+    _build.build_all(KERNELS)
     build_s = time.perf_counter() - t0
-    log = _build.BUILDS["fused_gn"]["log"]
     emit({
         "phase": "device", "nvidia_smi": smi,
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "nvcc_flags": list(_build.NVCC_FLAGS),
-        "ptxas": [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln],
-        "attributes": fused_gn.kernel_attributes(),
+        "source_flags": {k: list(v) for k, v in _build.SOURCE_FLAGS.items()},
+        "ptxas": {nm: [ln.strip() for ln in
+                       _build.BUILDS[nm]["log"].splitlines()
+                       if "registers" in ln or "spill" in ln]
+                  for nm in KERNELS},
+        "attributes": {
+            "fused_gn": fused_gn.kernel_attributes(),
+            **{f"fused_update_{p}x{nb}": fused_update.kernel_attributes(p, nb)
+               for p, nb in fused_update.INSTANCES},
+            **{f"solve_rows_{p}": solve_rows.kernel_attributes(p)
+               for p in solve_rows.INSTANCES},
+        },
     })
     phase_reference(device)
+    phase_reference_s2(device)
     main_rec, kept = phase_main(device)
     tile = phase_kernel(device, "main_path_date", kept)
     small = phase_kernel(device, "2^19", problem_rows(2 ** 19, device),
                          plain_reps=3)
     phase_faults(device, kept)
+    tip_rows = tip_update_rows(kept)
     del kept
+    s2_rec, kept_s2, s2_date_args = phase_main_s2(device)
+    upd = phase_kernel_update(device, "main_s2_date", kept_s2)
+    upd_small = phase_kernel_update(device, "2^19",
+                                    prosail_update_rows(2 ** 19, device))
+    phase_faults_update(device, kept_s2)
+    solve_s2 = phase_kernel_solve(device, "main_s2_date",
+                                  *normal_equation_rows(kept_s2))
+    del kept_s2
+    solve_tip = phase_kernel_solve(device, "main_tip_date",
+                                   *normal_equation_rows(tip_rows))
+    del tip_rows
     phase_profile(device, main_rec["n_pad"])
+    phase_profile_s2(device, s2_date_args)
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "fused_gn", "route": "cuda",
-        "source": "kafka_tpu_torch/csrc/fused_gn.cu",
-        "replaces": KERNEL_REPLACES,
-        "launches": main_rec["kernel_launches"],
-        "max_abs_err": tile["max_abs_err"]["x"],
-        "max_abs_err_vs_f64": tile["kernel_vs_f64"]["x"]["max"],
-        "ms": tile["ms"], "plain_ms": tile["plain_ms"],
-        "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
-        "library_ms": None,
-        "n_pix": tile["n_pix"],
-        "at_2^19": {k: small[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by")},
-    }]})
+
+    def at(rec):
+        return {k: rec[k] for k in ("n_pix", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")}
+
+    emit({"kernels": [
+        kernel_entry(
+            "fused_gn", "cuda", "kafka_tpu_torch/csrc/fused_gn.cu",
+            KERNEL_REPLACES, main_rec["kernel_launches"],
+            "phase main: KalmanFilter.run, MODIS tile", tile,
+            max_abs_err_vs_f64=tile["kernel_vs_f64"]["x"]["max"],
+            **{"at_2^19": at(small)}),
+        kernel_entry(
+            "fused_update", "cuda", "kafka_tpu_torch/csrc/fused_update.cu",
+            UPDATE_REPLACES, s2_rec["kernel_launches"]["fused_update"],
+            "phase main_s2: KalmanFilter.run, S2 sub-tile", upd,
+            max_abs_err_vs_f64=upd["kernel_vs_f64"]["x"]["max"],
+            **{"at_2^19": at(upd_small)}),
+        kernel_entry(
+            "solve_rows", "cuda", "kafka_tpu_torch/csrc/solve_rows.cu",
+            SOLVE_REPLACES, solve_s2["launches_on_path"],
+            "phase kernel_solve: solve_spd_packed_kernel on the S2 date's "
+            "normal equations", solve_s2,
+            library_ms=solve_s2["library_ms"],
+            max_abs_err_vs_f64=solve_s2["x_err_vs_f64"]["kernel"]["max"],
+            **{"tip_date_p7": {**at(solve_tip),
+                               "library_ms": solve_tip["library_ms"]}}),
+    ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -15,7 +15,9 @@ import torch
 from . import resolve_device
 from .core.propagators import PixelPrior
 from .core.types import BandBatch
-from .engine.priors import FixedGaussianPrior
+from .engine.priors import (PROSAIL_PARAMETER_LIST, FixedGaussianPrior,
+                            sail_prior_arrays)
+from .obsops.prosail import ProsailAux
 
 
 def tensor(a, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -57,3 +59,22 @@ def solver_options(opts, device=None) -> dict:
         lo, hi = out["state_bounds"]
         out["state_bounds"] = (tensor(lo, device), tensor(hi, device))
     return out
+
+
+def prosail_aux(aux, device=None) -> ProsailAux:
+    """A port ``ProsailAux`` from the JAX one's fields (numpy-convertible
+    scalars or ``(n_pix,)`` arrays): each angle becomes a float32 tensor
+    on ``device``, 0-d when it was a scalar, so broadcast and per-pixel
+    leaves keep their roles."""
+    return ProsailAux(*(tensor(v, device) for v in (aux.sza, aux.vza,
+                                                     aux.raa)))
+
+
+def sail_prior(mean=None, cov=None, inv_cov=None,
+               device=None) -> FixedGaussianPrior:
+    """The SAIL prior from the numpy fields of the JAX ``sail_prior()``
+    (its constants when none are given)."""
+    if mean is None:
+        mean, cov, inv_cov = sail_prior_arrays()
+    return fixed_gaussian_prior(mean, cov, inv_cov, PROSAIL_PARAMETER_LIST,
+                                device)

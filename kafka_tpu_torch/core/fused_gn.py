@@ -33,11 +33,7 @@ import numpy as np
 import torch
 
 from . import solver_health
-from .linalg import cholesky_packed, solve_chol_vectors
-
-
-def tri_rows(p: int) -> int:
-    return p * (p + 1) // 2
+from .linalg import cholesky_packed, solve_chol_vectors, tri_rows
 
 
 def _idx(i: int, j: int) -> int:
@@ -237,20 +233,6 @@ def fused_gn_raw_plain(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
             torch.stack(inn), st, hl)
 
 
-def _check_rows(name, t, rows, n, dev):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.device != dev:
-        raise ValueError(f"{name} lies on {t.device}, expected {dev}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != (rows, n):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{(rows, n)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                  min_iterations, max_iterations, relaxation,
                  state_bounds_rows, norm_denominator, block, corrupt):
@@ -272,11 +254,11 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     for name, t, rows in (("y", y, 2), ("r_inv", r_inv, 2),
                           ("mask_f", mask_f, 2), ("xf_rows", xf_rows, 7),
                           ("pf_rows", pf_rows, 28)):
-        _check_rows(name, t, rows, n, dev)
+        _build.check_rows(name, t, rows, n, dev)
     cor_ptr = None  # no corruption row: the kernel reads none
     if corrupt is not None:
         cor = corrupt.reshape(1, n)
-        _check_rows("corrupt", cor, 1, n, dev)
+        _build.check_rows("corrupt", cor, 1, n, dev)
         cor_ptr = cor.data_ptr()
     block = _block(n, block)
     relax, thresh_sq, moving_sq = _scalars(
@@ -306,12 +288,7 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
             int(max_iterations), int(has_bounds), float(relax),
             float(thresh_sq), float(moving_sq),
             bnd_host.ctypes.data, stream)
-    if rc != 0:
-        lib.kafka_cuda_error_string.restype = ctypes.c_char_p
-        lib.kafka_cuda_error_string.argtypes = [ctypes.c_int]
-        msg = lib.kafka_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_gn kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+    _build.raise_on_error(lib, rc, "fused_gn")
     fused_gn_rows.launches += 1
     return x, a, fwd, inn, st, hl
 
@@ -321,16 +298,8 @@ def kernel_attributes() -> dict:
     of the compiled CUDA kernel (builds it if needed)."""
     from . import _build
 
-    lib = _build.load("fused_gn")
-    out = (ctypes.c_int * 4)()
-    fn = lib.kafka_fused_gn_twostream_attributes
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p]
-    rc = fn(ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: {rc}")
-    return {"registers": out[0], "local_bytes": out[1],
-            "static_shared_bytes": out[2], "threads": out[3]}
+    return _build.attributes("fused_gn",
+                             "kafka_fused_gn_twostream_attributes")
 
 
 def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,

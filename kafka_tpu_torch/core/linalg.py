@@ -3,10 +3,15 @@
 The packed Cholesky and the substitution work on lists of same-shape
 batch vectors, so one implementation serves the ``(n,)`` batch layout of
 the plain solver and the ``(n,)`` lane rows of the fused kernel's plain
-version; ``csrc/fused_gn.cu`` mirrors the same loops as device code.
+version; ``csrc/fused_gn.cu`` and ``csrc/packed_chol.cuh`` (shared by
+the fused update and the packed solve) mirror the same loops as device
+code.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -75,12 +80,50 @@ def pack_symmetric(a: torch.Tensor):
     return out
 
 
+def tri_rows(p: int) -> int:
+    return p * (p + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_index(p: int, kind: str, device: torch.device) -> torch.Tensor:
+    """The gather index of ``pack_rows`` (``kind="pack"``: the flat
+    ``i * p + j`` of each packed row ``i (i + 1) / 2 + j``, j <= i) or of
+    ``unpack_rows`` (``"unpack"``: the packed row of each dense entry
+    ``(i, j)``, mirrored), made once per p and device."""
+    if kind == "pack":
+        idx = [i * p + j for i in range(p) for j in range(i + 1)]
+    else:
+        idx = [max(i, j) * (max(i, j) + 1) // 2 + min(i, j)
+               for i in range(p) for j in range(p)]
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+def pack_rows(a: torch.Tensor) -> torch.Tensor:
+    """Dense ``(n, p, p)`` -> ``(p(p+1)/2, n)`` float32 lower-triangle rows,
+    one indexed gather over the flattened ``(n, p*p)`` batch (a broadcast
+    prior stays a view until the gather)."""
+    n, p = a.shape[0], a.shape[-1]
+    flat_t = a.reshape(n, p * p).T
+    return flat_t.index_select(0, _gather_index(p, "pack", a.device)) \
+        .to(torch.float32)
+
+
+def unpack_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``(p(p+1)/2, n)`` packed rows -> dense ``(n, p, p)``, one indexed
+    gather (bit-identical copies of the packed entries)."""
+    n_coeff, n = rows.shape
+    p = (math.isqrt(8 * n_coeff + 1) - 1) // 2
+    if tri_rows(p) != n_coeff:
+        raise ValueError(f"{n_coeff} rows is not a packed triangle")
+    return rows.T.index_select(1, _gather_index(p, "unpack", rows.device)) \
+        .view(n, p, p)
+
+
 def unpack_symmetric(a_packed) -> torch.Tensor:
-    """Packed list-of-lists -> dense (..., p, p)."""
+    """Packed list-of-lists of ``(n,)`` vectors -> dense ``(n, p, p)``."""
     p = len(a_packed)
-    rows = [torch.stack([a_packed[i][j] for j in range(p)], dim=-1)
-            for i in range(p)]
-    return torch.stack(rows, dim=-2)
+    return unpack_rows(torch.stack([a_packed[i][j] for i in range(p)
+                                    for j in range(i + 1)]))
 
 
 def solve_spd_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

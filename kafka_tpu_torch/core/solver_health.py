@@ -14,8 +14,9 @@ the values land in ``solver_qa`` rasters, so they must stay identical:
 ``QA_NODATA``       16 no valid observation in any band
 ================== === ==================================================
 
-The plain solver, the fused kernel's plain version (``core.fused_gn``)
-and the CUDA kernel (``csrc/fused_gn.cu``) implement the same
+The plain solver, the fused kernels' plain versions (``core.fused_gn``,
+``core.fused_update``) and the CUDA kernels (``csrc/fused_gn.cu``,
+``csrc/fused_update.cu``) implement the same
 detect -> retreat -> quarantine steps with these constants.
 """
 

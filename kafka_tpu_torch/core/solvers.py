@@ -10,22 +10,24 @@ Per pixel the analysis solves the linearised normal equations
 inside a Gauss-Newton loop (reference constants: tol 1e-3 on
 ``||dx||_2 / numel``, at least 2 solves, bail after 25).
 
-Two paths, chosen by the ``use_pallas`` solver option (the JAX option
-keys carry over unchanged, ``STRUCTURAL_OPTION_KEYS``):
+Paths, chosen by the ``use_pallas`` solver option (the JAX option keys
+carry over unchanged, ``STRUCTURAL_OPTION_KEYS``).  Unset, or True, means
+the fused path for every problem on the packed small-state path
+(p <= ``UNROLL_MAX_P``, <= 32 bands):
 
-- the fused kernel (``core.fused_gn``): the whole loop in one launch, for
-  operators that advertise ``inkernel_linearize``.  It is the default for
-  such operators;
-- the plain global-norm loop with solve health
-  (``_iterated_solve_health``), for ``{"use_pallas": False}`` and for
-  operators without an in-kernel linearisation.
+- the in-kernel branch (``core.fused_gn``): the whole loop in one
+  launch, for operators that advertise ``inkernel_linearize`` when the
+  JAX engagement conditions hold (empty operator params, int iteration
+  bounds, per-parameter state bounds, ``inkernel_linearize`` not opted
+  out);
+- otherwise the out-of-kernel row loop: linearise (blocked on big
+  batches), then one launch of the fused update (``core.fused_update``,
+  kernel 2) per Gauss-Newton iteration;
 
-Where ``use_pallas`` is set but the in-kernel branch cannot engage, the
-JAX package would run its out-of-kernel row loop around
-``_fused_update_kernel``; that kernel is not ported yet, so the port
-raises ``NotImplementedError`` instead of running something else.
-Not ported in this slice either: ``per_pixel_convergence``, the dense
-large-p fallback and the Hessian correction.
+and ``{"use_pallas": False}`` opts out to the plain global-norm loop with
+solve health (``_iterated_solve_health``).  Not ported:
+``per_pixel_convergence``, the dense large-p fallback and the Hessian
+correction.
 """
 
 from __future__ import annotations
@@ -38,11 +40,15 @@ import torch
 
 from . import solver_health
 from .fused_gn import fused_gn_rows
+from .fused_update import fused_update, fused_update_rows, jac_to_rows
 from .linalg import (
     UNROLL_MAX_P,
     cholesky_packed,
+    pack_rows,
     solve_chol_vectors,
     solve_spd_packed,
+    tri_rows,
+    unpack_rows,
     unpack_symmetric,
 )
 from .types import BandBatch, Linearization, SolveDiagnostics
@@ -57,13 +63,6 @@ STRUCTURAL_OPTION_KEYS = (
     "linearize_block", "use_pallas", "per_pixel_convergence",
     "inkernel_linearize", "min_iterations", "max_iterations",
 )
-
-_KERNEL2_MISSING = (
-    "the out-of-kernel fused update (kernel 2, "
-    "kafka_tpu/core/pallas_solve.py:_fused_update_kernel) is not ported "
-    "yet; pass solver option use_pallas=False for the plain loop"
-)
-
 
 def build_normal_equations_packed(lin: Linearization, obs: BandBatch,
                                   x_lin, x_forecast, p_inv_forecast):
@@ -125,17 +124,19 @@ def _packed_update_health(lin, obs, x_lin, x_forecast, p_inv_forecast, esc):
 
 def kalman_update(lin: Linearization, obs: BandBatch, x_lin, x_forecast,
                   p_inv_forecast, use_pallas: bool = False):
-    """One linearised update: ``(x_analysis, A)``.  The packed path only;
-    its fused kernel (kernel 2) and the dense large-p form are not ported
-    yet."""
-    if use_pallas:
-        raise NotImplementedError(_KERNEL2_MISSING)
+    """One linearised update: ``(x_analysis, A)``.  The packed path only
+    (the dense large-p form is not ported); ``use_pallas`` runs it as one
+    launch of the fused update (``core.fused_update``)."""
     p = x_forecast.shape[-1]
     if p > UNROLL_MAX_P or lin.jac.shape[0] > 32:
         raise NotImplementedError(
             f"the dense large-p update (p={p}, {lin.jac.shape[0]} bands) "
             "is not ported yet"
         )
+    if use_pallas:
+        x, a_packed = fused_update(lin, obs, x_lin, x_forecast,
+                                   p_inv_forecast)
+        return x, unpack_symmetric(a_packed)
     a_packed, b = build_normal_equations_packed(
         lin, obs, x_lin, x_forecast, p_inv_forecast
     )
@@ -165,27 +166,62 @@ def _params_empty(operator_params) -> bool:
     return False
 
 
-def _pack_rows(p_inv_forecast, p: int):
-    """(n, p, p) dense -> (p(p+1)/2, n) packed lower-triangle rows."""
-    return torch.stack([p_inv_forecast[:, i, j].to(torch.float32)
-                        for i in range(p) for j in range(i + 1)])
+def _bounds_rows(state_bounds, n_pix: int, p: int, dev):
+    """``(lo, hi)`` in row layout for the row loop: scalars broadcast,
+    ``(p,)`` vectors become ``(p, 1)``, ``(n_pix, p)`` arrays ``(p, n_pix)``
+    (the shapes ``torch.clamp`` of the plain loop accepts); anything else
+    raises here with a shape message."""
+    def to_rows(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        if v.ndim == 0:
+            return v
+        if v.ndim == 1:
+            if v.shape[0] != p:
+                raise ValueError(f"state_bounds vector has {v.shape[0]} "
+                                 f"entries for p={p} parameters")
+            return v[:, None]
+        if v.ndim == 2:
+            if tuple(v.shape) != (n_pix, p):
+                raise ValueError(
+                    f"state_bounds array has shape {tuple(v.shape)}; "
+                    f"expected (n_pix, p) = ({n_pix}, {p})")
+            return v.T
+        raise ValueError("state_bounds must be scalar, (p,) or (n_pix, p); "
+                         f"got ndim={v.ndim}")
+
+    lo, hi = state_bounds
+    return to_rows(lo), to_rows(hi)
 
 
 def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
                          operator_params, tol, min_iterations,
                          max_iterations, relaxation, state_bounds,
-                         norm_denominator, inkernel_linearize=True,
-                         corrupt=None):
-    """The in-kernel branch: the whole loop in ``fused_gn_rows``.
-    Engages when the operator advertises ``inkernel_linearize``, the
-    operator params are empty, the iteration bounds are static ints and
-    the bounds are per-parameter; otherwise raises (kernel 2 missing)."""
+                         norm_denominator, linearize_block=None,
+                         inkernel_linearize=True, corrupt=None):
+    """The fused path in row layout (JAX ``_iterated_solve_rows``).
+
+    The in-kernel branch runs the whole loop in ``fused_gn_rows`` when
+    the operator advertises ``inkernel_linearize``, the operator params
+    are empty, the iteration bounds are ints and the bounds are
+    per-parameter.  Otherwise the out-of-kernel row loop: P_f^-1 is packed
+    to (tri(p), n) rows once, the iterate is carried as (p, n) rows, and
+    each iteration linearises (in blocks when ``linearize_block`` is
+    smaller than the batch) and launches the fused update once; the LM
+    retreat, damped relaxation and bounds projection run around it, and
+    the loop keeps the while loop's post-increment cap."""
     f32 = torch.float32
     n_pix, p = x_forecast.shape
+    n_bands = obs.y.shape[0]
+    dev = x_forecast.device
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
+    xf_rows = x_forecast.T.to(f32).contiguous()
+    pf_rows = pack_rows(p_inv_forecast)
+    y = obs.y.to(f32).contiguous()
+    w = obs.r_inv.to(f32).contiguous()
+    mask_f = obs.mask.to(f32).contiguous()
     owner = getattr(linearize, "__self__", None)
     kernel_bounds = _kernel_bounds_rows(state_bounds, p)
-    if not (
+    if (
         inkernel_linearize
         and owner is not None
         and getattr(owner, "inkernel_linearize", False)
@@ -194,29 +230,116 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
         and isinstance(max_iterations, int)
         and kernel_bounds is not False
     ):
-        raise NotImplementedError(
-            "use_pallas is set but the in-kernel Gauss-Newton path cannot "
-            "engage (it needs an inkernel_linearize operator, empty "
-            "operator params, int iteration bounds and per-parameter "
-            "state bounds); " + _KERNEL2_MISSING
-        )
-    xf_rows = x_forecast.T.to(f32).contiguous()
-    pf_rows = _pack_rows(p_inv_forecast, p).contiguous()
-    cor = None if corrupt is None else corrupt.to(f32).contiguous()
-    x_rows, a_rows, fwd, inn, n_done, norm, verd, nonfin, clip_sat = \
-        fused_gn_rows(
-            owner.kernel_linearize_rows, obs.y.to(f32).contiguous(),
-            obs.r_inv.to(f32).contiguous(), obs.mask.to(f32).contiguous(),
-            xf_rows, pf_rows, tol, min_iterations, max_iterations,
-            relaxation, kernel_bounds, numel, corrupt=cor,
-            device=x_forecast.device,
-        )
-    a_packed = [[None] * p for _ in range(p)]
-    for i in range(p):
-        for j in range(i + 1):
-            a_packed[i][j] = a_packed[j][i] = a_rows[i * (i + 1) // 2 + j]
-    return (x_rows.T, unpack_symmetric(a_packed), fwd, inn, n_done, norm,
-            (verd, nonfin, clip_sat))
+        cor = None if corrupt is None else corrupt.to(f32).contiguous()
+        x_rows, a_rows, fwd, inn, n_done, norm, verd, nonfin, clip_sat = \
+            fused_gn_rows(
+                owner.kernel_linearize_rows, y, w, mask_f, xf_rows, pf_rows,
+                tol, min_iterations, max_iterations, relaxation,
+                kernel_bounds, numel, corrupt=cor, device=dev,
+            )
+        return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done, norm,
+                (verd, nonfin, clip_sat))
+
+    use_block = linearize_block is not None \
+        and 0 < int(linearize_block) < n_pix
+    lo = hi = None
+    if state_bounds is not None:
+        lo, hi = _bounds_rows(state_bounds, n_pix, p, dev)
+    tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
+    numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
+    relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
+
+    def body_step(x_rows, esc):
+        x_cols = x_rows.T
+        if use_block:
+            lin = _blocked_linearize(linearize, operator_params, x_cols,
+                                     int(linearize_block))
+        else:
+            lin = _call_linearize(linearize, operator_params, x_cols)
+        h0 = lin.h0.to(f32)
+        if corrupt is not None:
+            h0 = solver_health.corrupt_h0(h0, corrupt)
+        h0 = h0.contiguous()
+        jac_rows = jac_to_rows(lin.jac.to(f32))
+        del lin
+        x_raw, a_rows, inn, hb = fused_update_rows(
+            jac_rows, h0, y, w, mask_f, x_rows, xf_rows, pf_rows,
+            esc[None, :].contiguous())
+        step_bad = hb[0] > 0
+        # LM retreat: bad pixels hold position, escalated pixels take
+        # shrunk-relaxation steps; healthy arithmetic is unchanged.
+        esc_now = torch.maximum(esc, step_bad.to(f32))
+        x_tgt = solver_health.retreat(x_raw, x_rows, step_bad[None, :])
+        relax_eff = solver_health.damped_relaxation(relax_t, esc_now)[None, :]
+        x_new = x_rows + relax_eff * (x_tgt - x_rows)
+        at_bound = None
+        if lo is not None:
+            x_new = torch.minimum(torch.maximum(x_new, lo), hi)
+            at_bound = (x_new <= lo) | (x_new >= hi)
+        # fwd = J (x - x_f) + H0 at the damped, projected iterate.
+        fwd = []
+        for b in range(n_bands):
+            s = jac_rows[b * p] * (x_new[0] - xf_rows[0])
+            for k in range(1, p):
+                s = s + jac_rows[b * p + k] * (x_new[k] - xf_rows[k])
+            fwd.append(s + h0[b])
+        return (x_new.contiguous(), a_rows, torch.stack(fwd), inn, esc_now,
+                step_bad, hb[1] > 0, at_bound)
+
+    x_rows = xf_rows
+    a_rows = torch.zeros((tri_rows(p), n_pix), dtype=f32, device=dev)
+    fwd = torch.zeros((n_bands, n_pix), dtype=f32, device=dev)
+    inn = torch.zeros((n_bands, n_pix), dtype=f32, device=dev)
+    esc = torch.zeros(n_pix, dtype=f32, device=dev)
+    nonfin = torch.zeros(n_pix, dtype=f32, device=dev)
+    bad_now = torch.zeros(n_pix, dtype=f32, device=dev)
+    ssq = torch.full((n_pix,), float("inf"), dtype=f32, device=dev)
+    clip = torch.ones((p, n_pix), dtype=f32, device=dev)
+    n_done = 0
+    norm = torch.tensor(float("inf"), dtype=f32, device=dev)
+    while True:
+        # One host sync per iteration: the while loop's condition.
+        converged = bool(norm < tol_t) and n_done >= min_iterations
+        if converged or n_done > max_iterations:
+            break
+        x_new, a_rows, fwd, inn, esc, step_bad, x_nonfin, at_bound = \
+            body_step(x_rows, esc)
+        if at_bound is not None:
+            clip = clip * at_bound.to(f32)
+        step = x_new - x_rows
+        norm = torch.linalg.vector_norm(step) / numel_t
+        nonfin = torch.maximum(nonfin, x_nonfin.to(f32))
+        bad_now = step_bad.to(f32)
+        ssq = (step * step).sum(dim=0)
+        x_rows = x_new
+        n_done += 1
+    # Quarantine: still-bad pixels fall back to the forecast with
+    # deflated information; their fwd/innovation diagnostics are zeroed.
+    observed = obs.mask.any(dim=0)
+    quar = (
+        (bad_now > 0)
+        | solver_health.nonfinite_any([x_rows[k] for k in range(p)])
+        | solver_health.nonfinite_any(
+            [a_rows[r] for r in range(tri_rows(p))])
+    ) & observed
+    x_rows = solver_health.quarantine_select(quar[None, :], xf_rows, x_rows)
+    a_rows = solver_health.quarantine_select(
+        quar[None, :], solver_health.QUARANTINE_INFO_SCALE * pf_rows, a_rows)
+    fwd = solver_health.quarantine_select(quar[None, :], 0.0, fwd)
+    inn = solver_health.quarantine_select(quar[None, :], 0.0, inn)
+    moving_sq = float(np.float32(np.float32(tol) * np.float32(p)) ** 2)
+    verd = solver_health.assemble_verdicts(
+        observed, quar, n_done > max_iterations, ssq >= moving_sq, esc > 0,
+    )
+    nonfin_count = ((nonfin > 0) & observed).sum().to(torch.int32)
+    if lo is not None:
+        clip_sat = ((clip > 0) & observed[None, :]).sum(dim=1) \
+            .to(torch.int32)
+    else:
+        clip_sat = torch.zeros(p, dtype=torch.int32, device=dev)
+    n_done_t = torch.tensor(n_done, dtype=torch.int32, device=dev)
+    return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done_t, norm,
+            (verd, nonfin_count, clip_sat))
 
 
 def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
@@ -302,15 +425,6 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
         (verd, nonfin_count, clip_sat)
 
 
-def _resolve_use_pallas(use_pallas, linearize) -> bool:
-    """The port's kernel rule: unset means "the fused kernel when the
-    operator advertises an in-kernel linearisation"."""
-    if use_pallas is None:
-        owner = getattr(linearize, "__self__", None)
-        return bool(getattr(owner, "inkernel_linearize", False))
-    return bool(use_pallas)
-
-
 def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
                    p_inv_forecast, operator_params: Any = None,
                    tol: float = CONVERGENCE_TOL,
@@ -324,8 +438,8 @@ def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
     """Gauss-Newton relinearisation loop in global-norm mode with solve
     health; returns ``(x_analysis, p_inv_analysis, diagnostics)``.
     Options mean what they mean in the JAX ``iterated_solve``;
-    ``use_pallas=None`` picks the fused kernel when the operator
-    advertises ``inkernel_linearize``."""
+    ``use_pallas=None`` (the port's default) means the fused path, as
+    ``True`` does; ``False`` is the plain loop."""
     n_pix, p = x_forecast.shape
     n_bands = obs.y.shape[0]
     if per_pixel_convergence:
@@ -339,12 +453,12 @@ def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
         raise NotImplementedError(
             "the Hessian correction is not ported yet (ROADMAP)")
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
-    if _resolve_use_pallas(use_pallas, linearize):
+    if use_pallas is None or use_pallas:
         x, a, fwd, innovations, n_done, norm, health = _iterated_solve_rows(
             linearize, obs, x_forecast, p_inv_forecast, operator_params,
             tol, min_iterations, max_iterations, relaxation, state_bounds,
-            norm_denominator, inkernel_linearize=inkernel_linearize,
-            corrupt=corrupt,
+            norm_denominator, linearize_block,
+            inkernel_linearize=inkernel_linearize, corrupt=corrupt,
         )
     else:
         use_block = linearize_block is not None \
@@ -422,21 +536,68 @@ def _call_linearize(linearize, operator_params, x):
     return linearize(x)
 
 
+def _aux_leaves(tree):
+    """The leaves of an aux tree (dict / list / tuple / NamedTuple; any
+    other value is a leaf), in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in _aux_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _aux_leaves(v)]
+    return [tree]
+
+
+def _aux_rebuild(tree, leaves):
+    """``tree`` with its leaves replaced, in ``_aux_leaves`` order, from
+    the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _aux_rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_aux_rebuild(v, leaves) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return next(leaves)
+
+
+def _pad_edge(t: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Pad the leading axis by repeating its last entry ``n_pad`` times."""
+    if n_pad == 0:
+        return t
+    return torch.cat([t, t[-1:].expand((n_pad,) + tuple(t.shape[1:]))])
+
+
 def _blocked_linearize(linearize, operator_params, x, block: int):
-    """Linearise in sequential pixel blocks to bound peak memory.  Per-pixel
-    operator params would have to be split alongside; this slice supports
-    operators without params only."""
-    if not _params_empty(operator_params):
-        raise NotImplementedError(
-            "blocked linearisation of operators with per-date params is "
-            "not ported yet")
+    """Linearise in sequential pixel blocks to bound peak device memory
+    (the JAX ``_blocked_linearize``: ``block`` is a maximum, the pixels
+    split evenly into the fewest blocks that respect it, the last block
+    edge-padded).  Per-pixel aux leaves are sliced with their pixels and
+    the rest closed over; the operator's ``aux_in_axes`` decides which is
+    which (0 = per pixel), and plain closures fall back to the
+    leading-axis test."""
     n_pix = x.shape[0]
     n_blocks = -(-n_pix // block)
     block = -(-n_pix // n_blocks)
-    parts = [_call_linearize(linearize, operator_params, x[s:s + block])
-             for s in range(0, n_pix, block)]
-    return Linearization(h0=torch.cat([q.h0 for q in parts], dim=1),
-                         jac=torch.cat([q.jac for q in parts], dim=1))
+    n_pad = n_blocks * block - n_pix
+    x_pad = _pad_edge(x, n_pad)
+    leaves = _aux_leaves(operator_params)
+    owner = getattr(linearize, "__self__", None)
+    if owner is not None and hasattr(owner, "aux_in_axes"):
+        axes = _aux_leaves(owner.aux_in_axes(operator_params, n_pix))
+        per_pixel = [a == 0 for a in axes]
+    else:
+        per_pixel = [isinstance(leaf, torch.Tensor) and leaf.ndim > 0
+                     and leaf.shape[0] == n_pix for leaf in leaves]
+    padded = [_pad_edge(leaf, n_pad) if flag else leaf
+              for leaf, flag in zip(leaves, per_pixel)]
+    h0s, jacs = [], []
+    for s in range(0, n_blocks * block, block):
+        block_leaves = [leaf[s:s + block] if flag else leaf
+                        for leaf, flag in zip(padded, per_pixel)]
+        params = _aux_rebuild(operator_params, iter(block_leaves))
+        lin = _call_linearize(linearize, params, x_pad[s:s + block])
+        h0s.append(lin.h0)
+        jacs.append(lin.jac)
+    return Linearization(h0=torch.cat(h0s, dim=1)[:, :n_pix],
+                         jac=torch.cat(jacs, dim=1)[:, :n_pix])
 
 
 def _split_structural_options(opts: dict):

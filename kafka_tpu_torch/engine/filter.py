@@ -5,7 +5,9 @@ temporal grid, advance the state between steps, assimilate every
 acquisition in the window (all bands jointly), dump each timestep's
 analysis.  Each date is one ``core.solvers.assimilate_date`` call; for
 the two-stream operator that is one launch of the fused Gauss-Newton
-kernel.
+kernel, for PROSAIL one launch of the fused update per Gauss-Newton
+iteration.  The date's ``obs.aux`` reaches the solver as the operator
+params.
 
 This slice runs the unfused loop (one window at a time) with
 synchronous reads.  Not ported yet: prefetch, temporal fusion,
@@ -106,7 +108,8 @@ class KalmanFilter:
         """The per-date solver-option dict as the time loop dispatches it:
         the operator's state bounds, the convergence norm over valid
         pixels only, and blocked linearisation on big batches (used by
-        the plain loop; the fused kernel ignores it)."""
+        the row loop and the plain loop; the in-kernel fused Gauss-Newton
+        path ignores it)."""
         opts = dict(self.solver_options or {})
         if "state_bounds" not in opts and \
                 getattr(operator, "state_bounds", None) is not None:

@@ -1,4 +1,5 @@
-"""Prior objects (port of the TIP part of ``kafka_tpu/engine/priors.py``)."""
+"""Prior objects (port of the TIP and S2 parts of
+``kafka_tpu/engine/priors.py``)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from ..core.propagators import PixelPrior, broadcast_prior, tip_prior_arrays
+from ..obsops.prosail import PROSAIL_PARAMETER_LIST
 from .state import PixelGather
 
 # The 7-parameter TIP state of the MODIS drivers (kafka_test.py:159-160).
@@ -51,3 +53,32 @@ def jrc_prior(device=None) -> FixedGaussianPrior:
         PixelPrior(mean=t(mean), cov=t(cov), inv_cov=t(inv_cov)),
         TIP_PARAMETER_LIST,
     )
+
+
+def sail_prior_arrays():
+    """The S2/PROSAIL prior's ``(mean, cov, inv_cov)`` as float32 numpy:
+    the reference's transformed-space means and sigmas
+    (``kafka_test_S2.py:84-92``), ``lai`` slot in TLAI space."""
+    mean = np.array([
+        2.1, np.exp(-60.0 / 100.0), np.exp(-7.0 / 100.0), 0.1,
+        np.exp(-50 * 0.0176), np.exp(-100.0 * 0.002), np.exp(-4.0 / 2.0),
+        70.0 / 90.0, 0.5, 0.9,
+    ], np.float32)
+    sigma = np.array(
+        [0.01, 0.2, 0.01, 0.05, 0.01, 0.01, 0.50, 0.1, 0.1, 0.1], np.float32
+    )
+    cov = np.diag(sigma**2).astype(np.float32)
+    inv_cov = np.diag(1.0 / sigma**2).astype(np.float32)
+    return mean, cov, inv_cov
+
+
+def sail_prior(device=None) -> FixedGaussianPrior:
+    """The S2/PROSAIL prior (``sail_prior`` of the JAX package) on
+    ``device``."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    mean, cov, inv_cov = (torch.as_tensor(a, device=dev)
+                          for a in sail_prior_arrays())
+    return FixedGaussianPrior(PixelPrior(mean=mean, cov=cov, inv_cov=inv_cov),
+                              PROSAIL_PARAMETER_LIST)

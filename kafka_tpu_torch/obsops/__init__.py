@@ -1,6 +1,8 @@
 """Observation operators of the port."""
 
+from .prosail import ProsailAux, ProsailOperator
 from .protocol import ObservationModel
 from .twostream import TwoStreamOperator
 
-__all__ = ["ObservationModel", "TwoStreamOperator"]
+__all__ = ["ObservationModel", "ProsailAux", "ProsailOperator",
+           "TwoStreamOperator"]

@@ -18,12 +18,18 @@ from ..core.types import Linearization
 
 
 def _aux_in_dims(aux: Any, n_pix: int):
-    """vmap in_dims for an aux tree of tensors (dict / list / tuple):
-    leaves with a leading ``n_pix`` axis are mapped, the rest broadcast."""
+    """vmap in_dims for an aux tree of tensors (dict / list / tuple /
+    NamedTuple): leaves with a leading ``n_pix`` axis are mapped, the
+    rest broadcast."""
     if isinstance(aux, dict):
         return {k: _aux_in_dims(v, n_pix) for k, v in aux.items()}
     if isinstance(aux, (list, tuple)):
-        return type(aux)(_aux_in_dims(v, n_pix) for v in aux)
+        items = [_aux_in_dims(v, n_pix) for v in aux]
+        # A NamedTuple takes its fields as arguments, a tuple or list an
+        # iterable.
+        if hasattr(aux, "_fields"):
+            return type(aux)(*items)
+        return type(aux)(items)
     if isinstance(aux, torch.Tensor) and aux.ndim > 0 \
             and aux.shape[0] == n_pix:
         return 0

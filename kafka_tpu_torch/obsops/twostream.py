@@ -6,10 +6,10 @@ VIS / ``[3, 4, 6, 5]`` NIR):
 
     [omega_vis, d_vis, a_soil_vis, omega_nir, d_nir, a_soil_nir, tlai]
 
-Clamps are written as ``torch.maximum`` / ``torch.minimum`` against
-tensors, not ``torch.clamp``: at an exact tie the former split the
-derivative half and half, as ``jnp.maximum`` / ``jnp.clip`` do, while
-``torch.clamp`` passes it whole.  The TIP state bounds put ``d`` exactly
+Clamps go through ``_jaxrules`` (``torch.maximum`` / ``torch.minimum``
+against tensors, not ``torch.clamp``): at an exact tie the former split
+the derivative half and half, as ``jnp.maximum`` / ``jnp.clip`` do,
+while ``torch.clamp`` passes it whole.  The TIP state bounds put ``d`` exactly
 on the ``max(d, 0.1)`` tie when its lower bound is hit, so the rule
 matters for parity (the following clip of ``g`` zeroes that derivative
 anyway; a test pins the Jacobian at a clipped state).  The CUDA kernel
@@ -23,26 +23,13 @@ import numpy as np
 import torch
 from torch.func import jvp
 
+from ._jaxrules import _clip, _max
 from .protocol import ObservationModel
 
 _EPS = 1e-6
 
 VIS_MAPPER = np.array([0, 1, 6, 2])
 NIR_MAPPER = np.array([3, 4, 6, 5])
-
-
-def _max(x, c):
-    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype,
-                                            device=x.device))
-
-
-def _min(x, c):
-    return torch.minimum(x, torch.as_tensor(c, dtype=x.dtype,
-                                            device=x.device))
-
-
-def _clip(x, lo, hi):
-    return _min(_max(x, lo), hi)
 
 
 def tlai_to_lai(tlai):

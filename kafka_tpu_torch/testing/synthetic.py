@@ -22,18 +22,21 @@ from ..obsops.protocol import ObservationModel
 
 
 class SyntheticObservations:
-    """Observations from a forward operator (without per-date aux) on a
-    known truth plus noise, with random masking; tensors are made on
-    ``device``."""
+    """Observations from a forward operator on a known truth plus noise,
+    with random masking; tensors are made on ``device``.  ``aux_fn(date,
+    gather)`` gives the date's operator aux (None by default), which
+    reaches the solver as the operator params."""
 
     def __init__(self, dates: Sequence[datetime.datetime],
                  operator: ObservationModel, truth_fn, sigma: float = 0.01,
-                 mask_prob: float = 0.1, seed: int = 0, device=None):
+                 aux_fn=None, mask_prob: float = 0.1, seed: int = 0,
+                 device=None):
         self.device = resolve_device(device)
         self._dates = list(dates)
         self.operator = operator
         self.truth_fn = truth_fn
         self.sigma = sigma
+        self.aux_fn = aux_fn or (lambda date, gather: None)
         self.mask_prob = mask_prob
         self.seed = seed
 
@@ -45,7 +48,8 @@ class SyntheticObservations:
         truth = self.truth_fn(date)
         x_true = torch.as_tensor(gather.gather(truth), dtype=torch.float32,
                                  device=self.device)
-        y_clean = self.operator.forward(None, x_true).cpu().numpy()
+        aux = self.aux_fn(date, gather)
+        y_clean = self.operator.forward(aux, x_true).cpu().numpy()
         rng = np.random.default_rng((self.seed, date.toordinal()))
         noise = rng.normal(0.0, self.sigma, y_clean.shape)
         y = (y_clean + noise).astype(np.float32)
@@ -58,7 +62,7 @@ class SyntheticObservations:
             r_inv=torch.as_tensor(r_inv, device=dev),
             mask=torch.as_tensor(mask, device=dev),
         )
-        return DateObservation(bands=bands, operator=self.operator, aux=None)
+        return DateObservation(bands=bands, operator=self.operator, aux=aux)
 
 
 def make_tip_problem(n_pix: int, seed: int = 0, sigma: float = 0.005,
@@ -89,6 +93,102 @@ def make_tip_problem(n_pix: int, seed: int = 0, sigma: float = 0.005,
     x0 = torch.as_tensor(mean_h, device=dev).expand(n_pix, p)
     p_inv0 = torch.as_tensor(inv_h, device=dev).expand(n_pix, p, p)
     return op, bands, x0, p_inv0
+
+
+def make_prosail_problem(n_pix: int, seed: int = 11, sigma: float = 0.005,
+                         obs_frac: float = 0.8, angles=(30.0, 5.0, 90.0),
+                         device=None):
+    """The synthetic PROSAIL problem of the JAX package's p=10 fused-path
+    test (``tests/test_solvers.py:544-567``, same draws): the SAIL prior
+    mean plus N(0, 0.02) clipped to [0.02, 0.98] as forecast and truth,
+    observations from the forward model plus N(0, sigma), ``obs_frac`` of
+    the entries observed and NaN under the mask.  Returns ``(operator,
+    bands, x0, p_inv0, aux)`` on ``device``; ``p_inv0`` is the broadcast
+    prior information (an expanded view)."""
+    from ..convert import prosail_aux
+    from ..engine.priors import sail_prior_arrays
+    from ..obsops.prosail import ProsailAux, ProsailOperator
+
+    dev = resolve_device(device)
+    op = ProsailOperator()
+    rng = np.random.default_rng(seed)
+    p = op.n_params
+    mean, _, inv_cov = sail_prior_arrays()
+    x0 = np.clip(mean + rng.normal(0, 0.02, (n_pix, p)), 0.02, 0.98) \
+        .astype(np.float32)
+    aux = prosail_aux(ProsailAux(*angles), dev)
+    x0_t = torch.as_tensor(x0, device=dev)
+    h0 = op.forward(aux, x0_t).cpu().numpy()
+    y = (h0 + rng.normal(0, sigma, h0.shape)).astype(np.float32)
+    mask = rng.uniform(size=y.shape) > 1.0 - obs_frac
+    bands = BandBatch(
+        y=torch.as_tensor(np.where(mask, y, np.nan).astype(np.float32),
+                          device=dev),
+        r_inv=torch.as_tensor(
+            np.where(mask, 1 / sigma**2, 0.0).astype(np.float32), device=dev),
+        mask=torch.as_tensor(mask, device=dev),
+    )
+    p_inv0 = torch.as_tensor(inv_cov, device=dev).expand(n_pix, p, p)
+    return op, bands, x0_t, p_inv0, aux
+
+
+def s2_observations(dates, truth_fn, angles=(30.5, 5.0, -50.0),
+                    sigma: float = 0.005, mask_prob: float = 0.1,
+                    seed: int = 0, device=None) -> SyntheticObservations:
+    """A synthetic Sentinel-2 source: ``ProsailOperator`` observations of
+    ``truth_fn(date)`` under scene-constant geometry ``(sza, vza, raa)``
+    (default the JAX S2 fixture's, ``testing/fixtures.py:68``), passed to
+    the solver as a ``ProsailAux``."""
+    from ..convert import prosail_aux
+    from ..obsops.prosail import ProsailAux, ProsailOperator
+
+    dev = resolve_device(device)
+    aux = prosail_aux(ProsailAux(*angles), dev)
+    return SyntheticObservations(
+        dates, ProsailOperator(), truth_fn, sigma=sigma,
+        aux_fn=lambda date, gather: aux, mask_prob=mask_prob, seed=seed,
+        device=dev,
+    )
+
+
+def run_s2_engine(ny: int = 16, nx: int = 16, obs_days=(1, 3, 5),
+                  grid_days=(0, 2, 4, 6), pad_multiple: int = 128,
+                  solver_options=None, device=None):
+    """A complete (small) Sentinel-2 PROSAIL assimilation through
+    ``KalmanFilter.run``: ``sail_prior``, no propagation with Q = 0,
+    relaxation 0.7 (the Barrax configuration, ``cli/run_s2.py``), a
+    circular field mask, truth the SAIL mean with LAI 3, 2-day grid.
+
+    Returns ``(kf, out, x_analysis, p_inv_analysis)``."""
+    from ..engine.filter import KalmanFilter
+    from ..engine.priors import PROSAIL_PARAMETER_LIST, sail_prior
+
+    dev = resolve_device(device)
+
+    def day(i):
+        return datetime.datetime(2017, 7, 3) + datetime.timedelta(days=i)
+
+    yy, xx = np.mgrid[:ny, :nx]
+    mask = (yy - ny / 2) ** 2 + (xx - nx / 2) ** 2 \
+        < (min(ny, nx) / 2.2) ** 2
+    prior = sail_prior(dev)
+    truth = prior.prior.mean.cpu().numpy().copy()
+    truth[6] = np.exp(-1.5)
+    truth = np.broadcast_to(truth, mask.shape + (10,))
+    obs = s2_observations([day(i) for i in obs_days], lambda date: truth,
+                          device=dev)
+    out = MemoryOutput()
+    kf = KalmanFilter(
+        obs, out, mask, PROSAIL_PARAMETER_LIST, state_propagation=None,
+        prior=prior, pad_multiple=pad_multiple,
+        solver_options=({"relaxation": 0.7} if solver_options is None
+                        else solver_options),
+        device=dev,
+    )
+    kf.set_trajectory_uncertainty(np.zeros(10))
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    x_a, _, p_inv_a = kf.run([day(i) for i in grid_days], x0, None, p_inv0)
+    return kf, out, x_a, p_inv_a
 
 
 def plant_solver_faults(y, r_inv, mask_f, xf_rows, pf_rows,

@@ -134,3 +134,72 @@ def test_window_without_observations_passes_forecast_through():
     mean = kf.prior.prior.mean.numpy()
     np.testing.assert_allclose(empty["w_vis"][kf.gather.mask], mean[0],
                                rtol=1e-6)
+
+
+def _jax_s2_run(solver_options):
+    """The port's ``run_s2_engine`` built the same way in the JAX package:
+    16 x 16 px field, 3 dates on a 2-day grid, sail_prior, no
+    propagation with Q = 0, scene-constant S2 geometry."""
+    import jax.numpy as jnp
+
+    from kafka_tpu.engine import KalmanFilter
+    from kafka_tpu.engine.priors import PROSAIL_PARAMETER_LIST, sail_prior
+    from kafka_tpu.obsops.prosail import ProsailAux, ProsailOperator
+    from kafka_tpu.testing.synthetic import (MemoryOutput,
+                                             SyntheticObservations)
+
+    def day(i):
+        return datetime.datetime(2017, 7, 3) + datetime.timedelta(days=i)
+
+    ny = nx = 16
+    yy, xx = np.mgrid[:ny, :nx]
+    mask = (yy - ny / 2) ** 2 + (xx - nx / 2) ** 2 < (min(ny, nx) / 2.2) ** 2
+    prior = sail_prior()
+    truth = np.asarray(prior.prior.mean).copy()
+    truth[6] = np.exp(-1.5)
+    truth = np.broadcast_to(truth, mask.shape + (10,))
+    aux = ProsailAux(*(jnp.asarray(np.float32(v)) for v in (30.5, 5.0, -50.0)))
+    obs = SyntheticObservations([day(i) for i in (1, 3, 5)],
+                                ProsailOperator(), lambda date: truth,
+                                sigma=0.005, aux_fn=lambda d, g: aux,
+                                mask_prob=0.1)
+    out = MemoryOutput()
+    kf = KalmanFilter(obs, out, mask, PROSAIL_PARAMETER_LIST,
+                      state_propagation=None, prior=prior, pad_multiple=128,
+                      solver_options=solver_options, scan_window=1,
+                      prefetch_depth=0)
+    kf.set_trajectory_uncertainty(np.zeros(10))
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    kf.run([day(i) for i in (0, 2, 4, 6)], x0, None, p_inv0)
+    return kf, out
+
+
+def test_s2_prosail_run_matches_jax():
+    """The port's default S2 path (the row loop around the fused update,
+    plain version on the CPU) against the JAX KalmanFilter as shipped
+    (XLA loop), date by date: means and ``_unc`` within 2e-3, QA equal."""
+    from kafka_tpu_torch.testing.synthetic import run_s2_engine
+
+    jkf, jout = _jax_s2_run({"relaxation": 0.7})
+    kf, out, x_a, p_inv_a = run_s2_engine(device="cpu")
+    assert sorted(out.output) == sorted(jout.output)
+    worst = max(float(np.abs(out.output[ts][k] - jout.output[ts][k]).max())
+                for ts in jout.output for k in jout.output[ts]
+                if k != "solver_qa")
+    print(f"parity s2 engine: mean/unc {worst:.3g}")
+    for ts in jout.output:
+        ref, got = jout.output[ts], out.output[ts]
+        assert sorted(got) == sorted(ref), ts
+        for key in ref:
+            if key == "solver_qa":
+                np.testing.assert_array_equal(got[key], ref[key])
+            else:
+                assert np.isfinite(got[key]).all(), key
+                np.testing.assert_allclose(got[key], ref[key], atol=ATOL,
+                                           err_msg=f"{ts} {key}")
+    assert len(kf.diagnostics_log) == len(jkf.diagnostics_log) == 3
+    for rt, rj in zip(kf.diagnostics_log, jkf.diagnostics_log):
+        for field in ("n_iterations", "nodata", "cap_bailouts",
+                      "quarantined", "nonfinite", "clip_saturated"):
+            assert rt[field] == rj[field], field
+    assert x_a.shape == (256, 10) and p_inv_a.shape == (256, 10, 10)

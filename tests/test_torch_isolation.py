@@ -26,7 +26,9 @@ def test_import_leaves_jax_and_kafka_tpu_out():
     code = (
         "import sys, kafka_tpu_torch, kafka_tpu_torch.engine, "
         "kafka_tpu_torch.convert, kafka_tpu_torch.testing.synthetic, "
-        "kafka_tpu_torch.core.solvers\n"
+        "kafka_tpu_torch.core.solvers, kafka_tpu_torch.core.fused_update, "
+        "kafka_tpu_torch.core.solve_rows, kafka_tpu_torch.obsops.prosail, "
+        "kafka_tpu_torch.obsops.prospect_data\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')]\n"
         "print(bad)\n"
@@ -60,11 +62,14 @@ def _entry_points():
     from kafka_tpu_torch.core.propagators import tip_prior
     from kafka_tpu_torch.core.solvers import assimilate_date
     from kafka_tpu_torch.core.types import BandBatch
-    from kafka_tpu_torch.engine import KalmanFilter, jrc_prior
+    from kafka_tpu_torch.engine import KalmanFilter, jrc_prior, sail_prior
     from kafka_tpu_torch.obsops import TwoStreamOperator
     from kafka_tpu_torch.testing.synthetic import (SyntheticObservations,
+                                                   make_prosail_problem,
                                                    make_tip_problem,
-                                                   run_tip_engine)
+                                                   run_s2_engine,
+                                                   run_tip_engine,
+                                                   s2_observations)
 
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
@@ -80,6 +85,10 @@ def _entry_points():
                                         (2, 2, 2, 7, 28)),
             1e-3, 2, 25, 1.0, None, 28.0),
         "make_tip_problem": lambda: make_tip_problem(16),
+        "make_prosail_problem": lambda: make_prosail_problem(16),
+        "run_s2_engine": lambda: run_s2_engine(),
+        "s2_observations": lambda: s2_observations([], None),
+        "sail_prior": lambda: sail_prior(),
         "run_tip_engine": lambda: run_tip_engine(),
         "jrc_prior": lambda: jrc_prior(),
         "tip_prior": lambda: tip_prior(),
@@ -90,13 +99,45 @@ def _entry_points():
 @pytest.mark.parametrize("name", sorted(
     ["resolve_device", "KalmanFilter", "assimilate_date", "fused_gn_rows",
      "make_tip_problem", "run_tip_engine", "jrc_prior", "tip_prior",
-     "SyntheticObservations"]))
+     "SyntheticObservations", "make_prosail_problem", "run_s2_engine",
+     "s2_observations", "sail_prior"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
+
+
+class _CudaStub:
+    """Stands for a CUDA tensor: only its device and shape are read
+    before the wrapper dispatches."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("module,wrapper,args", [
+    ("fused_update", "fused_update_rows",
+     [(20, 4), (2, 4), (2, 4), (2, 4), (2, 4), (7, 4), (7, 4), (28, 4)]),
+    ("solve_rows", "solve_rows", [(28, 4), (7, 4)]),
+])
+def test_kernel_wrappers_send_cuda_tensors_to_the_kernel(monkeypatch, module,
+                                                         wrapper, args):
+    """A CUDA tensor goes to the kernel launch, never to the plain
+    version (which would raise here if reached)."""
+    import importlib
+
+    mod = importlib.import_module(f"kafka_tpu_torch.core.{module}")
+    seen = []
+    monkeypatch.setattr(mod, "_launch_cuda", lambda *a: seen.append(a) or 1)
+    plain = "fused_update_raw_plain" if module == "fused_update" \
+        else "solve_rows_plain"
+    monkeypatch.setattr(mod, plain, lambda *a: pytest.fail("plain ran"))
+    assert getattr(mod, wrapper)(*(_CudaStub(*sh) for sh in args)) == 1
+    assert len(seen) == 1
 
 
 def test_explicit_cpu_runs():
@@ -139,10 +180,40 @@ def test_build_key_tracks_sources_and_flags(monkeypatch):
 
     key = _build._source_hash("fused_gn")
     assert key == _build._source_hash("fused_gn")
+    assert _build._source_hash("fused_update") != key
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build._source_hash("fused_gn") != key
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("name", ["fused_gn", "fused_update", "solve_rows"])
+def test_every_kernel_source_exists_with_a_c_interface(name):
+    """Each kernel's source is in csrc/ and exports its launch function
+    and the error-string helper the wrapper reads on failure."""
+    from kafka_tpu_torch.core import _build
+
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert 'extern "C"' in text and "kafka_cuda_error_string" in text
+    assert "cudaGetLastError" in text
+
+
+def test_build_all_starts_every_build_at_once(monkeypatch):
+    """build_all runs one build per source concurrently and returns each
+    library path."""
+    import threading
+
+    from kafka_tpu_torch.core import _build
+
+    barrier = threading.Barrier(3, timeout=10)
+
+    def fake_build(name):
+        barrier.wait()
+        return f"lib{name}.so"
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    assert _build.build_all(["a", "b", "c"]) == {
+        "a": "liba.so", "b": "libb.so", "c": "libc.so"}
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -5,7 +5,8 @@
   JAX XLA health loop;
 - ``{"use_pallas": True}`` and the default for an ``inkernel_linearize``
   operator: the port's fused path (plain version on the CPU) against the
-  JAX in-kernel path (Pallas interpret mode).
+  JAX in-kernel path (Pallas interpret mode).  The out-of-kernel row
+  loop has its own file, ``test_torch_rowloop.py``.
 
 Budgets are the JAX package's own (tests/test_solvers.py:702-716):
 x atol 2e-3, A rtol 2e-2 of the matrix scale sqrt(A_ii A_jj) plus atol
@@ -178,18 +179,39 @@ def test_kernel_selection_rule(monkeypatch, opts, expect_fused):
     assert bool(calls) == expect_fused
 
 
+def _spy_update(monkeypatch):
+    calls = []
+    real = tsolvers.fused_update_rows
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tsolvers, "fused_update_rows", spy)
+    return calls
+
+
 def test_operator_without_inkernel_defaults_to_plain_loop(monkeypatch):
+    """Without an in-kernel linearisation the default is now the fused
+    path's row loop around the fused update (one call per iteration),
+    not the plain loop; the fused Gauss-Newton kernel stays untouched."""
     calls = _spy_fused(monkeypatch)
+    updates = _spy_update(monkeypatch)
     coeff, bands, x0, p0 = _quad(n=64, seed=2)
     x, a, d = _torch(_TorchQuadNoKernel(coeff).linearize, bands, x0, p0, {})
     assert not calls and d.health_verdicts is not None
+    assert len(updates) == int(d.n_iterations)
 
 
 @pytest.mark.parametrize("case", [
     "pallas_no_inkernel", "inkernel_opt_out", "per_pixel_bounds",
     "operator_params", "per_pixel_convergence", "hessian",
 ])
-def test_unported_paths_raise(case):
+def test_unported_paths_raise(case, monkeypatch):
+    """The first four cases once raised for want of the fused update;
+    they now run through the row loop around it.  The rest are still
+    not ported and raise."""
+    updates = _spy_update(monkeypatch)
     coeff, bands, x0, p0 = _quad(n=64, seed=3)
     op = _TorchQuad(coeff)
     lin, params, opts, hess = op.linearize, None, {}, None
@@ -207,12 +229,20 @@ def test_unported_paths_raise(case):
         opts = {"per_pixel_convergence": True}
     else:
         hess = op.linearize
-    match = "_fused_update_kernel" if case in (
-        "pallas_no_inkernel", "inkernel_opt_out", "per_pixel_bounds",
-        "operator_params") else "not ported"
-    with pytest.raises(NotImplementedError, match=match):
-        tsolvers.assimilate_date(lin, convert.band_batch(*bands, "cpu"),
-                                 x0, p0, params, opts, hess, device="cpu")
+    def run():
+        return tsolvers.assimilate_date(
+            lin, convert.band_batch(*bands, "cpu"), x0, p0, params, opts,
+            hess, device="cpu")
+
+    if case in ("pallas_no_inkernel", "inkernel_opt_out", "per_pixel_bounds",
+                "operator_params"):
+        x, a, d = run()
+        assert len(updates) == int(d.n_iterations) > 0
+        assert np.isfinite(x.numpy()).all()
+        assert d.health_verdicts is not None
+    else:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            run()
 
 
 def test_structural_option_keys_carry_over():
@@ -266,10 +296,14 @@ def test_normal_equations_and_kalman_update_match_jax():
                                    torch.as_tensor(x0),
                                    torch.as_tensor(p0))
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="_fused_update_kernel"):
-        tsolvers.kalman_update(tl, tb, torch.as_tensor(x_lin),
-                               torch.as_tensor(x0), torch.as_tensor(p0),
-                               use_pallas=True)
+    # use_pallas=True now runs the fused update (test_torch_fused_update.py
+    # holds it against the JAX kernel): the same assembly and solve.
+    xf, af = tsolvers.kalman_update(tl, tb, torch.as_tensor(x_lin),
+                                    torch.as_tensor(x0), torch.as_tensor(p0),
+                                    use_pallas=True)
+    np.testing.assert_allclose(xf.numpy(), xt.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(
+        af.numpy(), tsolvers.unpack_symmetric(at).numpy())
 
 
 def test_prior_only_advance_and_blend_match_jax():

@@ -12,8 +12,10 @@ Three layers:
   ``chip_smoke.py`` holds the CUDA kernel against it on the card.
 - :func:`fused_gn_raw` — dispatch on where the tensors lie: CPU tensors
   run the plain version; CUDA tensors launch the hand-written kernel
-  ``csrc/fused_gn.cu`` (two-stream operator, p=7, 2 bands) or raise.
-  There is no fallback from CUDA to the plain version.
+  ``csrc/fused_gn.cu`` (two-stream operator, p=7, 2 bands; one
+  thread-block cluster per convergence group, see
+  :func:`launch_geometry`) or raise.  There is no fallback from CUDA to
+  the plain version.
 - :func:`fused_gn_rows` — the entry point with the JAX signature and
   return tuple.  ``fused_gn_rows.launches`` counts kernel launches.
 
@@ -42,6 +44,38 @@ def _idx(i: int, j: int) -> int:
 
 def _block(n: int, block: int) -> int:
     return math.gcd(n, min(block, n))
+
+
+#: threads per CTA and CTAs per cluster at most (csrc/fused_gn.cu:
+#: kMaxThreads, kMaxCluster — 8 is the portable cluster size).
+MAX_THREADS = 256
+MAX_CLUSTER = 8
+#: floats of one thread's shared-memory column (csrc/fused_gn.cu:
+#: Column<TwoStream>::kRows): y, r_inv, mask, x_f, packed P_f^-1, the
+#: prior term P_f^-1 x_f, the last trip's A, fwd and inn, the corruption
+#: flag — 81, an odd count.
+COLUMN_FLOATS = 81
+
+
+def launch_geometry(n: int, block: int = 2048) -> dict:
+    """How the CUDA kernel covers ``n`` pixels: one thread-block cluster
+    per convergence group of ``gcd(n, min(block, n))`` pixels, of
+    ``ctas`` = ceil(group / 256) CTAs with ``threads`` threads each
+    (ceil(group / ctas) in whole warps, one pixel per thread; threads
+    past the group's end only join the sums) and ``smem_bytes`` of
+    dynamic shared memory per CTA.  ``geometry`` in ``csrc/fused_gn.cu``
+    computes the same; raises ValueError for a group that does not fit
+    one portable cluster."""
+    group = _block(n, block)
+    ctas = -(-group // MAX_THREADS)
+    if ctas > MAX_CLUSTER:
+        raise ValueError(
+            f"a convergence group of {group} px needs {ctas} CTAs of "
+            f"{MAX_THREADS} threads; a cluster holds at most {MAX_CLUSTER}")
+    per_cta = -(-group // ctas)
+    threads = -(-per_cta // 32) * 32
+    return {"group": group, "clusters": n // group, "ctas": ctas,
+            "threads": threads, "smem_bytes": threads * COLUMN_FLOATS * 4}
 
 
 def _scalars(tol, numel, relaxation, block: int, n: int, p: int):
@@ -260,7 +294,7 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
         cor = corrupt.reshape(1, n)
         _build.check_rows("corrupt", cor, 1, n, dev)
         cor_ptr = cor.data_ptr()
-    block = _block(n, block)
+    block = launch_geometry(n, block)["group"]
     relax, thresh_sq, moving_sq = _scalars(
         tol, norm_denominator, relaxation, block, n, p
     )
@@ -300,6 +334,26 @@ def kernel_attributes() -> dict:
 
     return _build.attributes("fused_gn",
                              "kafka_fused_gn_twostream_attributes")
+
+
+def kernel_geometry(n: int, block: int = 2048) -> dict:
+    """The compiled kernel's own launch geometry for ``n`` pixels (CTAs
+    per cluster, threads, dynamic shared bytes) and the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``); builds the kernel
+    if needed."""
+    from . import _build
+
+    group = launch_geometry(n, block)["group"]
+    lib = _build.load("fused_gn")
+    fn = lib.kafka_fused_gn_twostream_geometry
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    rc = fn(n, group, ctypes.addressof(out))
+    _build.raise_on_error(lib, rc, "fused_gn geometry")
+    return {"group": group, "clusters": n // group, "ctas": out[0],
+            "threads": out[1], "smem_bytes": out[2],
+            "active_clusters": out[3]}
 
 
 def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,

@@ -241,3 +241,70 @@ def test_wrapper_checks_device():
                       1e-3, 2, 25, 1.0, None, 192.0, device="cpu")
     assert tfg.fused_gn_rows.launches == before, \
         "the plain version must not count as a kernel launch"
+
+
+@pytest.mark.parametrize("n,group,tol", [
+    (200, 200, 1e-4), (768, 768, 1e-4),     # one group: 1, 3 CTAs
+    (1536, 1536, 1e-4),                     # one group: 6 CTAs
+    (2056, 8, 1e-3),                        # groups under a warp
+    (2304, 256, 1e-4), (2560, 512, 1e-4),   # 1 and 2 CTAs
+    (4096, 2048, 1e-4),                     # 8 CTAs, as on a tile
+])
+def test_twostream_parity_per_group_size(n, group, tol):
+    """TIP rows at n whose convergence group gcd(n, min(2048, n)) takes
+    each cluster shape of the CUDA kernel: the plain version that the
+    kernel is held to on the card, against the JAX kernel.  Every other
+    group is unobserved and stops at min_iterations, while damped steps
+    keep the observed groups going, so each group decides its own trips.
+    8-px groups take tol 1e-3: under 1e-4 a single ill-conditioned pixel
+    decides its group's path, and float32 rounding then moves it."""
+    from kafka_tpu_torch.obsops.twostream import TwoStreamOperator
+
+    assert tfg.launch_geometry(n)["group"] == group
+    op, rows = _tip_rows(n, seed=group)
+    unobserved = (np.arange(n) // group) % 2 == 1
+    rows["y"][:, unobserved] = np.nan
+    rows["r_inv"][:, unobserved] = 0.0
+    rows["mask_f"][:, unobserved] = 0.0
+    j, t = _run_both(op.kernel_linearize_rows,
+                     TwoStreamOperator().kernel_linearize_rows, rows,
+                     relaxation=0.5, tol=tol)
+    _assert_parity(j, t)
+    names = ("y", "r_inv", "mask_f", "xf_rows", "pf_rows")
+    raw = tfg.fused_gn_raw_plain(
+        TwoStreamOperator().kernel_linearize_rows,
+        *(torch.as_tensor(rows[k]) for k in names), tol=tol,
+        min_iterations=2, max_iterations=25, relaxation=0.5,
+        state_bounds_rows=rows["bounds"], norm_denominator=float(n * 7))
+    trips = raw[4][0, ::group].numpy()
+    assert (trips[1::2] == 2).all() and (trips[::2] > 2).all()
+    assert int(t[4]) == int(trips.max())
+    assert (t[6][unobserved] == 16).all()
+
+
+@pytest.mark.parametrize("n,group,ctas,threads", [
+    (4_608_000, 2048, 8, 256),   # the MODIS tile date
+    (1_205_760, 512, 2, 256),    # the S2 sub-tile
+    (2 ** 19, 2048, 8, 256),     # the JAX bench's device size
+    (168, 168, 1, 192),          # the small engine runs (12 x 14 px)
+])
+def test_launch_geometry_tiles_every_group(n, group, ctas, threads):
+    """One cluster of CTAs covers each convergence group, one pixel per
+    thread, in whole warps, within the portable cluster size and a CTA's
+    227 KB of shared memory; no CTA of a cluster is left without a
+    pixel."""
+    g = tfg.launch_geometry(n)
+    assert (g["group"], g["ctas"], g["threads"]) == (group, ctas, threads)
+    assert g["group"] * g["clusters"] == n
+    assert (g["ctas"] - 1) * g["threads"] < g["group"] \
+        <= g["ctas"] * g["threads"]
+    assert g["threads"] % 32 == 0 and g["threads"] <= 256
+    assert g["ctas"] <= 8
+    assert g["smem_bytes"] == threads * tfg.COLUMN_FLOATS * 4
+    assert g["smem_bytes"] <= 232_448
+
+
+def test_launch_geometry_rejects_groups_beyond_one_cluster():
+    assert tfg.launch_geometry(2056)["threads"] == 32  # 8-px groups
+    with pytest.raises(ValueError, match="cluster holds at most 8"):
+        tfg.launch_geometry(8192, block=4096)

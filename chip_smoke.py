@@ -47,10 +47,15 @@ one JSON line:
    x, A and the flags identical to the plain version's on those pixels,
    and no NaN leaks;
 10. kernel_solve — the packed solve on the normal equations of the kept
-   S2 date (p=10) and TIP date (p=7): first once through
-   solve_spd_packed_kernel with the counts reset (its own path), then
-   against its plain version and a float64 solve, timed beside
-   torch.linalg.solve on the dense batch;
+   S2 date (p=10), on them with 64 planted non-SPD and 64 zero-pivot
+   pixels, on the kept TIP date's (p=7), and on the SOLVE_CASES (seeded
+   SPD systems at 2^19 px, p=10, and at 2^19 + 3 px for p = 2, 7, 10:
+   the cp.async route, ending on a ragged tile): each first once through
+   solve_spd_packed_kernel with the counts reset (its own path: one
+   launch), then bit for bit against its plain version (0 pixels may
+   differ; NaN equals NaN) and against a float64 solve, timed beside
+   torch.linalg.solve on the dense batch, with its route and launch
+   geometry (held to the compiled kernel's); both routes must run;
 11. profile, profile_s2 — one TIP tile date and one S2 sub-tile date
    under torch.profiler (device busy time, idle share, time by kernel);
    the TIP phase also times the dense<->packed information copies.
@@ -1145,12 +1150,62 @@ def tip_update_rows(kept: dict) -> dict:
         pf_rows=kept["pf_rows"])
 
 
+def pixels_differing(a, b) -> int:
+    """Pixels (columns) of float32 (rows, n) outputs with any entry whose
+    bits differ, NaN equal to NaN at the same place whatever its payload:
+    the packed solve's gate against its plain version, which must be 0."""
+    import torch
+
+    differ = (a.view(torch.int32) != b.view(torch.int32)) & ~(
+        a.isnan() & b.isnan())
+    return int(differ.any(dim=0).sum())
+
+
+def spd_rows(p: int, n: int, device, seed: int):
+    """``n`` seeded SPD systems M M^T + p I (M standard normal) and
+    right sides in the packed row layout: (a_rows, b_rows)."""
+    import torch
+
+    from kafka_tpu_torch.core.linalg import pack_rows
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    m = torch.randn(n, p, p, device=device, generator=gen)
+    a = m @ m.transpose(1, 2) + p * torch.eye(p, device=device)
+    b = torch.randn(p, n, device=device, generator=gen)
+    return pack_rows(a), b.contiguous()
+
+
+def plant_solve_faults(a_rows, p: int, n_each: int = 64, seed: int = 5):
+    """A copy of ``a_rows`` with ``n_each`` non-SPD pixels (the last
+    diagonal entry negated: the last square root of the factor is NaN)
+    and ``n_each`` zero-pivot pixels (A_00 = 0: the first pivot's
+    reciprocal is inf); returns it and the planted pixels by kind."""
+    import torch
+
+    n = a_rows.shape[1]
+    pick = torch.as_tensor(np.random.default_rng(seed).permutation(n)[
+        :2 * n_each], device=a_rows.device)
+    planted = {"non_spd": pick[:n_each], "zero_pivot": pick[n_each:]}
+    a = a_rows.clone()
+    last = tri(p - 1) + p - 1
+    a[last, planted["non_spd"]] = -a[last, planted["non_spd"]].abs()
+    a[0, planted["zero_pivot"]] = 0.0
+    return a, planted
+
+
 def phase_kernel_solve(device, label: str, a_rows, b_rows,
-                       kernel_reps: int = 20, plain_reps: int = 2) -> dict:
-    """The packed solve on one date's normal equations: once through
-    solve_spd_packed_kernel with the launch count reset (the kernel's
-    path), then against its plain version and a float64 solve, timed
-    beside torch.linalg.solve on the same systems as a dense batch."""
+                       kernel_reps: int = 20, plain_reps: int = 2,
+                       planted=None) -> dict:
+    """The packed solve on one batch of systems: once through
+    solve_spd_packed_kernel with the launch counts reset (the kernel's
+    path: one launch, by the route launch_plan picks), then bit for bit
+    against its plain version (0 pixels may differ, NaN equal to NaN)
+    and against a float64 solve by the quantile rule on the pixels the
+    float64 solve keeps finite, timed beside torch.linalg.solve on the
+    same systems as a dense batch; the launch plan is held to the
+    compiled kernel's own geometry.  ``planted`` pixels by kind must be
+    non-finite, every other pixel finite."""
     import torch
 
     from kafka_tpu_torch.core import solve_rows as sr
@@ -1162,9 +1217,11 @@ def phase_kernel_solve(device, label: str, a_rows, b_rows,
         for j in range(i + 1):
             a_packed[i][j] = a_packed[j][i] = a_rows[tri(i) + j]
     sr.solve_rows.launches = 0
+    sr.solve_rows.route_launches = dict.fromkeys(sr.ROUTES, 0)
     x_path = sr.solve_spd_packed_kernel(a_packed, b_rows.T)
     _sync(device)
     launches = sr.solve_rows.launches
+    routes = dict(sr.solve_rows.route_launches)
     kern = sr.solve_rows(a_rows, b_rows)
     plain = sr.solve_rows_plain(a_rows, b_rows)
     ref = sr.solve_rows_plain(a_rows.double(), b_rows.double()).float()
@@ -1172,36 +1229,70 @@ def phase_kernel_solve(device, label: str, a_rows, b_rows,
     rhs = b_rows.T.contiguous()[..., None]
     lib = torch.linalg.solve(dense, rhs)[..., 0].T
     _sync(device)
-    finite = bool(torch.isfinite(kern).all())
-    errs = {who: quantile_summary((out - ref).abs().max(dim=0).values)
+    kept = torch.isfinite(ref).all(dim=0)
+    errs = {who: quantile_summary((out - ref)[:, kept].abs().max(dim=0)
+                                  .values)
             for who, out in (("kernel", kern), ("plain", plain),
                              ("library", lib))}
+    nonfinite = ~torch.isfinite(kern).all(dim=0)
+    is_planted = torch.zeros_like(nonfinite)
+    for px in (planted or {}).values():
+        is_planted[px] = True
     ms = time_ms(lambda: sr.solve_rows(a_rows, b_rows), device, kernel_reps)
     plain_ms = time_ms(lambda: sr.solve_rows_plain(a_rows, b_rows), device,
                        plain_reps)
     library_ms = time_ms(lambda: torch.linalg.solve(dense, rhs), device,
                          plain_reps)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = sr.launch_plan(p, n, (a_rows.data_ptr(), b_rows.data_ptr()), sms)
+    attrs = sr.kernel_attributes(p, n)
     rec = {
         "phase": "kernel_solve", "case": label, "n_pix": n, "p": p,
-        "launches_on_path": launches, "finite": finite,
-        "path_equals_kernel": bool((x_path.T == kern).all()),
-        "max_abs_err": float((kern - plain).abs().max()),
-        "pixels_differing_from_plain": int((kern != plain).any(dim=0).sum()),
+        "launches_on_path": launches, "route": plan["route"],
+        "route_launches_on_path": routes,
+        "geometry": {**plan, **{k: attrs[k] for k in (
+            "registers", "local_bytes", "static_shared_bytes", "sms",
+            "ctas_per_sm")}},
+        "path_equals_kernel": pixels_differing(x_path.T.contiguous(),
+                                               kern) == 0,
+        "max_abs_err": float((kern - plain).nan_to_num().abs().max()),
+        "pixels_differing_from_plain": pixels_differing(kern, plain),
+        "nonfinite_pixels": int(nonfinite.sum()),
+        "planted": {k: int(v.numel()) for k, v in (planted or {}).items()},
         "x_err_vs_f64": errs, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
         **bound(4.0 * (tri(p) + 2 * p) * n, chol_solve_flops(p) * n),
     }
+    rec["share_of_bound"] = rec["bound_ms"] / ms
     emit(rec)
     failures = held_quantiles({"x": errs["kernel"]}, {"x": errs["plain"]},
                               ("x",))
-    if not finite:
-        failures.append("non-finite kernel output")
-    if launches != 1 or not rec["path_equals_kernel"]:
-        failures.append(f"path: {launches} launches")
+    if rec["pixels_differing_from_plain"]:
+        failures.append(f"{rec['pixels_differing_from_plain']} pixels differ"
+                        " from the plain version")
+    if bool((nonfinite != is_planted).any()):
+        failures.append(f"{int(nonfinite.sum())} non-finite pixels for "
+                        f"{int(is_planted.sum())} planted")
+    if launches != 1 or routes[plan["route"]] != 1 or not rec[
+            "path_equals_kernel"]:
+        failures.append(f"path: {launches} launches, routes {routes}")
+    for k in ("tile", "stages", "consumer_warps", "threads", "smem_bytes",
+              "grid"):
+        if attrs[k] != plan[k]:
+            failures.append(f"launch_plan {k}={plan[k]}, kernel {attrs[k]}")
+    if attrs["ctas_per_sm"] < 1 or attrs["local_bytes"]:
+        failures.append(f"occupancy or spills: {attrs}")
     if failures:
         raise AssertionError(f"kernel_solve ({label}): "
                              + "; ".join(failures))
     return rec
+
+
+#: the packed solve's cases beside the main-path dates: (label, p, n)
+#: seeded SPD systems at the JAX bench's device size, and at 2^19 + 3 px
+#: for every instance (the cp.async route, ending on a 3-px tile).
+SOLVE_CASES = (("2^19", 10, 2 ** 19), ("2^19+3 p=2", 2, 2 ** 19 + 3),
+               ("2^19+3 p=7", 7, 2 ** 19 + 3), ("2^19+3", 10, 2 ** 19 + 3))
 
 
 def profile_device(fn, device, top: int = 8, match=()) -> dict:
@@ -1306,7 +1397,7 @@ def main() -> int:
             "fused_gn": fused_gn.kernel_attributes(),
             **{f"fused_update_{p}x{nb}": fused_update.kernel_attributes(p, nb)
                for p, nb in fused_update.INSTANCES},
-            **{f"solve_rows_{p}": solve_rows.kernel_attributes(p)
+            **{f"solve_rows_{p}": solve_rows.kernel_attributes(p, 2 ** 19)
                for p in solve_rows.INSTANCES},
         },
     })
@@ -1327,12 +1418,23 @@ def main() -> int:
     upd_small = phase_kernel_update(device, "2^19",
                                     prosail_update_rows(2 ** 19, device))
     phase_faults_update(device, kept_s2)
-    solve_s2 = phase_kernel_solve(device, "main_s2_date",
-                                  *normal_equation_rows(kept_s2))
+    s2_a, s2_b = normal_equation_rows(kept_s2)
     del kept_s2
-    solve_tip = phase_kernel_solve(device, "main_tip_date",
-                                   *normal_equation_rows(tip_rows))
+    solve_s2 = phase_kernel_solve(device, "main_s2_date", s2_a, s2_b)
+    planted_a, planted = plant_solve_faults(s2_a, 10)
+    solve_recs = [solve_s2, phase_kernel_solve(
+        device, "main_s2_date planted", planted_a, s2_b, planted=planted)]
+    del s2_a, s2_b, planted_a
+    solve_recs.append(phase_kernel_solve(device, "main_tip_date",
+                                         *normal_equation_rows(tip_rows)))
     del tip_rows
+    for label, p, n in SOLVE_CASES:
+        solve_recs.append(phase_kernel_solve(
+            device, label, *spd_rows(p, n, device, seed=1000 * p + 19)))
+    routes_run = {r: sum(rec["route"] == r for rec in solve_recs)
+                  for r in solve_rows.ROUTES}
+    if not all(routes_run.values()):
+        raise AssertionError(f"kernel_solve: a route never ran: {routes_run}")
     phase_profile(device, main_rec["n_pad"])
     phase_profile_s2(device, s2_date_args)
     print(smi, flush=True)
@@ -1340,6 +1442,15 @@ def main() -> int:
     def at(rec):
         return {k: rec[k] for k in ("n_pix", "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")}
+
+    def solve_at(rec):
+        geo = rec["geometry"]
+        return {**at(rec), "fill_route": rec["route"], **{k: rec[k] for k in (
+            "p", "share_of_bound", "library_ms",
+            "pixels_differing_from_plain")},
+            "geometry": {k: geo[k] for k in (
+                "tile", "stages", "grid", "consumer_warps", "threads",
+                "smem_bytes", "registers")}}
 
     emit({"kernels": [
         kernel_entry(
@@ -1362,8 +1473,11 @@ def main() -> int:
             "normal equations", solve_s2,
             library_ms=solve_s2["library_ms"],
             max_abs_err_vs_f64=solve_s2["x_err_vs_f64"]["kernel"]["max"],
-            **{"tip_date_p7": {**at(solve_tip),
-                               "library_ms": solve_tip["library_ms"]}}),
+            **{k: v for k, v in solve_at(solve_s2).items() if k not in (
+                "n_pix", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
+            routes_run=routes_run,
+            cases={rec["case"]: solve_at(rec) for rec in solve_recs[1:]}),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,13 @@ kernel ``_solve_kernel``, with ``solve_spd_packed_pallas``).
   packed Cholesky and substitution on the rows), any device and dtype;
 - :func:`solve_rows` — the JAX signature: CPU tensors run the plain
   version, CUDA tensors launch ``csrc/solve_rows.cu`` (p in
-  ``INSTANCES``) or raise.  ``solve_rows.launches`` counts launches;
+  ``INSTANCES``) or raise.  ``solve_rows.launches`` counts launches and
+  ``solve_rows.route_launches`` counts them by route;
+- :func:`launch_plan` — how the kernel covers n pixels: persistent CTAs
+  (one per SM) walking tiles of ``tile`` pixels through a ring of
+  ``stages`` tiles in shared memory, filled by TMA (route ``"tma"``) or
+  by 4-byte ``cp.async`` copies (route ``"cp_async"``, for any n and any
+  base address);
 - :func:`solve_spd_packed_kernel` — the drop-in for
   ``linalg.solve_spd_packed`` (``solve_spd_packed_pallas`` in the JAX
   package).
@@ -15,6 +21,7 @@ kernel ``_solve_kernel``, with ``solve_spd_packed_pallas``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +29,16 @@ from .linalg import cholesky_packed, solve_chol_vectors, tri_rows
 
 #: state sizes of the CUDA kernel's instances.
 INSTANCES = (2, 7, 10)
+#: p -> (consumer warpgroups, ring stages) of the instance
+#: (csrc/solve_rows.cu: Config<P>).  Each warpgroup takes one CHUNK-px
+#: chunk of a tile, one pixel per thread.
+GEOMETRY = {2: (4, 8), 7: (4, 3), 10: (2, 3)}
+#: pixels per consumer warpgroup and per TMA box, and the producer
+#: warpgroup's threads (csrc: kChunk).
+CHUNK = 128
+#: bytes of dynamic shared memory ahead of the ring, for the mbarriers.
+BARRIER_BYTES = 128
+ROUTES = ("tma", "cp_async")
 
 
 def check_instance(p: int) -> None:
@@ -30,6 +47,34 @@ def check_instance(p: int) -> None:
         raise NotImplementedError(
             f"the CUDA packed solve has no instance for p={p}; instances: "
             f"{INSTANCES}")
+
+
+def route(n: int, *base_ptrs: int) -> str:
+    """``"tma"`` when a 2-D tensor map can cover the (rows, n) inputs —
+    a row pitch of n * 4 bytes that is a multiple of 16 and 16-byte
+    aligned bases — else ``"cp_async"``."""
+    aligned = all(ptr % 16 == 0 for ptr in base_ptrs)
+    return "tma" if n % 4 == 0 and aligned else "cp_async"
+
+
+def launch_plan(p: int, n: int, base_ptrs, sms: int) -> dict:
+    """The launch of the p instance over ``n`` pixels whose input rows
+    start at ``base_ptrs``, on a card with ``sms`` SMs: the route, the
+    geometry (``csrc/solve_rows.cu`` computes the same) and the tiles —
+    ``tiles`` of ``tile`` px cover n, the last holds ``tail`` px."""
+    check_instance(p)
+    if n < 1:
+        raise ValueError(f"n={n}: nothing to solve")
+    groups, stages = GEOMETRY[p]
+    tile = groups * CHUNK
+    tiles = -(-n // tile)
+    warps = 4 * groups
+    return {"route": route(n, *base_ptrs), "tile": tile, "stages": stages,
+            "consumer_warps": warps, "threads": 32 * warps + CHUNK,
+            "smem_bytes": BARRIER_BYTES + stages * tile
+            * (tri_rows(p) + p) * 4,
+            "tiles": tiles, "tail": n - (tiles - 1) * tile,
+            "grid": min(sms, tiles)}
 
 
 def solve_rows_plain(a_rows, b_rows):
@@ -44,6 +89,12 @@ def solve_rows_plain(a_rows, b_rows):
     return torch.stack(solve_chol_vectors(l, [b_rows[i] for i in range(p)]))
 
 
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device ``dev`` (read once per device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch_cuda(a_rows, b_rows):
     """Launch ``csrc/solve_rows.cu`` on the current stream (no sync)."""
     from . import _build
@@ -54,25 +105,41 @@ def _launch_cuda(a_rows, b_rows):
     _build.check_rows("a_rows", a_rows, tri_rows(p), n, dev)
     _build.check_rows("b_rows", b_rows, p, n, dev)
     x = torch.empty((p, n), dtype=torch.float32, device=dev)
+    plan = launch_plan(p, n, (a_rows.data_ptr(), b_rows.data_ptr()),
+                       _sm_count(dev))
     lib = _build.load("solve_rows")
     fn = lib.kafka_solve_rows
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     rc = fn(p, a_rows.data_ptr(), b_rows.data_ptr(), x.data_ptr(), n,
+            int(plan["route"] == "tma"), plan["grid"],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, rc, "solve_rows")
     solve_rows.launches += 1
+    solve_rows.route_launches[plan["route"]] += 1
     return x
 
 
-def kernel_attributes(p: int) -> dict:
-    """Registers, spill bytes, static shared bytes and threads per block
-    of the compiled p instance (builds it if needed)."""
+def kernel_attributes(p: int, n: int) -> dict:
+    """The compiled p instance for ``n`` pixels on the current device:
+    registers, spill bytes, static and dynamic shared bytes, threads,
+    consumer warps, tile, stages, SMs, CTAs one SM holds and the grid
+    (builds it if needed)."""
     from . import _build
 
     check_instance(p)
-    return _build.attributes("solve_rows", "kafka_solve_rows_attributes", p)
+    lib = _build.load("solve_rows")
+    fn = lib.kafka_solve_rows_attributes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    out = (ctypes.c_int * 11)()
+    rc = fn(p, n, ctypes.addressof(out))
+    _build.raise_on_error(lib, rc, "solve_rows attributes")
+    keys = ("registers", "local_bytes", "static_shared_bytes", "smem_bytes",
+            "threads", "consumer_warps", "tile", "stages", "sms",
+            "ctas_per_sm", "grid")
+    return dict(zip(keys, out))
 
 
 def solve_rows(a_rows, b_rows, block: int = 1024):
@@ -90,8 +157,10 @@ def solve_rows(a_rows, b_rows, block: int = 1024):
     raise ValueError(f"no packed solve for {dev}")
 
 
-#: CUDA kernel launches of this process (plain-version calls excluded).
+#: CUDA kernel launches of this process (plain-version calls excluded),
+#: in all and by route.
 solve_rows.launches = 0
+solve_rows.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def solve_spd_packed_kernel(a_packed, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""chip_smoke.py's trip-count and verdict gate and its group-case inputs,
-on the CPU with made-up raw outputs: the kernel must give the float32
-plain version's trips and verdicts, except on a group whose trips the
-plain version's own 1-ulp nudge of x_f moves, where the nudged or the
-float64 count is accepted too."""
+"""chip_smoke.py's gates and their inputs, on the CPU with made-up
+outputs.  The fused Gauss-Newton kernel must give the float32 plain
+version's trips and verdicts, except on a group whose trips the plain
+version's own 1-ulp nudge of x_f moves, where the nudged or the float64
+count is accepted too.  The packed solve must match its plain version
+bit for bit, NaN equal to NaN at the same places."""
 
 import sys
 from pathlib import Path
@@ -12,6 +13,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
+from kafka_tpu_torch.core.solve_rows import solve_rows_plain  # noqa: E402
 
 BLOCK, GROUPS = 4, 3
 
@@ -68,3 +70,34 @@ def test_group_case_rows_leave_every_other_group_unobserved():
     assert (rows["r_inv"][:, unobserved] == 0).all()
     assert rows["y"][:, unobserved].isnan().all()
     assert (rows["tol"], rows["relaxation"]) == (2e-3, cs.GROUP_RELAXATION)
+
+
+NAN = float("nan")
+
+
+@pytest.mark.parametrize("kern,plain,differing", [
+    ([[1.0, 2.0, NAN], [3.0, NAN, 4.0]],
+     [[1.0, 2.0, NAN], [3.0, NAN, 4.0]], 0),   # NaN at the same places
+    ([[1.0, 2.0, NAN], [3.0, 5.0, 4.0]],
+     [[1.0, 2.0, NAN], [3.0, NAN, 4.0]], 1),   # NaN in one only
+    ([[NAN, 2.0, 3.0], [3.0, 4.0, 4.0]],
+     [[1.0, NAN, 3.0], [3.0, 4.0, 4.0]], 2),   # NaN at other places
+    ([[1.0, 2.0, 3.0], [0.0, 4.0, 4.0]],
+     [[1.0, 2.0, 3.0000002], [-0.0, 4.0, 4.0]], 2),  # 1 ulp; signed zero
+])
+def test_solve_gate_counts_pixels_whose_bits_differ(kern, plain, differing):
+    a, b = torch.tensor(kern), torch.tensor(plain)
+    assert cs.pixels_differing(a, b) == differing
+    assert cs.pixels_differing(b, a) == differing
+    assert cs.pixels_differing(a, a.clone()) == 0
+
+
+def test_planted_solve_faults_are_non_finite_in_the_plain_version():
+    a, b = cs.spd_rows(7, 300, torch.device("cpu"), seed=3)
+    planted_a, planted = cs.plant_solve_faults(a, 7, n_each=8)
+    x = solve_rows_plain(planted_a, b)
+    bad = ~torch.isfinite(x).all(dim=0)
+    hit = torch.cat(list(planted.values()))
+    assert hit.unique().numel() == 16
+    assert bad[hit].all() and int(bad.sum()) == 16
+    assert torch.equal(planted_a[:, ~bad], a[:, ~bad])

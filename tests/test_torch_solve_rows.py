@@ -27,7 +27,7 @@ def _problem(n, p, seed):
     return a, b
 
 
-@pytest.mark.parametrize("n", [256, 384, 1280])
+@pytest.mark.parametrize("n", [256, 384, 1280, 257, 258, 259])
 @pytest.mark.parametrize("p", [2, 7, 10])
 def test_plain_solve_matches_jax_kernel_and_float64(p, n):
     a, b = _problem(n, p, seed=p * 7 + n)
@@ -64,3 +64,47 @@ def test_solve_rows_layout_and_float64():
 def test_unsupported_instance_raises(p):
     with pytest.raises(NotImplementedError, match=r"\(2, 7, 10\)"):
         tsr.check_instance(p)
+
+
+@pytest.mark.parametrize("p", [2, 7, 10])
+@pytest.mark.parametrize("n", [1, 3, 127, 128, 4096, 4099, 2 ** 19,
+                               2 ** 19 + 3, 1_205_760, 4_608_000])
+def test_launch_plan_route_tiles_and_shared_memory(p, n):
+    """TMA exactly when n % 4 == 0 and both bases are 16-byte aligned; the
+    tiles cover n with a ragged tail of the right size; one CTA per SM at
+    most; the ring fits a CTA's shared memory."""
+    for ptrs in [(0, 256), (4096, 16), (4, 256), (256, 8), (256, 260)]:
+        plan = tsr.launch_plan(p, n, ptrs, sms=132)
+        aligned = all(x % 16 == 0 for x in ptrs)
+        assert plan["route"] == ("tma" if n % 4 == 0 and aligned
+                                 else "cp_async")
+    groups, stages = tsr.GEOMETRY[p]
+    assert plan["tile"] == groups * tsr.CHUNK
+    assert plan["stages"] == stages
+    assert plan["consumer_warps"] == 4 * groups
+    assert plan["threads"] == 32 * plan["consumer_warps"] + tsr.CHUNK
+    assert (plan["tiles"] - 1) * plan["tile"] < n <= plan["tiles"] * plan[
+        "tile"]
+    assert plan["tail"] == n - (plan["tiles"] - 1) * plan["tile"]
+    assert 1 <= plan["tail"] <= plan["tile"]
+    assert plan["tail"] == (n % plan["tile"] or plan["tile"])
+    assert plan["grid"] == min(132, plan["tiles"])
+    rows = p * (p + 1) // 2 + p
+    assert plan["smem_bytes"] == tsr.BARRIER_BYTES + stages * plan[
+        "tile"] * rows * 4
+    assert plan["smem_bytes"] <= 232_448  # a CTA's shared memory on Hopper
+    assert plan["threads"] <= 1024
+
+
+def test_launch_plan_rejects_empty_and_unknown_instances():
+    with pytest.raises(ValueError, match="nothing to solve"):
+        tsr.launch_plan(10, 0, (), 132)
+    with pytest.raises(NotImplementedError):
+        tsr.launch_plan(5, 256, (), 132)
+
+
+def test_route_reads_every_base_pointer():
+    assert tsr.route(4096) == "tma"
+    assert tsr.route(4096, 256, 512, 1024) == "tma"
+    assert tsr.route(4096, 256, 512, 1028) == "cp_async"
+    assert tsr.route(4097, 256) == "cp_async"

@@ -10,11 +10,13 @@ one JSON line:
 
 1. device — card, torch/CUDA versions, build time, registers and spills;
 2. reference — a small TIP engine run through the fused Gauss-Newton
-   kernel against the port's plain loop (use_pallas=False), date by date;
+   kernel against the port's plain loop (use_pallas=False), date by date,
+   its one-acquisition windows run as fused blocks (scan_window 8):
+   fused_gn launches must equal the dates;
 3. reference_s2 — a small Sentinel-2 PROSAIL engine run through the row
    loop (fused update at (10, 10)) against the plain loop, and the small
    TIP run with inkernel_linearize=False (fused update at (7, 2)) against
-   it too;
+   it too, both fused: fused-update launches must equal the iterations;
 4. main — KalmanFilter.run over one 2400 x 2400 MODIS tile under a
    seeded land mask: TwoStreamOperator, jrc_prior, prior-only advance,
    3 windows of 16 days with 2 acquisitions each.  Kernel launch counts
@@ -36,9 +38,11 @@ one JSON line:
 7. main_s2 — KalmanFilter.run over one 1098 x 1098 Sentinel-2 sub-tile
    (1,205,604 px): ProsailOperator, sail_prior, no propagation with
    Q = 0, relaxation 0.7, the Barrax grid (2017-07-03 to 07-11, 2-day
-   steps), one acquisition per step.  Launch counts reset before, read
-   after: fused-update launches must equal the dates' iterations.  The
-   fused update's inputs of the second date's first iteration are kept;
+   steps), one acquisition per step, so the engine fuses blocks of two
+   where its guards let it (``fused`` printed per date).  Launch counts
+   reset before, read after: fused-update launches must equal the dates'
+   iterations.  The fused update's inputs of the second date's first
+   iteration are kept;
 8. kernel_update — the fused update against its plain version on those
    kept inputs and on make_prosail_problem(2**19), by the same float64
    rule; flags equal; timed;
@@ -58,7 +62,28 @@ one JSON line:
    geometry (held to the compiled kernel's); both routes must run;
 11. profile, profile_s2 — one TIP tile date and one S2 sub-tile date
    under torch.profiler (device busy time, idle share, time by kernel);
-   the TIP phase also times the dense<->packed information copies.
+   the TIP phase also times the dense<->packed information copies;
+12. cli — the torch ``run_synthetic --operator twostream`` as a user
+   runs it (``kafka_tpu_torch.cli.run_synthetic.main``, in-process) over
+   the 2400 x 2400 tile under the land mask of phase main, written as a
+   GeoTIFF outside the output folder: 8 windows of one acquisition,
+   prefetch, temporal fusion, the exact information propagator,
+   checkpoints and GeoTIFF outputs.  Gates: the summary line printed;
+   fused_gn launches equal the dates; the block plan equal to the one
+   the engine's guards give for this n_pad (``block_plan``, the
+   constants copied here), with a block of at least 2; windows x 15
+   GeoTIFFs, finite on the mask, each read back bit-identical to a
+   MemoryOutput copy of the same dumps; the same inputs with
+   scan_window=1 bit-identical; a run stopped after 4 windows and resumed
+   from its checkpoint ending bit-identical to the uninterrupted run's
+   last checkpoint; then the kernel (phase kernel, case
+   ``cli_fused_date``) on its inputs of a date inside a fused block,
+   whose prior information is a dense propagated P^-1.  It prints
+   wall_s and pixel_steps_per_s, the per-block wall time, one
+   propagate_information_filter over the tile, the writer's flush and
+   close time and peak queue depth, the codec path (the native codec
+   must build) and the peak device bytes.  Its files go to
+   ``build/chip_smoke_cli`` in the checkout and are removed after.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -69,6 +94,7 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -168,6 +194,21 @@ ROW_ARGS = ("lin_rows", "y", "r_inv", "mask_f", "xf_rows", "pf_rows", "tol",
             "state_bounds_rows", "norm_denominator")
 ROW_INPUTS = ("y", "r_inv", "mask_f", "xf_rows", "pf_rows")
 OUTPUTS = ("x", "A", "fwd", "inn", "st", "hl")
+
+#: the cli phase: the driver's arguments (one acquisition every 4 days
+#: over 32 days on a 4-day grid: 8 one-acquisition windows) and the
+#: fused_gn call kept for the kernel phase (0-based date; date 0 is the
+#: unfused head window, dates 1 and 2 the first fused block).
+CLI_ARGS = ("--operator", "twostream", "--days", "32", "--step", "4",
+            "--obs-every", "4", "--checkpoint")
+CLI_KEEP_DATE = 2
+CLI_RESUME_WINDOWS = 4
+#: the engine's fusion guards (kafka_tpu/engine/filter.py:920-922 and the
+#: port's copy), copied here: a block of k windows must hold k*n*p state
+#: elements and 3*k*B*n band elements; the tile has no aux.
+SCAN_MAX_STATE_ELEMS = 100_000_000
+SCAN_MAX_BAND_ELEMS = 100_000_000
+SCAN_WINDOW = 8
 
 
 def emit(obj) -> None:
@@ -526,20 +567,28 @@ def phase_faults(device, rows: dict, n_each: int = 64) -> dict:
 
 
 def phase_reference(device) -> dict:
-    """The tiny TIP engine run: kernel path against the plain loop."""
+    """The tiny TIP engine run, its one-acquisition windows fused: kernel
+    path against the plain loop."""
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.testing.synthetic import run_tip_engine
 
-    _, out_k, _, _ = run_tip_engine(device=device)
+    fused_gn_rows.launches = 0
+    kf, out_k, _, _ = run_tip_engine(scan_window=SCAN_WINDOW, device=device)
+    launches = fused_gn_rows.launches
     _, out_p, _, _ = run_tip_engine(
-        device=device,
+        device=device, scan_window=SCAN_WINDOW,
         solver_options={"relaxation": 0.7, "max_iterations": 40,
                         "use_pallas": False},
     )
     rec = {"phase": "reference", "dates": len(out_p.output),
-           **compare_runs(out_k, out_p)}
+           "fused_per_date": [r.get("fused") for r in kf.diagnostics_log],
+           "launches": launches, **compare_runs(out_k, out_p)}
     emit(rec)
     if rec["max_abs_err"] > X_ATOL or not rec["solver_qa_equal"]:
         raise AssertionError(f"engine kernel path vs plain loop: {rec}")
+    if launches != len(kf.diagnostics_log):
+        raise AssertionError(f"{launches} fused_gn launches for "
+                             f"{len(kf.diagnostics_log)} dates")
     return rec
 
 
@@ -563,7 +612,7 @@ def date_records(dates, peaks=None) -> list:
         "cap_bailouts": r["cap_bailouts"],
         "damped_recovered": r["damped_recovered"],
         "quarantined": r["quarantined"], "nonfinite": r["nonfinite"],
-        "wall_s": r["wall_s"],
+        "wall_s": r["wall_s"], "fused": r.get("fused"),
     } for r in dates]
     for rec, peak in zip(recs, peaks or ()):
         rec["peak_device_bytes"] = peak
@@ -819,7 +868,7 @@ def phase_reference_s2(device) -> dict:
         run_tip_engine
 
     fused_update_rows.launches = 0
-    _, out_k, _, _ = run_s2_engine(32, 32, device=device)
+    s2_kf, out_k, _, _ = run_s2_engine(32, 32, device=device)
     s2_launches = fused_update_rows.launches
     _, out_p, _, _ = run_s2_engine(
         32, 32, device=device,
@@ -827,22 +876,34 @@ def phase_reference_s2(device) -> dict:
     s2 = compare_runs(out_k, out_p)
     tip_opts = {"relaxation": 0.7, "max_iterations": 40}
     fused_update_rows.launches = 0
-    _, tip_k, _, _ = run_tip_engine(
-        device=device, solver_options={**tip_opts,
-                                       "inkernel_linearize": False})
+    tip_kf, tip_k, _, _ = run_tip_engine(
+        device=device, scan_window=SCAN_WINDOW,
+        solver_options={**tip_opts, "inkernel_linearize": False})
     tip_launches = fused_update_rows.launches
     _, tip_p, _, _ = run_tip_engine(
-        device=device, solver_options={**tip_opts, "use_pallas": False})
+        device=device, scan_window=SCAN_WINDOW,
+        solver_options={**tip_opts, "use_pallas": False})
     tip = compare_runs(tip_k, tip_p)
-    rec = {"phase": "reference_s2", "s2_32x32": {**s2,
-                                                  "launches": s2_launches},
-           "tip_rowloop": {**tip, "launches": tip_launches}}
+
+    def per_date(kf):
+        return [(r["n_iterations"], r.get("fused"))
+                for r in kf.diagnostics_log]
+
+    rec = {"phase": "reference_s2",
+           "s2_32x32": {**s2, "launches": s2_launches,
+                        "iterations_fused": per_date(s2_kf)},
+           "tip_rowloop": {**tip, "launches": tip_launches,
+                           "iterations_fused": per_date(tip_kf)}}
     emit(rec)
     for name, r in (("s2", s2), ("tip row loop", tip)):
         if r["max_abs_err"] > X_ATOL or not r["solver_qa_equal"]:
             raise AssertionError(f"{name} fused update vs plain loop: {r}")
-    if s2_launches == 0 or tip_launches == 0:
-        raise AssertionError(f"fused update not launched: {rec}")
+    for name, kf, n in (("s2", s2_kf, s2_launches),
+                        ("tip row loop", tip_kf, tip_launches)):
+        iterations = sum(r["n_iterations"] for r in kf.diagnostics_log)
+        if n == 0 or n != iterations:
+            raise AssertionError(f"{name}: {n} fused update launches for "
+                                 f"{iterations} iterations")
     return rec
 
 
@@ -862,9 +923,11 @@ def s2_truth(ny: int, nx: int, seed: int):
 
 def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
                   seed: int = 0):
-    """KalmanFilter.run over one S2 sub-tile through the row loop.
-    Returns the record, the fused update's inputs of the first iteration
-    of date KEEP_DATE, and that date's assimilate_date arguments."""
+    """KalmanFilter.run over one S2 sub-tile through the row loop (its
+    one-acquisition windows run as fused blocks where the engine's
+    guards let them).  Returns the record, the fused update's inputs of
+    the first iteration of date KEEP_DATE, and that date's
+    ``iterated_solve`` arguments."""
     import torch
 
     from kafka_tpu_torch.core import fused_update as fu_mod
@@ -872,7 +935,6 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
     from kafka_tpu_torch.core.solve_rows import solve_rows
-    from kafka_tpu_torch.engine import filter as filter_mod
     from kafka_tpu_torch.engine import (PROSAIL_PARAMETER_LIST,
                                         KalmanFilter, sail_prior)
     from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
@@ -900,12 +962,14 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
 
     # Keep the fused update's inputs on the first iteration of date
     # KEEP_DATE (clones: the solver's call goes through unchanged), the
-    # date's assimilate_date arguments, and each date's peak memory.
+    # date's iterated_solve arguments, and each date's peak memory.  Both
+    # the unfused date path and a fused block's steps call
+    # solvers.iterated_solve once per date.
     date_idx = [-1]
     kept, kept_date_args, peaks = {}, {}, []
     names = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
              "pf_rows", "esc_row")
-    real_date = filter_mod.assimilate_date
+    real_solve = solvers.iterated_solve
 
     def date_wrap(*args, **kwargs):
         date_idx[0] += 1
@@ -914,7 +978,7 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
         cuda = device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
-        res = real_date(*args, **kwargs)
+        res = real_solve(*args, **kwargs)
         _sync(device)
         peaks.append(torch.cuda.max_memory_allocated(device) if cuda
                      else None)
@@ -925,7 +989,7 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
             kept.update((k, v.clone()) for k, v in zip(names, args))
         return fused_update_rows(*args, **kwargs)
 
-    filter_mod.assimilate_date = date_wrap
+    solvers.iterated_solve = date_wrap
     solvers.fused_update_rows = keep
     try:
         fused_gn_rows.launches = fused_update_rows.launches = \
@@ -938,7 +1002,7 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
                     "fused_update": fused_update_rows.launches,
                     "solve_rows": solve_rows.launches}
     finally:
-        filter_mod.assimilate_date = real_date
+        solvers.iterated_solve = real_solve
         solvers.fused_update_rows = fu_mod.fused_update_rows
     dates = kf.diagnostics_log
     finite = outputs_finite(out, mask.shape)
@@ -1329,24 +1393,23 @@ def profile_device(fn, device, top: int = 8, match=()) -> dict:
 
 
 def phase_profile_s2(device, date_args: dict) -> dict:
-    """The kept S2 date's assimilate_date once more under torch.profiler,
+    """The kept S2 date's iterated_solve once more under torch.profiler,
     with the fused update's share of the device time, and the wall time
     of one blocked linearisation of the date alone."""
     from kafka_tpu_torch.core import solvers
-    from kafka_tpu_torch.core.solvers import assimilate_date
 
     args, kwargs = date_args["args"], date_args["kwargs"]
     out = {}
 
     def run():
-        out["r"] = assimilate_date(*args, **kwargs)
+        out["r"] = solvers.iterated_solve(*args, **kwargs)
         int(out["r"][2].n_iterations)
 
     prof = profile_device(run, device, match=("fused_update_kernel",))
     # One blocked linearisation of the date's forecast on its own: the
     # layer the prediction says dominates an S2 date.
-    linearize, x_f, aux, opts = args[0], args[2], args[4], args[5]
-    block = int(opts.get("linearize_block", x_f.shape[0]))
+    linearize, x_f, aux = args[0], args[2], args[4]
+    block = int(kwargs.get("linearize_block") or x_f.shape[0])
     linearize_ms = time_ms(lambda: solvers._blocked_linearize(
         linearize, aux, x_f, block), device, 2)
     rec = {"phase": "profile_s2", "n_pix": int(x_f.shape[0]),
@@ -1355,6 +1418,409 @@ def phase_profile_s2(device, date_args: dict) -> dict:
            "linearize_wall_ms": linearize_ms, **prof}
     emit(rec)
     return rec
+
+
+def block_plan(n_windows: int, n_pad: int, n_params: int, n_bands: int,
+               scan_window: int = SCAN_WINDOW) -> list:
+    """The block sizes the engine runs for ``n_windows`` windows of one
+    acquisition each: the head window unfused (it does not advance), then
+    blocks of as many windows as ``scan_window`` and the guards allow,
+    bucketed down to a power of two; a block of one runs unfused."""
+    def fits(k):
+        return (k * n_pad * n_params <= SCAN_MAX_STATE_ELEMS
+                and 3 * k * n_bands * n_pad <= SCAN_MAX_BAND_ELEMS)
+
+    plan, idx = [1], 1
+    while idx < n_windows:
+        k = 0
+        while idx + k < n_windows and k < scan_window and fits(k + 1):
+            k += 1
+        bucket = 1
+        while bucket * 2 <= k:
+            bucket *= 2
+        plan.append(bucket)
+        idx += bucket
+    return plan
+
+
+def plan_fused_fields(plan: list) -> list:
+    """Each window's ``fused`` diagnostic field under ``plan``."""
+    return [None if k == 1 else k for k in plan for _ in range(k)]
+
+
+def expected_outputs(n_windows: int, n_params: int) -> int:
+    """GeoTIFFs a run writes: per window a state and a sigma raster per
+    parameter and one QA band."""
+    return n_windows * (2 * n_params + 1)
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    """Arrays equal bit for bit, NaN equal to NaN at the same places."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind != "f":
+        return bool(np.array_equal(a, b))
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    return bool((nan_a == nan_b).all()) and a[~nan_a].tobytes() == \
+        b[~nan_b].tobytes()
+
+
+class TeeOutput:
+    """The driver's GeoTIFF writer with every dump also sent to a
+    MemoryOutput; times the writer's flushes and close."""
+
+    def __init__(self, writer, memory):
+        self.writer, self.memory = writer, memory
+        self.flush_s = self.close_s = 0.0
+
+    def dump_data(self, ts, x, diag, gather, params):
+        self.writer.dump_data(ts, x, diag, gather, params)
+        self.memory.dump_data(ts, x, diag, gather, params)
+
+    def dump_block(self, timesteps, xs, diags, gather, params):
+        self.writer.dump_block(timesteps, xs, diags, gather, params)
+        for k, ts in enumerate(timesteps):
+            self.memory.dump_data(ts, xs[k], diags[k], gather, params)
+
+    def dump_qa(self, ts, verdicts, gather):
+        self.writer.dump_qa(ts, verdicts, gather)
+        self.memory.dump_qa(ts, verdicts, gather)
+
+    def dump_qa_block(self, timesteps, verdicts, gather):
+        self.writer.dump_qa_block(timesteps, verdicts, gather)
+        for k, ts in enumerate(timesteps):
+            self.memory.dump_qa(ts, verdicts[k], gather)
+
+    def flush(self):
+        t0 = time.perf_counter()
+        self.writer.flush()
+        self.flush_s += time.perf_counter() - t0
+
+    def close(self):
+        t0 = time.perf_counter()
+        self.writer.close()
+        self.close_s += time.perf_counter() - t0
+
+
+class MemoryOnly:
+    """A MemoryOutput standing in for the driver's GeoTIFF writer."""
+
+    def __init__(self, memory):
+        self.memory = memory
+
+    def dump_data(self, *args):
+        self.memory.dump_data(*args)
+
+    def dump_qa(self, *args):
+        self.memory.dump_qa(*args)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+class NullOutput:
+    """Discards every dump (the resume phase reads only the state)."""
+
+    def dump_data(self, *args):
+        pass
+
+
+def memory_rasters(memory, names_of) -> dict:
+    """A MemoryOutput's rasters by GeoTIFF file name."""
+    out = {}
+    for ts, rasters in memory.output.items():
+        for key, arr in rasters.items():
+            out[names_of(key, ts)] = arr
+    return out
+
+
+def writer_snapshot_check(device, folder: str) -> dict:
+    """The asynchronous GeoTIFFOutput on tensors of ``device``: a tensor
+    overwritten right after its dump keeps its dumped values in the
+    file, and the writer holds no device memory once the dumped tensor
+    is freed and the writer closed."""
+    import torch
+
+    from kafka_tpu_torch.engine.state import make_pixel_gather
+    from kafka_tpu_torch.io import GeoTIFFOutput, read_geotiff
+
+    g = make_pixel_gather(np.ones((512, 512), bool))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    x = torch.rand((g.n_pad, 2), generator=gen, device=device)
+    expect = g.scatter(x[:, 0].cpu().numpy())
+    _sync(device)
+    cuda = device.type == "cuda"
+    before = torch.cuda.memory_allocated(device) if cuda else 0
+    out = GeoTIFFOutput(("a", "b"), (0.0, 1.0, 0.0, 0.0, 0.0, -1.0),
+                        folder=folder, async_writes=True)
+    ts = datetime.datetime(2017, 7, 2)
+    out.dump_data(ts, x, None, g, ("a", "b"))
+    x.fill_(-1.0)
+    del x
+    out.close()
+    after = torch.cuda.memory_allocated(device) if cuda else 0
+    got, _ = read_geotiff(os.path.join(folder, "a_A2017183.tif"))
+    return {"snapshot_holds": same_bits(got, expect),
+            "device_bytes_freed_after_close": before - after}
+
+
+def phase_cli(device, workdir: str, ny: int = TILE, nx: int = TILE,
+              seed: int = 0):
+    """The torch run_synthetic --operator twostream over the MODIS tile
+    through the engine's default configuration (prefetch, fusion,
+    checkpoints, the exact information propagator, GeoTIFF outputs),
+    called in-process as a user would; then the same inputs unfused, and
+    a run interrupted after CLI_RESUME_WINDOWS windows and resumed from
+    its checkpoint.  Returns the record and the kernel's inputs on
+    CLI_KEEP_DATE."""
+    import argparse
+    import contextlib
+    import io
+
+    import torch
+
+    from kafka_tpu_torch.cli import run_synthetic as rs
+    from kafka_tpu_torch.core import propagators, solvers
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+    from kafka_tpu_torch.engine.checkpoint import Checkpointer
+    from kafka_tpu_torch.io import native_codec, read_geotiff, write_geotiff
+    from kafka_tpu_torch.native import load_library
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+    from kafka_tpu_torch.testing.fixtures import DEFAULT_GEO
+    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
+                                                   SyntheticObservations)
+
+    # No fallback here: the native codec must build and load.
+    load_library(strict=True)
+    mask = land_mask(ny, nx, seed)
+    mask_path = os.path.join(workdir, "mask.tif")
+    write_geotiff(mask_path, mask.astype(np.uint8), DEFAULT_GEO)
+    outdir = os.path.join(workdir, "out")
+    argv = [*CLI_ARGS, "--mask", mask_path, "--outdir", outdir,
+            "--device", str(device)]
+    n_windows = 32 // 4
+
+    real_output, real_make = rs.GeoTIFFOutput, rs._make_filter
+    real_scan = solvers.assimilate_windows_scan
+    captured, kept, calls, blocks = {}, {}, [], []
+    in_block = [False]
+
+    def tee_factory(*args, **kwargs):
+        captured["tee"] = TeeOutput(real_output(*args, **kwargs),
+                                    MemoryOutput())
+        return captured["tee"]
+
+    def make_filter(*args, **kwargs):
+        captured["kf"] = real_make(*args, **kwargs)
+        return captured["kf"]
+
+    def keep(*args, **kwargs):
+        if len(calls) == CLI_KEEP_DATE:
+            kept.update(zip(ROW_ARGS, args), corrupt=kwargs.get("corrupt"))
+        calls.append(in_block[0])
+        return fused_gn_rows(*args, **kwargs)
+
+    real_save, saves = Checkpointer.save, []
+
+    def timed_save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real_save(self, *args, **kwargs)
+        finally:
+            saves.append(time.perf_counter() - t0)
+
+    def scan(*args, **kwargs):
+        in_block[0] = True
+        t0 = time.perf_counter()
+        try:
+            res = real_scan(*args, **kwargs)
+            _sync(device)
+        finally:
+            in_block[0] = False
+        blocks.append(time.perf_counter() - t0)
+        return res
+
+    rs.GeoTIFFOutput, rs._make_filter = tee_factory, make_filter
+    solvers.fused_gn_rows, solvers.assimilate_windows_scan = keep, scan
+    Checkpointer.save = timed_save
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    printed = io.StringIO()
+    try:
+        fused_gn_rows.launches = 0
+        with contextlib.redirect_stdout(printed), \
+                use(MetricsRegistry()) as registry:
+            summary = rs.main(argv)
+        launches = fused_gn_rows.launches
+    finally:
+        rs.GeoTIFFOutput, rs._make_filter = real_output, real_make
+        solvers.fused_gn_rows = fused_gn_rows
+        solvers.assimilate_windows_scan = real_scan
+        Checkpointer.save = real_save
+    print(printed.getvalue(), end="", flush=True)
+    peak_bytes = torch.cuda.max_memory_allocated(device) if cuda else None
+    kf, tee = captured["kf"], captured["tee"]
+    failures = []
+    if json.loads(printed.getvalue().strip().splitlines()[-1]) != summary:
+        failures.append("the summary line is not the summary")
+
+    # The block plan the JAX guards give for this n_pad.
+    n_pad, p = kf.gather.n_pad, kf.n_params
+    plan = block_plan(n_windows, n_pad, p, 2)
+    fused = [r.get("fused") for r in kf.diagnostics_log]
+    if fused != plan_fused_fields(plan) or max(plan) < 2:
+        failures.append(f"block plan {fused}, expected "
+                        f"{plan_fused_fields(plan)}")
+    if launches != summary["n_dates"] or launches != n_windows:
+        failures.append(f"{launches} fused_gn launches for "
+                        f"{summary['n_dates']} dates")
+    if not kept or len(calls) <= CLI_KEEP_DATE or not calls[CLI_KEEP_DATE]:
+        failures.append(f"date {CLI_KEEP_DATE} was not in a fused block")
+
+    # Every GeoTIFF read back equals the teed MemoryOutput, bit for bit,
+    # and is finite on the mask.
+    writer = tee.writer
+    mem = memory_rasters(
+        tee.memory, lambda key, ts: os.path.basename(
+            writer._qa_fname(ts) if key == "solver_qa" else
+            writer._fname(key.removesuffix("_unc"), ts,
+                          key.endswith("_unc"))))
+    files = sorted(f for f in os.listdir(outdir) if f.endswith(".tif"))
+    t0 = time.perf_counter()
+    readback_differ, nonfinite = [], []
+    for name in files:
+        arr, _ = read_geotiff(os.path.join(outdir, name))
+        if name not in mem or not same_bits(arr, mem[name]):
+            readback_differ.append(name)
+        if not np.isfinite(arr[mask]).all():
+            nonfinite.append(name)
+    readback_s = time.perf_counter() - t0
+    if summary["outputs_written"] != expected_outputs(n_windows, p) or \
+            len(files) != len(mem):
+        failures.append(f"{summary['outputs_written']} outputs written, "
+                        f"{len(mem)} dumped, expected "
+                        f"{expected_outputs(n_windows, p)}")
+    if readback_differ or nonfinite:
+        failures.append(f"read-back differs: {readback_differ[:4]}; "
+                        f"non-finite: {nonfinite[:4]}")
+    final_ck = Checkpointer(os.path.join(outdir, "ckpt")).load_latest()
+
+    snapshot = writer_snapshot_check(device, os.path.join(workdir, "snap"))
+    if not snapshot["snapshot_holds"] or (
+            cuda and snapshot["device_bytes_freed_after_close"] <= 0):
+        failures.append(f"writer snapshot: {snapshot}")
+
+    # The same inputs unfused (scan_window=1) into a MemoryOutput.
+    unfused = MemoryOutput()
+    rs.GeoTIFFOutput = lambda *a, **k: MemoryOnly(unfused)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rs.main([*CLI_ARGS[:-1], "--mask", mask_path, "--scan-window",
+                     "1", "--outdir", os.path.join(workdir, "unfused"),
+                     "--device", str(device)])
+    finally:
+        rs.GeoTIFFOutput = real_output
+    unfused_differ = [
+        f"{ts.date()} {key}" for ts, rasters in tee.memory.output.items()
+        for key, arr in rasters.items()
+        if not same_bits(arr, unfused.output[ts][key])]
+    if sorted(unfused.output) != sorted(tee.memory.output) or \
+            unfused_differ:
+        failures.append(f"fused vs unfused differ: {unfused_differ[:4]}")
+    del unfused, mem
+
+    # Interrupted after CLI_RESUME_WINDOWS windows, then resumed on a
+    # fresh filter from its checkpoint (cli/drivers.py's resume).
+    op, params, prior, truth_val, aux_fn, sigma = rs.build_operator(
+        "twostream", device)
+    truth = np.broadcast_to(truth_val, mask.shape + (p,)).astype(np.float32)
+    base = datetime.datetime(2017, 7, 1)
+    dates = [base + datetime.timedelta(days=d) for d in range(1, 32, 4)]
+    grid = [base + datetime.timedelta(days=d) for d in range(0, 36, 4)]
+    ns = argparse.Namespace(max_degraded_dates=8, scan_window=SCAN_WINDOW)
+    ck_dir = os.path.join(workdir, "resume_ckpt")
+
+    def filter_over(n_dates):
+        obs = SyntheticObservations(dates[:n_dates], op, lambda d: truth,
+                                    sigma=sigma, aux_fn=aux_fn,
+                                    mask_prob=0.1, device=device)
+        return rs._make_filter(ns, mask, NullOutput(), op, params, obs,
+                               None, device)
+
+    t0 = time.perf_counter()
+    kf_head = filter_over(CLI_RESUME_WINDOWS)
+    x0, p_inv0 = prior.process_prior(None, kf_head.gather)
+    kf_head.run(grid[:CLI_RESUME_WINDOWS + 1], x0, None, p_inv0,
+                checkpointer=Checkpointer(ck_dir))
+    ck = Checkpointer(ck_dir)
+    rest, seed_state = ck.resume_time_grid(grid)
+    kf_rest = filter_over(len(dates))
+    x_r, _, p_r = kf_rest.run(rest, seed_state[0], None, seed_state[1],
+                              checkpointer=ck, advance_first=True)
+    _sync(device)
+    resume_s = time.perf_counter() - t0
+    x_host = x_r.cpu().numpy()
+    tril = np.tril_indices(p)
+    resume_equal = (final_ck is not None and final_ck[0] == grid[-1]
+                    and same_bits(x_host, final_ck[1])
+                    and same_bits(p_r.cpu().numpy()[:, tril[0], tril[1]],
+                                  final_ck[2][:, tril[0], tril[1]]))
+    if not resume_equal:
+        failures.append("resumed final state differs from the "
+                        "uninterrupted run's")
+
+    # One exact information propagation over the tile, timed.
+    q = kf_rest.trajectory_uncertainty
+    eye = kf_rest.trajectory_model
+    propagate_ms = time_ms(lambda: propagators.propagate_information_filter(
+        x_r, None, p_r, eye, q), device, 3)
+
+    recs = kf.diagnostics_log
+    rec = {
+        "phase": "cli", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
+        "n_pad": n_pad, "argv": list(CLI_ARGS), "summary": summary,
+        "wall_s": summary["wall_s"],
+        "pixel_steps_per_s": summary["pixel_steps_per_s"],
+        "block_plan": plan, "fused_per_date": fused,
+        "fused_gn_launches": launches,
+        "block_wall_s": blocks,
+        # Where the run's wall time went, from the run's own telemetry
+        # (host seconds summed over the run; reads and writes run on
+        # their own threads, overlapped with the loop) and the
+        # checkpoint saves timed here.
+        "time_breakdown": {
+            **{k: v for k, v in registry.flat().items()
+               if k.endswith("_sum") and (
+                   k.startswith("kafka_prefetch_") or
+                   k.startswith("kafka_engine_phase_seconds") or
+                   k.startswith("kafka_io_write_seconds"))},
+            "checkpoint_save_s": saves},
+        "per_date": date_records(recs),
+        "propagate_information_filter_ms": propagate_ms,
+        "writer": {"flush_s": tee.flush_s, "close_s": tee.close_s,
+                   "peak_queue_depth": writer.peak_backlog, **snapshot},
+        "codec_path": native_codec.codec_path(),
+        "peak_device_bytes": peak_bytes,
+        "outputs_written": summary["outputs_written"],
+        "readback": {"files": len(files), "differing": len(readback_differ),
+                     "nonfinite": len(nonfinite), "seconds": readback_s},
+        "fused_vs_unfused_differing": len(unfused_differ),
+        "resume": {"windows_before": CLI_RESUME_WINDOWS,
+                   "resumed_grid": [str(t.date()) for t in rest],
+                   "bit_identical": resume_equal, "seconds": resume_s},
+        "kept_date": CLI_KEEP_DATE,
+    }
+    emit(rec)
+    if rec["codec_path"] != "native":
+        failures.append("the GeoTIFFs did not go through the native codec")
+    if failures:
+        raise AssertionError("cli: " + "; ".join(failures))
+    return rec, kept
 
 
 def kernel_entry(name, route, source, replaces, launches, path, rec,
@@ -1437,6 +1903,17 @@ def main() -> int:
         raise AssertionError(f"kernel_solve: a route never ran: {routes_run}")
     phase_profile(device, main_rec["n_pad"])
     phase_profile_s2(device, s2_date_args)
+    del s2_date_args
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_cli")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        cli_rec, cli_kept = phase_cli(device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cli_kernel = phase_kernel(device, "cli_fused_date", cli_kept)
+    del cli_kept
     print(smi, flush=True)
 
     def at(rec):
@@ -1459,7 +1936,16 @@ def main() -> int:
             "phase main: KalmanFilter.run, MODIS tile", tile,
             max_abs_err_vs_f64=tile["kernel_vs_f64"]["x"]["max"],
             trips_per_group=tile["trips_per_group"],
-            geometry=tile["geometry"], **{"at_2^19": at(small)}),
+            geometry=tile["geometry"], **{"at_2^19": at(small)},
+            paths={"main": main_rec["kernel_launches"],
+                   "cli": cli_rec["fused_gn_launches"]},
+            at_cli_fused_date={
+                **at(cli_kernel),
+                "path": "phase cli: run_synthetic --operator twostream, "
+                        "MODIS tile, a date inside a fused block",
+                "max_abs_err_vs_f64":
+                    cli_kernel["kernel_vs_f64"]["x"]["max"],
+                "trips_per_group": cli_kernel["trips_per_group"]}),
         kernel_entry(
             "fused_update", "cuda", "kafka_tpu_torch/csrc/fused_update.cu",
             UPDATE_REPLACES, s2_rec["kernel_launches"]["fused_update"],

@@ -134,6 +134,20 @@ def solve_spd_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b[..., None], chol)[..., 0]
 
 
+def solve_batched(a: torch.Tensor, b: torch.Tensor,
+                  block: int = None) -> torch.Tensor:
+    """General batched solve (LU) for non-symmetric per-pixel systems —
+    the exact information-filter propagator's ``(I + P^-1 Q) X = P^-1``.
+    ``block`` bounds the pixels handed to one ``torch.linalg.solve`` call
+    (its LU workspace grows with the batch), as the JAX ``solve_batched``
+    bounds its ``lax.map`` slices."""
+    n = a.shape[0]
+    if block is None or n <= block:
+        return torch.linalg.solve(a, b)
+    return torch.cat([torch.linalg.solve(a[s:s + block], b[s:s + block])
+                      for s in range(0, n, block)])
+
+
 def spd_inverse_batched(a: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse via Cholesky."""
     p = a.shape[-1]

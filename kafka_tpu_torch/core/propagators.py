@@ -1,14 +1,13 @@
-"""State propagation in time (port of the prior-only part of
-``kafka_tpu/core/propagators.py``).
+"""State propagation in time (port of ``kafka_tpu/core/propagators.py``).
 
 Propagator contract, as in the JAX package: a callable
 
     (x_analysis, p_analysis, p_analysis_inverse, m_matrix, q_diag) ->
         (x_forecast, p_forecast | None, p_forecast_inverse | None)
 
-This slice carries the prior-only advance the TIP path uses
-(``no_propagation`` / a ``Prior`` with no propagator) and the prior
-blend; the exact information-filter propagators come later.
+``m_matrix`` is the (p, p) linear trajectory model and ``q_diag`` the
+per-parameter model-uncertainty diagonal.  All five propagators of the
+JAX package are here, with the prior blend and the advance dispatcher.
 """
 
 from __future__ import annotations
@@ -18,7 +17,12 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .linalg import solve_spd_batched, spd_inverse_batched
+from .linalg import (batched_diag, batched_diagonal, solve_batched,
+                     solve_spd_batched, spd_inverse_batched)
+
+# Pixels per ``torch.linalg.solve`` call in the exact information
+# propagator (the JAX package's slice of its LU call).
+INFO_SOLVE_BLOCK = 131072
 
 
 class PixelPrior(NamedTuple):
@@ -62,6 +66,76 @@ def broadcast_prior(prior: PixelPrior,
     p = prior.mean.shape[0]
     return (prior.mean.expand(n_pix, p),
             prior.inv_cov.expand(n_pix, p, p))
+
+
+def _trajectory(m_matrix, x_analysis):
+    """``x_f = M x_a`` per pixel."""
+    return torch.einsum("pq,nq->np", m_matrix, x_analysis)
+
+
+def propagate_standard_kalman(x_analysis, p_analysis, p_analysis_inverse,
+                              m_matrix, q_diag):
+    """Covariance-form propagation (``kf_tools.py:174-205``):
+    ``x_f = M x_a``, ``P_f = P_a + Q``; no inverse, as the reference."""
+    p_forecast = p_analysis + batched_diag(q_diag.expand(x_analysis.shape))
+    return _trajectory(m_matrix, x_analysis), p_forecast, None
+
+
+def propagate_information_filter(x_analysis, p_analysis, p_analysis_inverse,
+                                 m_matrix, q_diag):
+    """Exact information-filter propagation: solves
+    ``(I + P^-1 Q) P_f^-1 = P^-1`` per pixel (``kf_tools.py:208-245``),
+    in ``INFO_SOLVE_BLOCK`` pixel slices."""
+    n_pix, p = x_analysis.shape
+    q = q_diag.expand(n_pix, p)
+    # S = P^-1 Q with diagonal Q: scale the columns.
+    a = torch.eye(p, dtype=x_analysis.dtype, device=x_analysis.device) \
+        + p_analysis_inverse * q[:, None, :]
+    p_forecast_inverse = solve_batched(a, p_analysis_inverse,
+                                       block=INFO_SOLVE_BLOCK)
+    return _trajectory(m_matrix, x_analysis), None, p_forecast_inverse
+
+
+def propagate_information_filter_approx(x_analysis, p_analysis,
+                                        p_analysis_inverse, m_matrix, q_diag):
+    """Diagonal approximation (``kf_tools.py:247-289``): keep the main
+    diagonal of ``P^-1``, deflated by ``1 / (1 + diag(P^-1) diag(Q))``."""
+    m_diag = batched_diagonal(p_analysis_inverse)
+    d = 1.0 / (1.0 + m_diag * q_diag)
+    return (_trajectory(m_matrix, x_analysis), None,
+            batched_diag(m_diag * d))
+
+
+def make_prior_reset_propagator(prior: PixelPrior, keep_param: int):
+    """Generalisation of ``propagate_information_filter_LAI``
+    (``kf_tools.py:292-314``): every parameter is reset to the prior
+    except ``keep_param``, whose mean is carried over and whose
+    information is deflated as ``1 / (1/p_kk + q_k)``."""
+
+    def propagate(x_analysis, p_analysis, p_analysis_inverse, m_matrix,
+                  q_diag):
+        x_forecast = _trajectory(m_matrix, x_analysis)
+        n_pix, p = x_analysis.shape
+        x0, p_inv0 = broadcast_prior(prior, n_pix)
+        x0 = x0.clone()
+        x0[:, keep_param] = x_forecast[:, keep_param]
+        post_info = batched_diagonal(p_analysis_inverse)[:, keep_param]
+        q_k = q_diag.expand(n_pix, p)[:, keep_param]
+        p_forecast_inverse = p_inv0.clone()
+        p_forecast_inverse[:, keep_param, keep_param] = \
+            1.0 / ((1.0 / post_info) + q_k)
+        return x0, None, p_forecast_inverse
+
+    return propagate
+
+
+def propagate_information_filter_lai(x_analysis, p_analysis,
+                                     p_analysis_inverse, m_matrix, q_diag):
+    """The reference's TIP/LAI propagator (``kf_tools.py:292-314``): the
+    TIP prior with TLAI (slot 6) carried, on the analysis' device."""
+    return make_prior_reset_propagator(tip_prior(x_analysis.device),
+                                       keep_param=6)(
+        x_analysis, p_analysis, p_analysis_inverse, m_matrix, q_diag)
 
 
 def make_no_propagation(prior: PixelPrior):

@@ -124,11 +124,36 @@ def merge_verdicts(a, b):
     return (((a | b) & ~QA_NODATA) | (a & b & QA_NODATA)).to(torch.int32)
 
 
+#: the fault-injection site of per-pixel linearisation corruption.
+FAULT_SITE = "solver.pixel"
+
+
 def corruption_mask(n_pix: int) -> Optional[np.ndarray]:
-    """The armed ``solver.pixel`` chaos mask.  The fault registry is not
-    ported yet, so nothing can be armed: always ``None``.  Callers that
-    want corruption pass an explicit ``corrupt`` mask to the solver."""
-    return None
+    """The armed ``solver.pixel`` fault specs as a boolean (n_pix,) numpy
+    mask of pixels whose linearisation must be corrupted (0-based index
+    ranges through the calls grammar of ``resilience.faults``), or
+    ``None`` when nothing is armed."""
+    from ..resilience import faults
+
+    if not faults.active():
+        return None
+    specs = faults.specs_for(FAULT_SITE)
+    if not specs:
+        return None
+    mask = np.zeros((n_pix,), bool)
+    for s in specs:
+        first = max(0, int(s.first))
+        last = n_pix - 1 if s.last is None else min(n_pix - 1, int(s.last))
+        if last >= first:
+            mask[first:last + 1] = True
+    if not mask.any():
+        return None
+    faults.record_injection(
+        FAULT_SITE, pixels=int(mask.sum()),
+        ranges=[[int(s.first), None if s.last is None else int(s.last)]
+                for s in specs],
+    )
+    return mask
 
 
 def corrupt_h0(h0, corrupt):

@@ -25,7 +25,9 @@ the fused path for every problem on the packed small-state path
   kernel 2) per Gauss-Newton iteration;
 
 and ``{"use_pallas": False}`` opts out to the plain global-norm loop with
-solve health (``_iterated_solve_health``).  Not ported:
+solve health (``_iterated_solve_health``).  ``assimilate_windows_scan``
+runs a block of fused windows (advance, then ``iterated_solve``, per
+window) for the engine's temporal fusion.  Not ported:
 ``per_pixel_convergence``, the dense large-p fallback and the Hessian
 correction.
 """
@@ -33,7 +35,7 @@ correction.
 from __future__ import annotations
 
 import inspect
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -654,3 +656,123 @@ def assimilate_date(linearize: LinearizeFn, obs: BandBatch, x_forecast,
         else torch.as_tensor(corrupt, dtype=f32, device=dev),
         **opts,
     )
+
+
+class ScanWindowStats(NamedTuple):
+    """Per-window telemetry stacked over a fused block (the JAX
+    ``ScanWindowStats``): the same quantities as the trailing
+    ``SolveDiagnostics`` fields, so the whole block's scalars are read in
+    one packed device->host transfer.  The solve-health fields are None
+    when the block ran a mode without health tracking; ``health_verdicts``
+    is the one per-pixel member (the QA band's source)."""
+
+    chi2_per_band: torch.Tensor   # (K, n_bands)
+    clipped_count: torch.Tensor   # (K,) int32
+    nodata_count: torch.Tensor    # (K,) int32
+    cap_bailout_count: Any = None       # (K,) int32
+    damped_recovered_count: Any = None  # (K,) int32
+    quarantined_count: Any = None       # (K,) int32
+    nonfinite_count: Any = None         # (K,) int32
+    clip_saturated_count: Any = None    # (K, p) int32
+    health_verdicts: Any = None         # (K, n_pix) int32 QA bitmask
+
+
+def stack_aux(auxes):
+    """Stack a list of same-structure aux trees along a new leading window
+    axis (tensor leaves; None stays None)."""
+    if auxes[0] is None:
+        return None
+    leaves = [_aux_leaves(a) for a in auxes]
+    return _aux_rebuild(auxes[0], iter(
+        torch.stack([torch.as_tensor(leaf) for leaf in column])
+        for column in zip(*leaves)))
+
+
+def _aux_at(aux_stacked, k: int):
+    if aux_stacked is None:
+        return None
+    return _aux_rebuild(aux_stacked, iter(
+        leaf[k] for leaf in _aux_leaves(aux_stacked)))
+
+
+def assimilate_windows_scan(linearize: LinearizeFn, obs_stacked: BandBatch,
+                            x_analysis0, p_inv_analysis0,
+                            aux_stacked: Any = None, m_matrix=None,
+                            q_diag=None, prior_mean=None, prior_inv=None,
+                            state_propagator=None,
+                            solver_options: Any = None,
+                            hessian_forward: Any = None):
+    """K consecutive advance -> assimilate windows (the JAX
+    ``assimilate_windows_scan``; torch has no ``lax.scan``, so this is a
+    loop with the same carry ``(x_a, P^-1_a)``).  Each step advances the
+    previous analysis with ``propagators.advance`` and runs
+    ``iterated_solve`` with the options ``assimilate_date`` would give it
+    — the same operations in the same order as the unfused date path, so
+    the two give the same bits.
+
+    ``obs_stacked`` is a ``BandBatch`` of ``(K, n_bands, n_pix)``;
+    ``aux_stacked`` an aux tree whose leaves carry the same leading axis
+    (``stack_aux``).  The prior, if any, must be date-invariant.
+
+    Returns ``(x_final, p_inv_final, xs (K, n, p), p_inv_diags (K, n, p),
+    n_iterations (K,), convergence_norms (K,), converged_masks (None:
+    per-pixel convergence is not ported), window_stats)``."""
+    from .linalg import batched_diagonal, spd_inverse_batched
+    from .propagators import advance as advance_fn
+
+    dev = x_analysis0.device
+    p = x_analysis0.shape[-1]
+    opts = dict(solver_options or {})
+    block, use_pallas, per_pixel, inkernel, min_it, max_it = \
+        _split_structural_options(opts)
+    if min_it is not None:
+        opts["min_iterations"] = min_it
+    if max_it is not None:
+        opts["max_iterations"] = max_it
+    if m_matrix is None:
+        m_matrix = torch.eye(p, dtype=torch.float32, device=dev)
+    if q_diag is None:
+        q_diag = torch.zeros(p, dtype=torch.float32, device=dev)
+    # The solver.pixel fault mask: one for the whole block (the armed
+    # pixel set is positional, not temporal).
+    corrupt = solver_health.corruption_mask(x_analysis0.shape[0])
+    if corrupt is not None:
+        corrupt = torch.as_tensor(corrupt, dtype=torch.float32, device=dev)
+    x_a, p_inv_a = x_analysis0, p_inv_analysis0
+    steps = []
+    for k in range(obs_stacked.y.shape[0]):
+        bands_k = BandBatch(y=obs_stacked.y[k], r_inv=obs_stacked.r_inv[k],
+                            mask=obs_stacked.mask[k])
+        x_f, p_f, p_f_inv = advance_fn(
+            x_a, None, p_inv_a, m_matrix, q_diag, prior_mean=prior_mean,
+            prior_cov_inverse=prior_inv, state_propagator=state_propagator)
+        if p_f_inv is None:
+            p_f_inv = spd_inverse_batched(p_f.float())
+        x_a, p_inv_a, diags = iterated_solve(
+            linearize, bands_k, x_f, p_f_inv, _aux_at(aux_stacked, k),
+            hessian_forward=hessian_forward, linearize_block=block,
+            use_pallas=use_pallas, per_pixel_convergence=per_pixel,
+            inkernel_linearize=inkernel, corrupt=corrupt, **opts)
+        steps.append((x_a, batched_diagonal(p_inv_a), diags))
+    xs = torch.stack([s[0] for s in steps])
+    diag_s = torch.stack([s[1] for s in steps])
+
+    def stacked(field, dtype=None):
+        vals = [torch.as_tensor(getattr(s[2], field), device=dev)
+                for s in steps]
+        out = torch.stack(vals)
+        return out if dtype is None else out.to(dtype)
+
+    iters = stacked("n_iterations", torch.int32)
+    norms = stacked("convergence_norm", torch.float32)
+    health = {}
+    if steps[0][2].health_verdicts is not None:
+        health = {f: stacked(f) for f in (
+            "cap_bailout_count", "damped_recovered_count",
+            "quarantined_count", "nonfinite_count", "clip_saturated_count",
+            "health_verdicts")}
+    stats = ScanWindowStats(
+        chi2_per_band=stacked("chi2_per_band"),
+        clipped_count=stacked("clipped_count"),
+        nodata_count=stacked("nodata_count"), **health)
+    return x_a, p_inv_a, xs, diag_s, iters, norms, None, stats

@@ -1,6 +1,8 @@
 """The filter engine of the port."""
 
+from .checkpoint import Checkpointer
 from .filter import KalmanFilter
+from .prefetch import ObservationPrefetcher, planned_observation_dates
 from .priors import (PROSAIL_PARAMETER_LIST, TIP_PARAMETER_LIST,
                      FixedGaussianPrior, jrc_prior, sail_prior)
 from .protocols import (DateObservation, ObservationSource, OutputWriter,
@@ -8,7 +10,9 @@ from .protocols import (DateObservation, ObservationSource, OutputWriter,
 from .state import PixelGather, make_pixel_gather
 
 __all__ = [
-    "KalmanFilter", "PROSAIL_PARAMETER_LIST", "TIP_PARAMETER_LIST",
+    "Checkpointer", "KalmanFilter", "ObservationPrefetcher",
+    "planned_observation_dates", "PROSAIL_PARAMETER_LIST",
+    "TIP_PARAMETER_LIST",
     "FixedGaussianPrior", "jrc_prior", "sail_prior",
     "DateObservation", "ObservationSource", "OutputWriter", "Prior",
     "PixelGather", "make_pixel_gather",

@@ -28,8 +28,10 @@ class DateObservation(NamedTuple):
 @runtime_checkable
 class ObservationSource(Protocol):
     """``dates`` lists the acquisitions; ``get_observations`` gathers one
-    date into the fixed pixel batch, on the source's device.  The port's
-    engine reads synchronously (no prefetch thread yet)."""
+    date into the fixed pixel batch, on the source's device.  The engine
+    reads ahead on worker threads (``engine.prefetch``), so
+    ``get_observations`` may run concurrently for different dates and
+    must tolerate that (pure reads)."""
 
     @property
     def dates(self) -> Sequence[datetime.datetime]: ...

@@ -153,11 +153,12 @@ def s2_observations(dates, truth_fn, angles=(30.5, 5.0, -50.0),
 
 def run_s2_engine(ny: int = 16, nx: int = 16, obs_days=(1, 3, 5),
                   grid_days=(0, 2, 4, 6), pad_multiple: int = 128,
-                  solver_options=None, device=None):
+                  solver_options=None, scan_window: int = 8, device=None):
     """A complete (small) Sentinel-2 PROSAIL assimilation through
     ``KalmanFilter.run``: ``sail_prior``, no propagation with Q = 0,
     relaxation 0.7 (the Barrax configuration, ``cli/run_s2.py``), a
-    circular field mask, truth the SAIL mean with LAI 3, 2-day grid.
+    circular field mask, truth the SAIL mean with LAI 3, 2-day grid;
+    ``scan_window`` is the engine's temporal fusion.
 
     Returns ``(kf, out, x_analysis, p_inv_analysis)``."""
     from ..engine.filter import KalmanFilter
@@ -183,7 +184,7 @@ def run_s2_engine(ny: int = 16, nx: int = 16, obs_days=(1, 3, 5),
         prior=prior, pad_multiple=pad_multiple,
         solver_options=({"relaxation": 0.7} if solver_options is None
                         else solver_options),
-        device=dev,
+        scan_window=scan_window, device=dev,
     )
     kf.set_trajectory_uncertainty(np.zeros(10))
     x0, p_inv0 = prior.process_prior(None, kf.gather)
@@ -250,10 +251,12 @@ def plant_solver_faults(y, r_inv, mask_f, xf_rows, pf_rows,
 def run_tip_engine(obs_days: Sequence[int] = (1, 3, 5, 7),
                    grid_days: Sequence[int] = (0, 2, 4, 6, 8),
                    ny: int = 12, nx: int = 14, pad_multiple: int = 128,
-                   solver_options=None, device=None):
+                   solver_options=None, scan_window: int = 1, device=None):
     """A complete (tiny) TIP assimilation through ``KalmanFilter.run``
-    with prior-only advance — the port of the JAX ``run_tip_engine``
-    (scan_window 1, no mesh).  ``solver_options`` defaults to the JAX
+    with prior-only advance — the port of the JAX ``run_tip_engine`` (no
+    mesh); ``scan_window`` is the engine's temporal fusion, 1 by default
+    as in the JAX helper (fused and unfused give the same bits in the
+    port).  ``solver_options`` defaults to the JAX
     run's ``{"relaxation": 0.7, "max_iterations": 40}``.
 
     Returns ``(kf, out, x_analysis, p_inv_analysis)``."""
@@ -297,7 +300,7 @@ def run_tip_engine(obs_days: Sequence[int] = (1, 3, 5, 7),
     kf = KalmanFilter(
         obs, out, mask, TIP_PARAMETER_LIST, state_propagation=None,
         prior=prior, pad_multiple=pad_multiple,
-        solver_options=solver_options, device=dev,
+        solver_options=solver_options, scan_window=scan_window, device=dev,
     )
     kf.set_trajectory_uncertainty(np.zeros(7))
     x0, p_inv0 = prior.process_prior(None, kf.gather)

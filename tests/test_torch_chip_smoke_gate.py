@@ -101,3 +101,135 @@ def test_planted_solve_faults_are_non_finite_in_the_plain_version():
     assert hit.unique().numel() == 16
     assert bad[hit].all() and int(bad.sum()) == 16
     assert torch.equal(planted_a[:, ~bad], a[:, ~bad])
+
+
+# --- the cli phase's helpers ----------------------------------------------
+
+def _jax_fits(n_pad, p, n_bands, k):
+    """The JAX engine's own _block_fits on a filter of n_pad pixels."""
+    from types import SimpleNamespace
+
+    from kafka_tpu.engine.filter import KalmanFilter as JaxFilter
+
+    kf = SimpleNamespace(gather=SimpleNamespace(n_pad=n_pad), n_params=p,
+                         _aux_leaves=JaxFilter._aux_leaves,
+                         _SCAN_MAX_STATE_ELEMS=JaxFilter._SCAN_MAX_STATE_ELEMS,
+                         _SCAN_MAX_BAND_ELEMS=JaxFilter._SCAN_MAX_BAND_ELEMS,
+                         _SCAN_MAX_AUX_BYTES=JaxFilter._SCAN_MAX_AUX_BYTES)
+    obs = SimpleNamespace(bands=SimpleNamespace(
+        y=SimpleNamespace(shape=(n_bands, n_pad))), aux=None)
+    return JaxFilter._block_fits(kf, obs, k)
+
+
+@pytest.mark.parametrize("n_pad,p,n_bands", [
+    (256, 7, 2), (1_205_760, 10, 10), (4_608_000, 7, 2),
+    (20_000_000, 7, 2), (3_000_000, 2, 2)])
+def test_block_plan_uses_the_jax_guards(n_pad, p, n_bands):
+    """Each block of the plan fits the JAX guards, and one more window
+    would not (unless the scan window or the grid stopped it)."""
+    n_windows = 12
+    plan = cs.block_plan(n_windows, n_pad, p, n_bands)
+    assert plan[0] == 1 and sum(plan) == n_windows
+    max_k = max([k for k in range(1, cs.SCAN_WINDOW + 1)
+                 if _jax_fits(n_pad, p, n_bands, k)], default=1)
+    for k in plan[1:]:
+        assert k & (k - 1) == 0 and k <= max_k
+    bucket = 1
+    while bucket * 2 <= max_k:
+        bucket *= 2
+    assert plan[1] == bucket
+
+
+def test_block_plan_of_the_tile_and_of_a_small_jax_run():
+    """The MODIS tile (4,608,000 px, p=7, 2 bands, 8 one-acquisition
+    windows): three windows fit, bucketed to blocks of two.  A small run
+    fits a block of 8, so the plan is the JAX engine's [1, 4, 2, 1]."""
+    assert cs.block_plan(8, 4_608_000, 7, 2) == [1, 2, 2, 2, 1]
+    assert cs.plan_fused_fields([1, 2, 2, 2, 1]) == \
+        [None, 2, 2, 2, 2, 2, 2, None]
+    assert cs.block_plan(8, 256, 7, 2) == [1, 4, 2, 1]
+    assert cs.plan_fused_fields([1, 4, 2, 1]) == \
+        [None, 4, 4, 4, 4, 2, 2, None]
+
+
+def test_block_plan_equals_an_engine_run():
+    """The formula against the port engine's own plan on the cli grid at
+    a small size (its guards are the JAX constants, pinned in
+    tests/test_torch_fusion.py)."""
+    import argparse
+    import datetime
+
+    import numpy as np
+
+    from kafka_tpu_torch.cli import run_synthetic as rs
+    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
+                                                   SyntheticObservations)
+
+    mask = rs.make_pivot_mask(24, 28)
+    op, params, prior, truth_val, aux_fn, sigma = rs.build_operator(
+        "twostream", "cpu")
+    truth = np.broadcast_to(truth_val, mask.shape + (7,)).astype(np.float32)
+    base = datetime.datetime(2017, 7, 1)
+    dates = [base + datetime.timedelta(days=d) for d in range(1, 32, 4)]
+    grid = [base + datetime.timedelta(days=d) for d in range(0, 36, 4)]
+    obs = SyntheticObservations(dates, op, lambda d: truth, sigma=sigma,
+                                mask_prob=0.1, device="cpu")
+    kf = rs._make_filter(argparse.Namespace(max_degraded_dates=8,
+                                            scan_window=cs.SCAN_WINDOW),
+                         mask, MemoryOutput(), op, params, obs, None, "cpu")
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    kf.run(grid, x0, None, p_inv0)
+    plan = cs.block_plan(len(dates), kf.gather.n_pad, 7, 2)
+    assert [r.get("fused") for r in kf.diagnostics_log] == \
+        cs.plan_fused_fields(plan)
+
+
+@pytest.mark.parametrize("a,b,same", [
+    ([1.0, float("nan"), 2.0], [1.0, float("nan"), 2.0], True),
+    ([1.0, float("nan"), 2.0], [1.0, 2.0, float("nan")], False),
+    ([1.0, 2.0, 3.0], [1.0, 2.0, 3.0000002], False),
+    ([0.0, 1.0], [-0.0, 1.0], False),
+])
+def test_same_bits(a, b, same):
+    """NaN equals NaN at the same places; one differing pixel (or a sign
+    of zero) fails."""
+    import numpy as np
+
+    a = np.array(a, np.float32)
+    b = np.array(b, np.float32)
+    assert cs.same_bits(a, b) is same
+    assert cs.same_bits(a, a.astype(np.float64)) is False
+
+
+def test_same_bits_on_rasters():
+    import numpy as np
+
+    r = np.random.default_rng(0).normal(size=(64, 48)).astype(np.float32)
+    assert cs.same_bits(r, r.copy())
+    q = r.copy()
+    q[17, 5] = np.nextafter(q[17, 5], np.float32(np.inf))
+    assert not cs.same_bits(r, q)
+    u = (r > 0).astype(np.uint8)
+    assert cs.same_bits(u, u.copy()) and not cs.same_bits(u, 1 - u)
+
+
+def test_expected_outputs_is_the_writers_count(tmp_path):
+    """2 p + 1 GeoTIFFs per window: what the JAX writer (and the port's)
+    writes for one window's dump_data and dump_qa."""
+    import datetime
+
+    import numpy as np
+
+    from kafka_tpu.engine.state import make_pixel_gather
+    from kafka_tpu.io import GeoTIFFOutput as JaxOutput
+
+    assert cs.expected_outputs(8, 7) == 120
+    g = make_pixel_gather(np.ones((4, 4), bool), pad_multiple=16)
+    params = ("a", "b", "c")
+    out = JaxOutput(params, (0, 1, 0, 0, 0, -1), folder=str(tmp_path))
+    ts = datetime.datetime(2017, 7, 2)
+    out.dump_data(ts, np.ones((16, 3), np.float32),
+                  np.ones((16, 3), np.float32), g, params)
+    out.dump_qa(ts, np.ones(16, np.int32), g)
+    out.close()
+    assert len(list(tmp_path.glob("*.tif"))) == cs.expected_outputs(1, 3)

@@ -28,7 +28,19 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.convert, kafka_tpu_torch.testing.synthetic, "
         "kafka_tpu_torch.core.solvers, kafka_tpu_torch.core.fused_update, "
         "kafka_tpu_torch.core.solve_rows, kafka_tpu_torch.obsops.prosail, "
-        "kafka_tpu_torch.obsops.prospect_data\n"
+        "kafka_tpu_torch.obsops.prospect_data, "
+        "kafka_tpu_torch.core.propagators, kafka_tpu_torch.core.linalg, "
+        "kafka_tpu_torch.engine.filter, kafka_tpu_torch.engine.checkpoint, "
+        "kafka_tpu_torch.engine.prefetch, kafka_tpu_torch.io, "
+        "kafka_tpu_torch.io.geotiff, kafka_tpu_torch.io.output, "
+        "kafka_tpu_torch.io.native_codec, kafka_tpu_torch.native, "
+        "kafka_tpu_torch.resilience, kafka_tpu_torch.resilience.faults, "
+        "kafka_tpu_torch.resilience.policy, kafka_tpu_torch.telemetry, "
+        "kafka_tpu_torch.telemetry.registry, "
+        "kafka_tpu_torch.telemetry.tracing, "
+        "kafka_tpu_torch.telemetry.spans, kafka_tpu_torch.testing.fixtures, "
+        "kafka_tpu_torch.obsops.identity, kafka_tpu_torch.cli, "
+        "kafka_tpu_torch.cli.run_synthetic\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')]\n"
         "print(bad)\n"
@@ -61,6 +73,7 @@ def _entry_points():
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.propagators import tip_prior
     from kafka_tpu_torch.core.solvers import assimilate_date
+    from kafka_tpu_torch.cli import run_synthetic
     from kafka_tpu_torch.core.types import BandBatch
     from kafka_tpu_torch.engine import KalmanFilter, jrc_prior, sail_prior
     from kafka_tpu_torch.obsops import TwoStreamOperator
@@ -93,6 +106,11 @@ def _entry_points():
         "jrc_prior": lambda: jrc_prior(),
         "tip_prior": lambda: tip_prior(),
         "SyntheticObservations": lambda: SyntheticObservations([], op, None),
+        "run_synthetic.main": lambda: run_synthetic.main(
+            ["--operator", "identity", "--ny", "8", "--nx", "8",
+             "--outdir", os.devnull]),
+        "run_synthetic.build_operator": lambda: run_synthetic.build_operator(
+            "twostream", None),
     }
 
 
@@ -100,7 +118,8 @@ def _entry_points():
     ["resolve_device", "KalmanFilter", "assimilate_date", "fused_gn_rows",
      "make_tip_problem", "run_tip_engine", "jrc_prior", "tip_prior",
      "SyntheticObservations", "make_prosail_problem", "run_s2_engine",
-     "s2_observations", "sail_prior"]))
+     "s2_observations", "sail_prior", "run_synthetic.main",
+     "run_synthetic.build_operator"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

@@ -4,8 +4,9 @@
 
 Needs one CUDA device; exits non-zero without one, and without the
 kafka_tpu_torch package beside it.  Imports neither JAX nor kafka_tpu.
-The three kernels (csrc/fused_gn.cu, fused_update.cu, solve_rows.cu) are
-built at the start, one nvcc each, in parallel.  Phases, each printing
+The three kernels (csrc/fused_gn.cu, fused_update.cu with its five
+(p, bands) instances, solve_rows.cu) are built at the start, one nvcc
+each, in parallel.  Phases, each printing
 one JSON line:
 
 1. device — card, torch/CUDA versions, build time, registers and spills;
@@ -83,7 +84,24 @@ one JSON line:
    propagate_information_filter over the tile, the writer's flush and
    close time and peak queue depth, the codec path (the native codec
    must build) and the peak device bytes.  Its files go to
-   ``build/chip_smoke_cli`` in the checkout and are removed after.
+   ``build/chip_smoke_cli`` in the checkout and are removed after;
+13. main_joint — KalmanFilter.run over the S2 sub-tile in the joint
+   S2 + S1 configuration (11-parameter state, joint_state_bounds, the
+   exact information propagator, 6 S2 and 6 S1 dates interleaved on a
+   2-day grid, a seeded per-pixel incidence angle in 30-45 degrees): the
+   fused update at (11, 10) on S2 dates and (11, 2) on S1 dates, launches
+   per instance equal to the iterations of its sensor's dates, no block
+   fusing two sensors, mean |sm - 0.4| over the S1-observed pixels below
+   0.05; the per-date wall split S2 / S1 and the peak device bytes.  Then
+   kernel_update and faults_update on the kept inputs of its first S1 date
+   and its second S2 date;
+14. cli_wcm — the torch ``run_synthetic --operator wcm`` over phase cli's
+   tile (8 windows, no checkpoint): the summary line, the block plan,
+   fused-update launches at (2, 2) equal to the iterations, every GeoTIFF
+   read back bit-identical to a MemoryOutput copy; then kernel_update and
+   faults_update at (2, 2) on a kept date.  The (7, 2) instance is timed
+   on the TIP tile date's inputs (phase kernel_update, after
+   kernel_solve).
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -208,7 +226,32 @@ CLI_RESUME_WINDOWS = 4
 #: elements and 3*k*B*n band elements; the tile has no aux.
 SCAN_MAX_STATE_ELEMS = 100_000_000
 SCAN_MAX_BAND_ELEMS = 100_000_000
+SCAN_MAX_AUX_BYTES = 64 * 1024 * 1024
 SCAN_WINDOW = 8
+
+#: the joint S2 + S1 configuration (kafka_tpu/cli/run_joint.py:47-57,
+#: tools/measure_baseline.py:142-172): 6 S2 dates from 2017-07-01 and 6
+#: S1 dates from 2017-07-03 17:00, 4 days apart and interleaved, on a
+#: 2-day grid from a day before the first date to a day after the last;
+#: information propagated with Q = 1e-3 (1e-2 for soil moisture).
+JOINT_N_DATES = 6
+JOINT_Q = (1e-3,) * 10 + (1e-2,)
+#: S1 observation sigma (the S2 sources' is 0.005).
+JOINT_S1_SIGMA = 0.01
+#: the S1 IW swath's incidence angles (degrees), drawn per pixel.
+JOINT_THETA = (30.0, 45.0)
+#: the joint run's soil-moisture gate (tests/test_joint.py:159-160).
+JOINT_SM_GATE = 0.05
+#: the joint run's kept dates (0-based): its first S1 date and its second
+#: S2 date, the first S2 date on an advanced state.
+JOINT_KEEP = {(11, 2): 1, (11, 10): 2}
+#: the cli_wcm phase: the WCM driver over the cli tile, no checkpoint.
+CLI_WCM_ARGS = ("--operator", "wcm", "--days", "32", "--step", "4",
+                "--obs-every", "4")
+#: the fused-update instances and the path each runs on.
+UPDATE_PATHS = {(10, 10): "main_s2", (7, 2): "reference_s2 (tip_rowloop)",
+                (2, 2): "cli_wcm", (11, 10): "main_joint",
+                (11, 2): "main_joint"}
 
 
 def emit(obj) -> None:
@@ -1421,14 +1464,16 @@ def phase_profile_s2(device, date_args: dict) -> dict:
 
 
 def block_plan(n_windows: int, n_pad: int, n_params: int, n_bands: int,
-               scan_window: int = SCAN_WINDOW) -> list:
+               scan_window: int = SCAN_WINDOW, aux_bytes: int = 0) -> list:
     """The block sizes the engine runs for ``n_windows`` windows of one
     acquisition each: the head window unfused (it does not advance), then
-    blocks of as many windows as ``scan_window`` and the guards allow,
-    bucketed down to a power of two; a block of one runs unfused."""
+    blocks of as many windows as ``scan_window`` and the guards allow
+    (``aux_bytes`` the bytes of one window's aux), bucketed down to a
+    power of two; a block of one runs unfused."""
     def fits(k):
         return (k * n_pad * n_params <= SCAN_MAX_STATE_ELEMS
-                and 3 * k * n_bands * n_pad <= SCAN_MAX_BAND_ELEMS)
+                and 3 * k * n_bands * n_pad <= SCAN_MAX_BAND_ELEMS
+                and k * aux_bytes <= SCAN_MAX_AUX_BYTES)
 
     plan, idx = [1], 1
     while idx < n_windows:
@@ -1823,6 +1868,367 @@ def phase_cli(device, workdir: str, ny: int = TILE, nx: int = TILE,
     return rec, kept
 
 
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+    from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.solve_rows import solve_rows
+
+    fused_gn_rows.launches = fused_update_rows.launches = \
+        solve_rows.launches = 0
+    fused_update_rows.launches_by_instance = {}
+
+
+def launch_counts() -> dict:
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+    from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.solve_rows import solve_rows
+
+    return {"fused_gn": fused_gn_rows.launches,
+            "fused_update": fused_update_rows.launches,
+            "fused_update_by_instance": {
+                f"{p}x{nb}": n for (p, nb), n in
+                sorted(fused_update_rows.launches_by_instance.items())},
+            "solve_rows": solve_rows.launches}
+
+
+UPDATE_ROW_NAMES = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
+                    "pf_rows", "esc_row")
+
+
+class UpdateKeeper:
+    """Wraps ``solvers.iterated_solve`` and ``solvers.fused_update_rows``
+    for one run: counts the dates, records each date's peak device bytes
+    (and the peak between dates, ``run_peak``), and keeps (clones) the
+    fused update's inputs of the first iteration on date
+    ``keep[(p, n_bands)]`` of each instance.  The solver's calls go
+    through unchanged."""
+
+    def __init__(self, device, keep: dict):
+        self.device, self.keep = device, dict(keep)
+        self.date = -1
+        self.kept, self.peaks, self._between = {}, [], []
+
+    def __enter__(self):
+        import torch
+
+        from kafka_tpu_torch.core import fused_update as fu_mod
+        from kafka_tpu_torch.core import solvers
+
+        self._solvers, self._fu = solvers, fu_mod
+        real_solve = self._real_solve = solvers.iterated_solve
+        real_update = fu_mod.fused_update_rows
+        cuda = self.device.type == "cuda"
+
+        def date_wrap(*args, **kwargs):
+            self.date += 1
+            if cuda:
+                # The peak since the last date's read (propagation,
+                # observation reads), before the counter restarts.
+                self._between.append(
+                    torch.cuda.max_memory_allocated(self.device))
+                torch.cuda.reset_peak_memory_stats(self.device)
+            res = real_solve(*args, **kwargs)
+            _sync(self.device)
+            self.peaks.append(torch.cuda.max_memory_allocated(self.device)
+                              if cuda else None)
+            return res
+
+        def keep(*args, **kwargs):
+            inst = (args[6].shape[0], args[1].shape[0])
+            if self.keep.get(inst) == self.date and inst not in self.kept:
+                self.kept[inst] = {k: v.clone() for k, v in
+                                   zip(UPDATE_ROW_NAMES, args)}
+            return real_update(*args, **kwargs)
+
+        solvers.iterated_solve = date_wrap
+        solvers.fused_update_rows = keep
+        return self
+
+    def __exit__(self, *exc):
+        self._solvers.iterated_solve = self._real_solve
+        self._solvers.fused_update_rows = self._fu.fused_update_rows
+
+    def run_peak(self):
+        """Peak device bytes over the whole run (None off the card); read
+        after the run."""
+        import torch
+
+        if self.device.type != "cuda":
+            return None
+        return max(self.peaks + self._between
+                   + [torch.cuda.max_memory_allocated(self.device)])
+
+
+class CheckingOutput:
+    """An output sink that keeps nothing: it checks each dumped state and
+    information diagonal finite on the valid pixels and counts dumps."""
+
+    def __init__(self):
+        self.dumps = self.qa = 0
+        self.finite = True
+
+    def dump_data(self, ts, x, diag, gather, params):
+        import torch
+
+        n = gather.n_valid
+        self.dumps += 1
+        self.finite = self.finite and bool(torch.isfinite(x[:n]).all()) \
+            and (diag is None or bool(torch.isfinite(diag[:n]).all()))
+
+    def dump_qa(self, ts, verdicts, gather):
+        self.qa += 1
+
+
+def joint_dates():
+    """(S2 dates, S1 dates, grid) of the joint configuration."""
+    s2 = [datetime.datetime(2017, 7, 1) + datetime.timedelta(days=4 * i)
+          for i in range(JOINT_N_DATES)]
+    s1 = [datetime.datetime(2017, 7, 3, 17) + datetime.timedelta(days=4 * i)
+          for i in range(JOINT_N_DATES)]
+    start = min(s2 + s1) - datetime.timedelta(days=1)
+    end = max(s2 + s1) + datetime.timedelta(days=1)
+    grid, t = [], start
+    while t <= end:
+        grid.append(t)
+        t += datetime.timedelta(days=2)
+    return s2, s1, grid
+
+
+def phase_main_joint(device, ny: int = S2_TILE, nx: int = S2_TILE,
+                     seed: int = 0):
+    """KalmanFilter.run over one S2 sub-tile of the joint S2 + S1
+    configuration: the 11-parameter joint state seeded from joint_prior,
+    joint_state_bounds, relaxation 0.7, the exact information propagator
+    with JOINT_Q, 6 S2 dates on ProsailJointOperator (sigma 0.005) and 6
+    S1 dates on WCMJointOperator (sigma 0.01, a seeded per-pixel incidence
+    angle in JOINT_THETA) interleaved on a 2-day grid, 10 % masked.  The
+    truth is the joint prior mean with LAI 3 and soil moisture 0.4.
+    Returns the record and the fused update's first-iteration inputs of
+    the JOINT_KEEP dates, by instance."""
+    import torch
+
+    from kafka_tpu_torch.core.propagators import propagate_information_filter
+    from kafka_tpu_torch.engine import (JOINT_PARAMETER_LIST, KalmanFilter,
+                                        joint_prior)
+    from kafka_tpu_torch.testing import joint_observations, joint_truth
+
+    t_setup = time.perf_counter()
+    mask = np.ones((ny, nx), bool)
+    truth = joint_truth(mask.shape)
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(*JOINT_THETA, size=(ny, nx)).astype(np.float32)
+    s2_dates, s1_dates, grid = joint_dates()
+    obs = joint_observations(s2_dates, s1_dates, lambda d: truth, theta,
+                             s2_angles=(30.5, 5.0, -50.0),
+                             s1_sigma=JOINT_S1_SIGMA, device=device)
+    # Pixels observed by an S1 date (any band): the soil-moisture gate's
+    # population.
+    seen_s1 = {}
+    real_get = obs.get_observations
+
+    def get_observations(date, gather):
+        got = real_get(date, gather)
+        if got.operator.n_bands == 2:
+            m = got.bands.mask.any(dim=0)
+            seen_s1["mask"] = m if "mask" not in seen_s1 \
+                else seen_s1["mask"] | m
+        return got
+
+    obs.get_observations = get_observations
+    out = CheckingOutput()
+    prior = joint_prior(device)
+    kf = KalmanFilter(obs, out, mask, JOINT_PARAMETER_LIST,
+                      state_propagation=propagate_information_filter,
+                      prior=None, solver_options={"relaxation": 0.7},
+                      device=device)
+    kf.set_trajectory_uncertainty(np.array(JOINT_Q, np.float32))
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    setup_s = time.perf_counter() - t_setup
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with UpdateKeeper(device, JOINT_KEEP) as keeper:
+        reset_launches()
+        t0 = time.perf_counter()
+        x_a, _, _ = kf.run(grid, x0, None, p_inv0)
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        launches = launch_counts()
+    peak = keeper.run_peak()
+    dates = kf.diagnostics_log
+    s2_set = set(s2_dates)
+    sensor = ["S2" if r["date"] in s2_set else "S1" for r in dates]
+    iters = {s: sum(r["n_iterations"] for r, k in zip(dates, sensor)
+                    if k == s) for s in ("S2", "S1")}
+    walls = {s: [r["wall_s"] for r, k in zip(dates, sensor) if k == s]
+             for s in ("S2", "S1")}
+    n = kf.gather.n_valid
+    observed = seen_s1["mask"][:n] if "mask" in seen_s1 else \
+        torch.zeros(n, dtype=torch.bool, device=device)
+    sm = x_a[:n, 10][observed]
+    sm_err = float((sm - 0.4).abs().mean()) if sm.numel() else float("nan")
+    lai = -2.0 * torch.log(x_a[:n, 6].clamp(1e-6, 1.0))
+    by_inst = launches["fused_update_by_instance"]
+    rec = {
+        "phase": "main_joint", "tile": [ny, nx], "n_valid": n,
+        "n_pad": kf.gather.n_pad, "windows": len(grid) - 1,
+        "dates_assimilated": len(dates), "sensors": sensor,
+        "kernel_launches": launches, "iterations": iters,
+        "date_wall_s": walls,
+        "date_wall_mean_s": {k: (sum(v) / len(v) if v else None)
+                             for k, v in walls.items()},
+        "outputs_finite": out.finite, "dumps": out.dumps,
+        "setup_s": setup_s, "run_s": run_s, "peak_device_bytes": peak,
+        "sm_observed_pixels": int(observed.sum()),
+        "mean_abs_sm_err": sm_err, "sm_gate": JOINT_SM_GATE,
+        "mean_abs_lai_err": float((lai - 3.0).abs().mean()),
+        "kept_dates": {f"{p}x{nb}": d for (p, nb), d in JOINT_KEEP.items()},
+        "per_date": [{**d, "sensor": k} for d, k in
+                     zip(date_records(dates, keeper.peaks), sensor)],
+    }
+    emit(rec)
+    failures = []
+    if len(dates) != 2 * JOINT_N_DATES or \
+            sensor != ["S2", "S1"] * JOINT_N_DATES:
+        failures.append(f"dates assimilated {sensor}")
+    if any(r.get("fused") for r in dates):
+        failures.append("a block fused dates of two sensors")
+    if by_inst.get("11x10") != iters["S2"] or \
+            by_inst.get("11x2") != iters["S1"] or not all(iters.values()):
+        failures.append(f"fused update launches {by_inst} for iterations "
+                        f"{iters}")
+    if launches["fused_gn"] or set(by_inst) != {"11x10", "11x2"}:
+        failures.append(f"other kernels launched: {launches}")
+    if not out.finite or out.dumps != len(grid) - 1:
+        failures.append(f"outputs: {out.dumps} dumps, finite {out.finite}")
+    if not sm_err < JOINT_SM_GATE:
+        failures.append(f"mean |sm - 0.4| = {sm_err}")
+    if set(keeper.kept) != set(JOINT_KEEP):
+        failures.append(f"kept instances {sorted(keeper.kept)}")
+    if failures:
+        raise AssertionError("main_joint: " + "; ".join(failures))
+    return rec, keeper.kept
+
+
+def phase_cli_wcm(device, workdir: str, ny: int = TILE, nx: int = TILE,
+                  seed: int = 0):
+    """The torch run_synthetic --operator wcm over the cli tile's land
+    mask (read from a GeoTIFF), called in-process: 8 one-acquisition
+    windows through the engine's defaults (prefetch, fusion, the exact
+    information propagator, GeoTIFF outputs), no checkpoint.  Gates: the
+    summary line printed; fused-update launches at (2, 2) equal the
+    dates' iterations; the block plan the guards give (the per-pixel
+    incidence angle counts as aux); windows x 5 GeoTIFFs, finite on the
+    mask, each read back bit-identical to a MemoryOutput copy.  Returns
+    the record and the fused update's first-iteration inputs of
+    CLI_KEEP_DATE."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kafka_tpu_torch.cli import run_synthetic as rs
+    from kafka_tpu_torch.io import read_geotiff, write_geotiff
+    from kafka_tpu_torch.testing.fixtures import DEFAULT_GEO
+    from kafka_tpu_torch.testing.synthetic import MemoryOutput
+
+    mask = land_mask(ny, nx, seed)
+    mask_path = os.path.join(workdir, "mask.tif")
+    write_geotiff(mask_path, mask.astype(np.uint8), DEFAULT_GEO)
+    outdir = os.path.join(workdir, "out")
+    argv = [*CLI_WCM_ARGS, "--mask", mask_path, "--outdir", outdir,
+            "--device", str(device)]
+    n_windows = 32 // 4
+    real_output, real_make = rs.GeoTIFFOutput, rs._make_filter
+    captured = {}
+
+    def tee_factory(*args, **kwargs):
+        captured["tee"] = TeeOutput(real_output(*args, **kwargs),
+                                    MemoryOutput())
+        return captured["tee"]
+
+    def make_filter(*args, **kwargs):
+        captured["kf"] = real_make(*args, **kwargs)
+        return captured["kf"]
+
+    rs.GeoTIFFOutput, rs._make_filter = tee_factory, make_filter
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    printed = io.StringIO()
+    try:
+        with UpdateKeeper(device, {(2, 2): CLI_KEEP_DATE}) as keeper, \
+                contextlib.redirect_stdout(printed):
+            reset_launches()
+            summary = rs.main(argv)
+            launches = launch_counts()
+    finally:
+        rs.GeoTIFFOutput, rs._make_filter = real_output, real_make
+    print(printed.getvalue(), end="", flush=True)
+    peak = keeper.run_peak()
+    kf, tee = captured["kf"], captured["tee"]
+    failures = []
+    if json.loads(printed.getvalue().strip().splitlines()[-1]) != summary:
+        failures.append("the summary line is not the summary")
+    n_pad, p = kf.gather.n_pad, kf.n_params
+    plan = block_plan(n_windows, n_pad, p, 2, aux_bytes=4 * n_pad)
+    fused = [r.get("fused") for r in kf.diagnostics_log]
+    if fused != plan_fused_fields(plan):
+        failures.append(f"block plan {fused}, expected "
+                        f"{plan_fused_fields(plan)}")
+    iterations = sum(r["n_iterations"] for r in kf.diagnostics_log)
+    by_inst = launches["fused_update_by_instance"]
+    if by_inst != {"2x2": iterations} or iterations == 0 or \
+            launches["fused_gn"] or summary["n_dates"] != n_windows:
+        failures.append(f"launches {launches} for {iterations} iterations "
+                        f"of {summary['n_dates']} dates")
+    writer = tee.writer
+    mem = memory_rasters(
+        tee.memory, lambda key, ts: os.path.basename(
+            writer._qa_fname(ts) if key == "solver_qa" else
+            writer._fname(key.removesuffix("_unc"), ts,
+                          key.endswith("_unc"))))
+    files = sorted(f for f in os.listdir(outdir) if f.endswith(".tif"))
+    readback_differ, nonfinite = [], []
+    for name in files:
+        arr, _ = read_geotiff(os.path.join(outdir, name))
+        if name not in mem or not same_bits(arr, mem[name]):
+            readback_differ.append(name)
+        if not np.isfinite(arr[mask]).all():
+            nonfinite.append(name)
+    if summary["outputs_written"] != expected_outputs(n_windows, p) or \
+            len(files) != len(mem):
+        failures.append(f"{summary['outputs_written']} outputs written, "
+                        f"{len(mem)} dumped, expected "
+                        f"{expected_outputs(n_windows, p)}")
+    if readback_differ or nonfinite:
+        failures.append(f"read-back differs: {readback_differ[:4]}; "
+                        f"non-finite: {nonfinite[:4]}")
+    if (2, 2) not in keeper.kept:
+        failures.append(f"no fused update kept on date {CLI_KEEP_DATE}")
+    rec = {
+        "phase": "cli_wcm", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
+        "n_pad": n_pad, "argv": list(CLI_WCM_ARGS), "summary": summary,
+        "wall_s": summary["wall_s"],
+        "pixel_steps_per_s": summary["pixel_steps_per_s"],
+        "block_plan": plan, "fused_per_date": fused,
+        "kernel_launches": launches, "iterations": iterations,
+        "per_date": date_records(kf.diagnostics_log, keeper.peaks),
+        "writer": {"flush_s": tee.flush_s, "close_s": tee.close_s,
+                   "peak_queue_depth": writer.peak_backlog},
+        "peak_device_bytes": peak,
+        "readback": {"files": len(files), "differing": len(readback_differ),
+                     "nonfinite": len(nonfinite)},
+        "kept_date": CLI_KEEP_DATE,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("cli_wcm: " + "; ".join(failures))
+    return rec, keeper.kept[(2, 2)]
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -1868,7 +2274,7 @@ def main() -> int:
         },
     })
     phase_reference(device)
-    phase_reference_s2(device)
+    ref_s2 = phase_reference_s2(device)
     main_rec, kept = phase_main(device)
     tile = phase_kernel(device, "main_path_date", kept)
     small = phase_kernel(device, "2^19", problem_rows(2 ** 19, device),
@@ -1893,6 +2299,9 @@ def main() -> int:
     del s2_a, s2_b, planted_a
     solve_recs.append(phase_kernel_solve(device, "main_tip_date",
                                          *normal_equation_rows(tip_rows)))
+    upd_recs = {(10, 10): upd, (7, 2): phase_kernel_update(
+        device, "main_tip_date (7, 2)",
+        {**tip_rows, "esc_row": torch.zeros_like(tip_rows["y"][:1])})}
     del tip_rows
     for label, p, n in SOLVE_CASES:
         solve_recs.append(phase_kernel_solve(
@@ -1904,6 +2313,13 @@ def main() -> int:
     phase_profile(device, main_rec["n_pad"])
     phase_profile_s2(device, s2_date_args)
     del s2_date_args
+    joint_rec, kept_joint = phase_main_joint(device)
+    for inst, date in JOINT_KEEP.items():
+        rows = kept_joint.pop(inst)
+        upd_recs[inst] = phase_kernel_update(
+            device, f"main_joint_date_{date} {inst}", rows)
+        phase_faults_update(device, rows)
+        del rows
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke_cli")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1914,6 +2330,35 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     cli_kernel = phase_kernel(device, "cli_fused_date", cli_kept)
     del cli_kept
+    os.makedirs(workdir)
+    try:
+        wcm_rec, wcm_kept = phase_cli_wcm(device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    upd_recs[(2, 2)] = phase_kernel_update(device, "cli_wcm_date (2, 2)",
+                                           wcm_kept)
+    phase_faults_update(device, wcm_kept)
+    del wcm_kept
+    path_launches = {
+        (10, 10): s2_rec["kernel_launches"]["fused_update"],
+        (7, 2): ref_s2["tip_rowloop"]["launches"],
+        (2, 2): wcm_rec["kernel_launches"]["fused_update_by_instance"]
+        ["2x2"],
+        (11, 10): joint_rec["kernel_launches"]["fused_update_by_instance"]
+        ["11x10"],
+        (11, 2): joint_rec["kernel_launches"]["fused_update_by_instance"]
+        ["11x2"]}
+    update_instances = {}
+    for inst in fused_update.INSTANCES:
+        attr = fused_update.kernel_attributes(*inst)
+        r = upd_recs[inst]
+        update_instances[f"{inst[0]}x{inst[1]}"] = {
+            "path": UPDATE_PATHS[inst], "launches": path_launches[inst],
+            "case": r["case"], "n_pix": r["n_pix"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"]["x"],
+            "registers": attr["registers"],
+            "spill_bytes": attr["local_bytes"]}
     print(smi, flush=True)
 
     def at(rec):
@@ -1951,7 +2396,12 @@ def main() -> int:
             UPDATE_REPLACES, s2_rec["kernel_launches"]["fused_update"],
             "phase main_s2: KalmanFilter.run, S2 sub-tile", upd,
             max_abs_err_vs_f64=upd["kernel_vs_f64"]["x"]["max"],
-            **{"at_2^19": at(upd_small)}),
+            **{"at_2^19": at(upd_small)},
+            paths={"main_s2": s2_rec["kernel_launches"]["fused_update"],
+                   "main_joint": joint_rec["kernel_launches"]
+                   ["fused_update"],
+                   "cli_wcm": wcm_rec["kernel_launches"]["fused_update"]},
+            instances=update_instances),
         kernel_entry(
             "solve_rows", "cuda", "kafka_tpu_torch/csrc/solve_rows.cu",
             SOLVE_REPLACES, solve_s2["launches_on_path"],

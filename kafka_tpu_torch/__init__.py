@@ -43,3 +43,15 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+# The flat re-exports of ``kafka_tpu/__init__.py``.  Imported after
+# ``resolve_device``, which the core modules call.
+from .core import (  # noqa: E402
+    BandBatch,
+    GaussianState,
+    Linearization,
+    PixelPrior,
+    iterate_time_grid,
+    tip_prior,
+)

@@ -16,10 +16,12 @@ Usage:
 ``--device`` defaults to CUDA (and fails without a card); ``--device
 cpu`` runs on the CPU.  ``--scan-window`` sets the engine's temporal
 fusion (default 8, the engine default; 1 runs every window unfused).
-Not ported yet, and refused with a message naming the slice that brings
-them: ``--operator wcm``, chunked, queue and fleet modes
-(``--chunk-size``, ``--queue``, ``--num-workers``), the live HTTP
-endpoint (``--http-port``) and profiler capture (``--profile-windows``).
+``--operator wcm`` runs the SAR-only Water-Cloud state (2 parameters,
+VV and VH at a 23 degree incidence angle).  Not ported yet, and refused
+with a message naming the slice that brings them: chunked, queue and
+fleet modes (``--chunk-size``, ``--queue``, ``--num-workers``), the live
+HTTP endpoint (``--http-port``) and profiler capture
+(``--profile-windows``).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from ..engine.checkpoint import Checkpointer
 from ..engine.filter import KalmanFilter
 from ..engine.priors import TIP_PARAMETER_LIST, FixedGaussianPrior, jrc_prior
 from ..io import GeoTIFFOutput, read_geotiff
-from ..obsops import IdentityOperator, TwoStreamOperator
+from ..obsops import IdentityOperator, TwoStreamOperator, WCMAux, WCMOperator
 from ..testing.fixtures import DEFAULT_GEO, make_pivot_mask
 from ..testing.synthetic import SyntheticObservations
 from . import add_telemetry_arg, make_console
@@ -49,8 +51,6 @@ from . import add_telemetry_arg, make_console
 #: flags of the JAX driver this port does not run yet, with the ROADMAP
 #: slice that brings each: (flag, is it set?, slice).
 UNPORTED = (
-    ("--operator wcm", lambda a: a.operator == "wcm",
-     "slice 3 (the operator fleet)"),
     ("--chunk-size", lambda a: a.chunk_size > 0,
      "slice 5 (distribution: chunked, queue and fleet modes)"),
     ("--queue", lambda a: a.queue,
@@ -66,8 +66,8 @@ UNPORTED = (
 
 def build_operator(name: str, device):
     """``(operator, parameter_list, prior, truth_value, aux_fn, sigma)``
-    of the JAX driver's ``build_operator`` for ``twostream`` and
-    ``identity``, with the prior on ``device``."""
+    of the JAX driver's ``build_operator``, with the prior and the aux on
+    ``device``."""
     dev = resolve_device(device)
     if name == "identity":
         op = IdentityOperator(n_params=2, obs_indices=(0, 1))
@@ -82,9 +82,40 @@ def build_operator(name: str, device):
         truth_val = prior.prior.mean.cpu().numpy().copy()
         truth_val[6] = 0.5  # TLAI target
         sigma = 0.002
+    elif name == "wcm":
+        op = WCMOperator()
+        params = ("lai", "sm")
+        prior = FixedGaussianPrior(
+            _mean_prior(np.array([1.5, 0.25], np.float32),
+                        np.array([1.0, 0.2], np.float32), dev),
+            params,
+        )
+        truth_val = np.array([2.2, 0.32], np.float32)
+        sigma = 0.002
+        return op, params, prior, truth_val, _wcm_aux_fn(dev), sigma
     else:
         raise SystemExit(f"unknown operator {name!r}")
     return op, params, prior, truth_val, None, sigma
+
+
+def _wcm_aux_fn(device):
+    """The date's ``WCMAux``: a 23 degree incidence angle on every pixel
+    of the batch."""
+    def aux_fn(date, gather):
+        return WCMAux(theta_deg=torch.full((gather.n_pad,), 23.0,
+                                           dtype=torch.float32,
+                                           device=device))
+    return aux_fn
+
+
+def _mean_prior(mean, sigma, device):
+    cov = np.diag(sigma**2).astype(np.float32)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    return PixelPrior(mean=t(mean), cov=t(cov),
+                      inv_cov=t(np.linalg.inv(cov)))
 
 
 def _iso_prior(p, mean, sigma, device):

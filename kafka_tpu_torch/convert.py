@@ -15,9 +15,13 @@ import torch
 from . import resolve_device
 from .core.propagators import PixelPrior
 from .core.types import BandBatch
-from .engine.priors import (PROSAIL_PARAMETER_LIST, FixedGaussianPrior,
-                            sail_prior_arrays)
+from .engine.priors import (JOINT_PARAMETER_LIST, PROSAIL_PARAMETER_LIST,
+                            WCM_PARAMETER_LIST, FixedGaussianPrior,
+                            joint_prior_arrays, sail_prior_arrays,
+                            wcm_prior_arrays)
+from .obsops.gp import GPParams
 from .obsops.prosail import ProsailAux
+from .obsops.wcm import WCMAux
 
 
 def tensor(a, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -78,3 +82,43 @@ def sail_prior(mean=None, cov=None, inv_cov=None,
         mean, cov, inv_cov = sail_prior_arrays()
     return fixed_gaussian_prior(mean, cov, inv_cov, PROSAIL_PARAMETER_LIST,
                                 device)
+
+
+def wcm_prior(mean=None, cov=None, inv_cov=None,
+              device=None) -> FixedGaussianPrior:
+    """The WCM prior from the numpy fields of the JAX ``wcm_prior()``
+    (its constants when none are given)."""
+    if mean is None:
+        mean, cov, inv_cov = wcm_prior_arrays()
+    return fixed_gaussian_prior(mean, cov, inv_cov, WCM_PARAMETER_LIST,
+                                device)
+
+
+def joint_prior(mean=None, cov=None, inv_cov=None,
+                device=None) -> FixedGaussianPrior:
+    """The joint S2 + S1 prior from the numpy fields of the JAX
+    ``joint_prior()`` (its constants when none are given)."""
+    if mean is None:
+        mean, cov, inv_cov = joint_prior_arrays()
+    return fixed_gaussian_prior(mean, cov, inv_cov, JOINT_PARAMETER_LIST,
+                                device)
+
+
+def wcm_aux(aux, device=None) -> WCMAux:
+    """A port ``WCMAux`` from the JAX one: the incidence angle as a
+    float32 tensor, 0-d when it was a scalar, ``(n_pix,)`` per pixel."""
+    return WCMAux(theta_deg=tensor(aux.theta_deg, device))
+
+
+def gp_params(params, device=None) -> GPParams:
+    """Port ``GPParams`` from the JAX ones' numpy-convertible fields (one
+    emulator or a stacked bank)."""
+    return GPParams(*(tensor(getattr(params, f), device)
+                      for f in GPParams._fields))
+
+
+def mlp_params(params, device=None) -> list:
+    """The port's MLP parameter list from the JAX one (a list of
+    ``{"w", "b"}`` dicts of arrays)."""
+    return [{k: tensor(layer[k], device) for k in ("w", "b")}
+            for layer in params]

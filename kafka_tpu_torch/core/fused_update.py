@@ -20,7 +20,8 @@ storing the uninflated A, the innovations ``where(mask, y - H0, 0)`` and
 - :func:`fused_update_rows` — the JAX signature and return tuple: CPU
   tensors run the plain version, CUDA tensors launch
   ``csrc/fused_update.cu`` (instances ``INSTANCES``) or raise.
-  ``fused_update_rows.launches`` counts kernel launches.
+  ``fused_update_rows.launches`` counts kernel launches,
+  ``fused_update_rows.launches_by_instance`` them by (p, n_bands).
 - :func:`fused_update` — the drop-in for the packed path of
   ``solvers.kalman_update`` (``fused_update_pallas`` in the JAX package).
 """
@@ -34,9 +35,11 @@ import torch
 from . import solver_health
 from .linalg import cholesky_packed, pack_rows, solve_chol_vectors, tri_rows
 
-#: (p, n_bands) instances of the CUDA kernel: PROSAIL on Sentinel-2, and
-#: TIP through the row loop (``{"inkernel_linearize": False}``).
-INSTANCES = ((10, 10), (7, 2))
+#: (p, n_bands) instances of the CUDA kernel: PROSAIL on Sentinel-2 (and
+#: the GP and MLP emulators of its bands), TIP through the row loop
+#: (``{"inkernel_linearize": False}``), the SAR-only WCM state, and the
+#: joint S2 + S1 state on its S2 and its S1 dates.
+INSTANCES = ((10, 10), (7, 2), (2, 2), (11, 10), (11, 2))
 
 
 def _idx(i: int, j: int) -> int:
@@ -151,6 +154,8 @@ def _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows, esc_row):
             stream)
     _build.raise_on_error(lib, rc, "fused_update")
     fused_update_rows.launches += 1
+    by_instance = fused_update_rows.launches_by_instance
+    by_instance[(p, n_bands)] = by_instance.get((p, n_bands), 0) + 1
     return x, a, inn, hb
 
 
@@ -180,8 +185,10 @@ def fused_update_rows(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows,
     raise ValueError(f"no fused update for {dev}")
 
 
-#: CUDA kernel launches of this process (plain-version calls excluded).
+#: CUDA kernel launches of this process (plain-version calls excluded),
+#: in all and by (p, n_bands) instance.
 fused_update_rows.launches = 0
+fused_update_rows.launches_by_instance = {}
 
 
 def fused_update(lin, obs, x_lin, x_forecast, p_inv_forecast):

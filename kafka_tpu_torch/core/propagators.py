@@ -169,6 +169,15 @@ def blend_prior(prior_mean, prior_cov_inverse, x_forecast,
     return solve_spd_batched(combined, b.float()), combined
 
 
+def blend_gaussians(mean_a, inv_cov_a, mean_b, inv_cov_b):
+    """Textbook product of Gaussians: each mean weighted by its own
+    information matrix (the conventional form of ``blend_prior``)."""
+    combined = inv_cov_a + inv_cov_b
+    b = (torch.einsum("npq,nq->np", inv_cov_a, mean_a)
+         + torch.einsum("npq,nq->np", inv_cov_b, mean_b))
+    return solve_spd_batched(combined, b.float()), combined
+
+
 def advance(x_analysis, p_analysis, p_analysis_inverse, m_matrix, q_diag,
             prior_mean=None, prior_cov_inverse=None, state_propagator=None):
     """The four-way advance dispatcher (``kf_tools.py:136-171``):

@@ -487,6 +487,23 @@ def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
                          state_bounds, health)
 
 
+def linear_solve(lin: Linearization, obs: BandBatch, x_forecast,
+                 p_inv_forecast):
+    """Single-shot update for linear observation operators:
+    ``(x, A, diagnostics)`` with one iteration and a zero norm (the JAX
+    ``linear_solve``)."""
+    x, a = kalman_update(lin, obs, x_forecast, x_forecast, p_inv_forecast)
+    fwd = torch.einsum("bnp,np->bn", lin.jac, x - x_forecast) + lin.h0
+    innovations = torch.where(obs.mask, obs.y - fwd, 0.0)
+    dev = x.device
+    diags = SolveDiagnostics(
+        innovations=innovations, fwd_modelled=fwd,
+        n_iterations=torch.ones((), dtype=torch.int32, device=dev),
+        convergence_norm=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+    return x, a, diags
+
+
 def _window_telemetry_scalars(x, innovations, obs, state_bounds):
     """Per-window diagnostic scalars: per-band innovation chi^2 over
     valid pixels, state entries at a bound (observed pixels only), and

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -60,3 +61,28 @@ class SolveDiagnostics(NamedTuple):
     quarantined_count: Any = None
     nonfinite_count: Any = None
     clip_saturated_count: Any = None
+
+
+def flat_to_pixel_major(x_flat: torch.Tensor, n_params: int) -> torch.Tensor:
+    """``(n_pix*p,)`` interleaved reference layout -> ``(n_pix, p)``."""
+    return x_flat.reshape(-1, n_params)
+
+
+def pixel_major_to_flat(x: torch.Tensor) -> torch.Tensor:
+    """``(n_pix, p)`` -> the reference's interleaved flat layout."""
+    return x.reshape(-1)
+
+
+def block_diag_to_batched(p_mat: Any, n_params: int) -> np.ndarray:
+    """Dense or scipy block-diagonal ``(n_pix*p, n_pix*p)`` ->
+    ``(n_pix, p, p)`` numpy: a host-side helper for interop with the
+    reference layout."""
+    if hasattr(p_mat, "toarray"):
+        p_mat = p_mat.toarray()
+    p_mat = np.asarray(p_mat)
+    n = p_mat.shape[0] // n_params
+    out = np.empty((n, n_params, n_params), dtype=p_mat.dtype)
+    for i in range(n):
+        sl = slice(i * n_params, (i + 1) * n_params)
+        out[i] = p_mat[sl, sl]
+    return out

@@ -19,8 +19,10 @@
 // B*P + 4B + 2P + tri(P) + 1 = 216 floats (J, H0, y, w, mask, x_lin, x_f,
 // P_f^-1, esc) and writes P + tri(P) + B + 2 = 77 (x, A, inn, hb):
 // 1,172 B/px, against about 1.6 kFLOP/px of float32 arithmetic, well
-// under the card's operations-per-byte balance.  So the design is about
-// reading each byte once, coalesced:
+// under the card's operations-per-byte balance.  The other instances move
+// 328 floats/px at (11, 10), 200 at (11, 2), 104 at (7, 2) and 29 at
+// (2, 2), all bound by bytes too.  So the design is about reading each
+// byte once, coalesced:
 //
 // - Nothing couples pixels (the TPU kernel's gcd(n, 2048) block is only
 //   tiling), so one thread owns one pixel over the (rows, n) layout:
@@ -30,7 +32,8 @@
 //   forms J_b . x_lin and y~_b by select (masked y holds NaN nodata),
 //   and adds w_b J_b[i] J_b[j] into A and w_b J_b[i] y~_b into rhs.  The
 //   whole Jacobian (100 floats at (10, 10)) is never held: about 90
-//   floats stay live (A 55, rhs 10, J_b 10, x_lin 10).
+//   floats stay live (A 55, rhs 10, J_b 10, x_lin 10); at (11, B) about
+//   110 (A 66), so the joint state's instances may spill.
 // - Accumulation follows the JAX kernel: A starts from P_f^-1 and adds
 //   the bands in ascending order as (w_b J_b[i]) J_b[j]; rhs starts from
 //   sum_q P_f^-1(max(i,q), min(i,q)) x_f[q], then adds the bands.  Built
@@ -158,10 +161,20 @@ int attributes(int* out) {
 
 }  // namespace
 
+// The (P, NB) instances, each once: X(P, NB) expands to one dispatch case.
+#define KAFKA_FUSED_UPDATE_INSTANCES(X) \
+  X(10, 10)                             \
+  X(7, 2)                               \
+  X(2, 2)                               \
+  X(11, 10)                             \
+  X(11, 2)
+
 extern "C" {
 
 // Launch the (p, n_bands) instance on `stream`: (10, 10) for PROSAIL on
-// Sentinel-2, (7, 2) for TIP.  Arrays are row-major (rows, n) float32 on
+// Sentinel-2 and the emulators of its bands, (7, 2) for TIP, (2, 2) for
+// the SAR-only WCM state, (11, 10) and (11, 2) for the joint S2 + S1
+// state's S2 and S1 dates.  Arrays are row-major (rows, n) float32 on
 // the device: jac (n_bands * p), h0 / y / w / m (n_bands), xl / xf (p),
 // pf (tri(p)), esc (1); outputs x (p), a (tri(p)), inn (n_bands), hb (2).
 // Returns the CUDA error code of the launch (0 on success).
@@ -174,20 +187,22 @@ int kafka_fused_update(int p, int n_bands, const float* jac, const float* h0,
   if (n <= 0 || (n + kThreads - 1) / kThreads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (p == 10 && n_bands == 10)
-    return launch<10, 10>(jac, h0, y, w, m, xl, xf, pf, esc, x_out, a_out,
-                          inn_out, hb_out, n, s);
-  if (p == 7 && n_bands == 2)
-    return launch<7, 2>(jac, h0, y, w, m, xl, xf, pf, esc, x_out, a_out,
-                        inn_out, hb_out, n, s);
+#define KAFKA_LAUNCH_CASE(P, NB)                                          \
+  if (p == P && n_bands == NB)                                            \
+    return launch<P, NB>(jac, h0, y, w, m, xl, xf, pf, esc, x_out, a_out, \
+                         inn_out, hb_out, n, s);
+  KAFKA_FUSED_UPDATE_INSTANCES(KAFKA_LAUNCH_CASE)
+#undef KAFKA_LAUNCH_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // Registers per thread, local (spill) bytes per thread, static shared
 // bytes and threads per block of the (p, n_bands) instance.
 int kafka_fused_update_attributes(int p, int n_bands, int* out) {
-  if (p == 10 && n_bands == 10) return attributes<10, 10>(out);
-  if (p == 7 && n_bands == 2) return attributes<7, 2>(out);
+#define KAFKA_ATTRIBUTES_CASE(P, NB) \
+  if (p == P && n_bands == NB) return attributes<P, NB>(out);
+  KAFKA_FUSED_UPDATE_INSTANCES(KAFKA_ATTRIBUTES_CASE)
+#undef KAFKA_ATTRIBUTES_CASE
   return (int)cudaErrorInvalidValue;
 }
 

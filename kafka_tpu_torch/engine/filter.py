@@ -334,7 +334,8 @@ class KalmanFilter:
 
     def _record_window(self, rec: dict) -> None:
         """Keep one window's record and land it in the telemetry
-        registry (the JAX package's metric names)."""
+        registry (the JAX package's metric names, help strings, labels
+        and buckets), from the host record alone: no device read."""
         self.diagnostics_log.append(rec)
         reg = get_registry()
         reg.counter(
@@ -349,8 +350,77 @@ class KalmanFilter:
             "Gauss-Newton iterations to convergence per window",
             buckets=(1, 2, 3, 4, 6, 8, 12, 16, 25, 40),
         ).observe(rec["n_iterations"])
+        reg.gauge(
+            "kafka_engine_convergence_norm",
+            "final Gauss-Newton step norm of the latest window",
+        ).set(rec["convergence_norm"])
+        chi2_hist = reg.histogram(
+            "kafka_engine_innovation_chi2",
+            "mean innovation chi^2 per band per window (~1 when the "
+            "assumed observation uncertainty matches residuals)",
+            buckets=(0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.5, 5.0, 10.0,
+                     100.0),
+        )
+        for b, v in enumerate(rec["chi2_per_band"]):
+            chi2_hist.observe(v, band=b)
+        reg.counter(
+            "kafka_engine_bounds_clipped_total",
+            "state entries projected onto state_bounds (observed "
+            "pixels only)",
+        ).inc(rec["bounds_clipped"])
+        reg.counter(
+            "kafka_engine_nodata_pixels_total",
+            "masked-out (NaN/nodata) observation entries across bands",
+        ).inc(rec["nodata"])
+        if "quarantined" in rec:
+            self._record_solver_health(reg, rec)
         reg.emit("solve", **{k: (str(v) if k == "date" else v)
                              for k, v in rec.items()})
+
+    def _record_solver_health(self, reg, rec: dict) -> None:
+        """Solve-health counters and events of one window's record."""
+        reg.counter(
+            "kafka_solver_cap_bailouts_total",
+            "observed pixels still moving when the Gauss-Newton loop "
+            "hit its iteration cap (the reference's silent bailout, "
+            "counted)",
+        ).inc(rec["cap_bailouts"])
+        reg.counter(
+            "kafka_solver_damped_recoveries_total",
+            "pixels that went numerically bad mid-loop, took the "
+            "Levenberg-Marquardt damping escalation and recovered",
+        ).inc(rec["damped_recovered"])
+        reg.counter(
+            "kafka_solver_quarantined_pixels_total",
+            "pixels still bad after damping escalation, served as "
+            "forecast with deflated information (QA_QUARANTINED)",
+        ).inc(rec["quarantined"])
+        reg.counter(
+            "kafka_solver_nonfinite_total",
+            "observed pixels whose raw Gauss-Newton step went "
+            "non-finite at least once during the loop",
+        ).inc(rec["nonfinite"])
+        sat = rec.get("clip_saturated") or []
+        c_sat = reg.counter(
+            "kafka_solver_clip_saturated_total",
+            "pixels clipped to a state_bounds limit on EVERY "
+            "iteration, per parameter — a pinned pixel is a masked "
+            "divergence",
+        )
+        for name, v in zip(self.parameter_list, sat):
+            if v:
+                c_sat.inc(v, param=name)
+        if any(sat):
+            reg.emit(
+                "solver_clip_saturated", date=str(rec["date"]),
+                counts={name: int(v)
+                        for name, v in zip(self.parameter_list, sat) if v},
+            )
+        if rec["quarantined"]:
+            reg.emit(
+                "solver_pixels_quarantined", date=str(rec["date"]),
+                count=rec["quarantined"],
+            )
 
     def run(self, time_grid, x_forecast, p_forecast, p_forecast_inverse,
             checkpointer=None, advance_first=False):

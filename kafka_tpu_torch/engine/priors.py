@@ -1,4 +1,4 @@
-"""Prior objects (port of the TIP and S2 parts of
+"""Prior objects (port of the TIP, S2, joint S2 + S1 and WCM parts of
 ``kafka_tpu/engine/priors.py``)."""
 
 from __future__ import annotations
@@ -82,3 +82,60 @@ def sail_prior(device=None) -> FixedGaussianPrior:
                           for a in sail_prior_arrays())
     return FixedGaussianPrior(PixelPrior(mean=mean, cov=cov, inv_cov=inv_cov),
                               PROSAIL_PARAMETER_LIST)
+
+
+# The 11-parameter joint optical + SAR state (obsops.joint).
+JOINT_PARAMETER_LIST = PROSAIL_PARAMETER_LIST + ("sm",)
+
+
+def joint_prior_arrays():
+    """The joint S2 + S1 prior's ``(mean, cov, inv_cov)`` as float32
+    numpy: the SAIL prior extended with a broad soil-moisture marginal
+    (mean 0.25 m^3/m^3, sigma 0.15)."""
+    mean, cov10, inv10 = sail_prior_arrays()
+    mean = np.concatenate([mean, [0.25]]).astype(np.float32)
+    cov = np.zeros((11, 11), np.float32)
+    cov[:10, :10] = cov10
+    cov[10, 10] = 0.15**2
+    inv_cov = np.zeros((11, 11), np.float32)
+    inv_cov[:10, :10] = inv10
+    inv_cov[10, 10] = 1.0 / 0.15**2
+    return mean, cov, inv_cov
+
+
+def joint_prior(device=None) -> FixedGaussianPrior:
+    """Prior for the joint S2 + S1 state (``joint_prior`` of the JAX
+    package): soil moisture is essentially uninformed over the WCM
+    domain, so it is learned from the SAR signal.  On ``device``."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    mean, cov, inv_cov = (torch.as_tensor(a, device=dev)
+                          for a in joint_prior_arrays())
+    return FixedGaussianPrior(PixelPrior(mean=mean, cov=cov, inv_cov=inv_cov),
+                              JOINT_PARAMETER_LIST)
+
+
+# The 2-parameter WCM state of the SAR-only path (obsops.wcm).
+WCM_PARAMETER_LIST = ("lai", "sm")
+
+
+def wcm_prior_arrays():
+    """The SAR-only WCM prior's ``(mean, cov, inv_cov)`` as float32 numpy:
+    LAI mean 2, sigma 2; soil moisture mean 0.25, sigma 0.15."""
+    mean = np.array([2.0, 0.25], np.float32)
+    sigma = np.array([2.0, 0.15], np.float32)
+    return (mean, np.diag(sigma**2).astype(np.float32),
+            np.diag(1.0 / sigma**2).astype(np.float32))
+
+
+def wcm_prior(device=None) -> FixedGaussianPrior:
+    """Prior for the SAR-only Water-Cloud state (``wcm_prior`` of the JAX
+    package), essentially uninformative, on ``device``."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    mean, cov, inv_cov = (torch.as_tensor(a, device=dev)
+                          for a in wcm_prior_arrays())
+    return FixedGaussianPrior(PixelPrior(mean=mean, cov=cov, inv_cov=inv_cov),
+                              WCM_PARAMETER_LIST)

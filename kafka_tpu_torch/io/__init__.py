@@ -1,6 +1,11 @@
-"""Raster I/O of the port: the GeoTIFF codec and the output writer."""
+"""Raster I/O of the port: the GeoTIFF codec, the output writer and the
+multi-sensor observation composite."""
 
-from .geotiff import GeoInfo, read_geotiff, write_geotiff
+from .geotiff import (GeoInfo, TiffInfo, TiledTiffWriter, read_geotiff,
+                      read_geotiff_window, read_info, write_geotiff)
+from .multi import CompositeObservations
 from .output import GeoTIFFOutput
 
-__all__ = ["GeoInfo", "GeoTIFFOutput", "read_geotiff", "write_geotiff"]
+__all__ = ["CompositeObservations", "GeoInfo", "GeoTIFFOutput", "TiffInfo",
+           "TiledTiffWriter", "read_geotiff", "read_geotiff_window",
+           "read_info", "write_geotiff"]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -82,3 +83,52 @@ class ObservationModel:
 
         h0, jac = vmap(value_and_jac, in_dims=(dims, 0))(aux, x)
         return Linearization(h0=h0.T, jac=jac.permute(1, 0, 2))
+
+
+class BandView(ObservationModel):
+    """A single-band view of a multi-band operator, the unit of the
+    reference's band-sequential assimilation (each band's posterior
+    becomes the next band's prior).  The view evaluates the inner
+    operator's whole forward and keeps one band, as in the JAX package."""
+
+    def __init__(self, inner: ObservationModel, band: int):
+        self.inner = inner
+        self.band = int(band)
+        self.n_bands = 1
+        self.n_params = inner.n_params
+        self.state_bounds = getattr(inner, "state_bounds", None)
+        self.aux_per_pixel = getattr(inner, "aux_per_pixel", True)
+
+    def forward_pixel(self, aux: Any, x_pixel: torch.Tensor) -> torch.Tensor:
+        return self.inner.forward_pixel(aux, x_pixel)[
+            self.band:self.band + 1
+        ]
+
+    def aux_in_axes(self, aux: Any, n_pix: int):
+        return self.inner.aux_in_axes(aux, n_pix)
+
+
+class MappedStateModel(ObservationModel):
+    """Wraps a sub-state operator into the full state vector by per-band
+    index mapping (the reference's ``state_mapper`` pattern): band ``b``
+    reads the parameters ``state_mappers[b]`` of the state.
+
+    ``inner.forward_band_pixel(aux, b, sub)`` returns that one band's
+    value, ``(1,)``-shaped, from ``sub``, the band's parameters as a list
+    of ``(1,)``-shaped slices (as ``TwoStreamOperator`` takes them: under
+    ``torch.func.jacfwd`` a 0-d tensor times a Python float gets a
+    float64 tangent); this wrapper evaluates it once per band."""
+
+    def __init__(self, inner, state_mappers, n_params: int):
+        self.inner = inner
+        # Host constants: each band's gather is a fixed list of slices.
+        self.mappers = np.asarray(state_mappers)  # (n_bands, k)
+        self.n_bands = int(self.mappers.shape[0])
+        self.n_params = n_params
+
+    def forward_pixel(self, aux: Any, x_pixel: torch.Tensor) -> torch.Tensor:
+        def one_band(b):
+            sub = [x_pixel[int(i):int(i) + 1] for i in self.mappers[b]]
+            return self.inner.forward_band_pixel(aux, b, sub).reshape(1)
+
+        return torch.cat([one_band(b) for b in range(self.n_bands)])

@@ -39,6 +39,8 @@ class SyntheticObservations:
         self.aux_fn = aux_fn or (lambda date, gather: None)
         self.mask_prob = mask_prob
         self.seed = seed
+        self.bands_per_observation = {d: operator.n_bands
+                                      for d in self._dates}
 
     @property
     def dates(self):
@@ -190,6 +192,58 @@ def run_s2_engine(ny: int = 16, nx: int = 16, obs_days=(1, 3, 5),
     x0, p_inv0 = prior.process_prior(None, kf.gather)
     x_a, _, p_inv_a = kf.run([day(i) for i in grid_days], x0, None, p_inv0)
     return kf, out, x_a, p_inv_a
+
+
+def joint_truth(mask_shape, sm: float = 0.4) -> np.ndarray:
+    """The joint S2 + S1 truth raster ``mask_shape + (11,)``: the joint
+    prior mean with LAI 3 (slot 6 = exp(-1.5)) and soil moisture ``sm``
+    (slot 10), as the JAX package's joint test and baseline harness."""
+    from ..engine.priors import joint_prior_arrays
+
+    truth = joint_prior_arrays()[0].copy()
+    truth[6] = np.float32(np.exp(-1.5))
+    truth[10] = sm
+    return np.broadcast_to(truth, tuple(mask_shape) + (11,))
+
+
+def joint_observations(s2_dates, s1_dates, truth_fn, theta_deg,
+                       s2_angles=None, s1_sigma: float = 0.01,
+                       device=None):
+    """A joint Sentinel-2 + Sentinel-1 stream on the 11-parameter joint
+    state: the ``CompositeObservations`` of an S2 source on
+    ``ProsailJointOperator`` (sigma 0.005; scene geometry ``s2_angles`` =
+    (sza, vza, raa) as a ``ProsailAux``, or None for the operator's
+    default) and an S1 source on ``WCMJointOperator`` (sigma
+    ``s1_sigma``) whose ``WCMAux`` carries the incidence angle
+    ``theta_deg``: a scalar or a ``(ny, nx)`` raster, gathered per pixel
+    (padding rows get 0 degrees).  The draws are those of two
+    ``SyntheticObservations`` with seeds 3 and 4 and 10 % masked, as the
+    JAX package's joint test builds them."""
+    from ..convert import prosail_aux
+    from ..io.multi import CompositeObservations
+    from ..obsops.joint import ProsailJointOperator, WCMJointOperator
+    from ..obsops.prosail import ProsailAux
+    from ..obsops.wcm import WCMAux
+
+    dev = resolve_device(device)
+    s2_aux = None if s2_angles is None \
+        else prosail_aux(ProsailAux(*s2_angles), dev)
+    theta_host = np.asarray(theta_deg, np.float32)
+
+    def s1_aux(date, gather):
+        if theta_host.ndim == 0:
+            theta = np.full(gather.n_pad, theta_host, np.float32)
+        else:
+            theta = gather.gather(theta_host)
+        return WCMAux(theta_deg=torch.as_tensor(theta, device=dev))
+
+    s2 = SyntheticObservations(
+        s2_dates, ProsailJointOperator(), truth_fn, sigma=0.005,
+        aux_fn=lambda date, gather: s2_aux, seed=3, device=dev)
+    s1 = SyntheticObservations(
+        s1_dates, WCMJointOperator(), truth_fn, sigma=s1_sigma,
+        aux_fn=s1_aux, seed=4, device=dev)
+    return CompositeObservations([s2, s1])
 
 
 def plant_solver_faults(y, r_inv, mask_f, xf_rows, pf_rows,

@@ -233,3 +233,111 @@ def test_expected_outputs_is_the_writers_count(tmp_path):
     out.dump_qa(ts, np.ones(16, np.int32), g)
     out.close()
     assert len(list(tmp_path.glob("*.tif"))) == cs.expected_outputs(1, 3)
+
+
+@pytest.mark.parametrize("n_pad", [256, 1_205_760, 4_608_000, 9_000_000])
+def test_block_plan_counts_the_aux_bytes(n_pad):
+    """With a per-pixel float32 aux (the WCM incidence angle) the plan's
+    blocks fit the JAX guards' aux budget too."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from kafka_tpu.engine.filter import KalmanFilter as JaxFilter
+
+    kf = SimpleNamespace(gather=SimpleNamespace(n_pad=n_pad), n_params=2,
+                         _aux_leaves=JaxFilter._aux_leaves,
+                         _SCAN_MAX_STATE_ELEMS=JaxFilter._SCAN_MAX_STATE_ELEMS,
+                         _SCAN_MAX_BAND_ELEMS=JaxFilter._SCAN_MAX_BAND_ELEMS,
+                         _SCAN_MAX_AUX_BYTES=JaxFilter._SCAN_MAX_AUX_BYTES)
+    obs = SimpleNamespace(
+        bands=SimpleNamespace(y=SimpleNamespace(shape=(2, n_pad))),
+        aux=(np.zeros(n_pad, np.float32),))
+    plan = cs.block_plan(8, n_pad, 2, 2, aux_bytes=4 * n_pad)
+    max_k = max([k for k in range(1, cs.SCAN_WINDOW + 1)
+                 if JaxFilter._block_fits(kf, obs, k)], default=1)
+    assert all(k <= max_k for k in plan[1:]) and sum(plan) == 8
+    assert cs.SCAN_MAX_AUX_BYTES == JaxFilter._SCAN_MAX_AUX_BYTES
+    if n_pad == 4_608_000:
+        assert plan == [1, 2, 2, 2, 1]
+
+
+def test_joint_dates_interleave_one_per_window():
+    """The joint grid: 12 two-day windows from a day before the first
+    date to a day after the last, each holding one date, S2 and S1 in
+    turn."""
+    s2, s1, grid = cs.joint_dates()
+    assert len(s2) == len(s1) == cs.JOINT_N_DATES and len(grid) == 13
+    dates = sorted(s2 + s1)
+    for k, d in enumerate(dates):
+        assert grid[k] < d <= grid[k + 1]
+        assert (d in s2) == (k % 2 == 0)
+
+
+@pytest.fixture
+def counted_plain(monkeypatch):
+    """The fused update's plain version counted as a launch (per
+    instance), so the phases' launch gates can be rehearsed on the CPU."""
+    from kafka_tpu_torch.core import fused_update as fu
+
+    real = fu.fused_update_raw_plain
+
+    def counted(*args, **kwargs):
+        rows = dict(zip(cs.UPDATE_ROW_NAMES, args), **kwargs)
+        inst = (rows["xf_rows"].shape[0], rows["h0"].shape[0])
+        fu.fused_update_rows.launches += 1
+        by = fu.fused_update_rows.launches_by_instance
+        by[inst] = by.get(inst, 0) + 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fu, "fused_update_raw_plain", counted)
+
+
+def _held(rows):
+    dev = torch.device("cpu")
+    rec = cs.phase_kernel_update(dev, "rehearsal", rows, kernel_reps=1,
+                                 plain_reps=1)
+    assert rec["pixels_differing_from_plain"] == {"x": 0, "A": 0, "inn": 0,
+                                                  "hb": 0}
+    faults = cs.phase_faults_update(dev, rows, n_each=4)
+    assert all(b["equal"] and b["expected"]
+               for b in faults["branches"].values())
+
+
+def test_phase_main_joint_rehearsal(counted_plain):
+    """phase_main_joint at 12 x 12 on the CPU: 12 dates, S2 / S1 in turn,
+    no fused block, the launches per instance equal to each sensor's
+    iterations, the soil-moisture gate held; then the kernel phases on
+    both kept instances."""
+    rec, kept = cs.phase_main_joint(torch.device("cpu"), ny=12, nx=12)
+    assert rec["sensors"] == ["S2", "S1"] * cs.JOINT_N_DATES
+    by = rec["kernel_launches"]["fused_update_by_instance"]
+    assert by == {"11x10": rec["iterations"]["S2"],
+                  "11x2": rec["iterations"]["S1"]}
+    assert rec["mean_abs_sm_err"] < cs.JOINT_SM_GATE
+    assert set(kept) == {(11, 10), (11, 2)}
+    for inst, rows in kept.items():
+        assert rows["xf_rows"].shape == (11, rec["n_pad"])
+        assert rows["h0"].shape[0] == inst[1]
+        _held(rows)
+
+
+def test_phase_cli_wcm_rehearsal(tmp_path, counted_plain):
+    """phase_cli_wcm at 48 x 48 on the CPU: the driver's summary line,
+    the block plan, (2, 2) launches equal to the iterations and every
+    GeoTIFF read back bit-identical; then the kernel phases on the kept
+    date."""
+    rec, kept = cs.phase_cli_wcm(torch.device("cpu"), str(tmp_path),
+                                 ny=48, nx=48)
+    assert rec["summary"]["operator"] == "wcm"
+    assert rec["readback"] == {"files": 40, "differing": 0, "nonfinite": 0}
+    assert rec["kernel_launches"]["fused_update_by_instance"] == \
+        {"2x2": rec["iterations"]}
+    assert kept["xf_rows"].shape[0] == 2
+    _held(kept)
+
+
+def test_phase_cli_wcm_fails_without_kernel_launches(tmp_path):
+    """On the CPU nothing launches a kernel: the launch gate refuses."""
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_cli_wcm(torch.device("cpu"), str(tmp_path), ny=32, nx=32)

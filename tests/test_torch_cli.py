@@ -121,7 +121,7 @@ def test_checkpoint_flag_writes_resumable_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--operator", "wcm"], "slice 3"),
+    (["--operator", "wcm", "--chunk-size", "24"], "slice 5"),
     (["--chunk-size", "24"], "slice 5"),
     (["--chunk-size", "24", "--queue"], "slice 5"),
     (["--num-workers", "2"], "slice 5"),

@@ -56,7 +56,8 @@ def _rows(p, n_bands, n, seed):
 
 
 @pytest.mark.parametrize("n", [256, 1280])
-@pytest.mark.parametrize("p,n_bands", [(7, 2), (10, 10)])
+@pytest.mark.parametrize("p,n_bands", [(7, 2), (10, 10), (2, 2), (11, 10),
+                                       (11, 2)])
 def test_plain_fused_update_matches_jax_kernel(p, n_bands, n):
     rows, _ = _rows(p, n_bands, n, seed=p * 1000 + n)
     order = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
@@ -92,7 +93,8 @@ def test_escalation_inflates_the_factored_diagonal_only():
     assert set(np.nonzero(moved)[0]) == set(ESC_PX)
 
 
-@pytest.mark.parametrize("p,n_bands", [(7, 2), (10, 10)])
+@pytest.mark.parametrize("p,n_bands", [(7, 2), (10, 10), (2, 2), (11, 10),
+                                       (11, 2)])
 def test_kalman_update_use_pallas_matches_jax_fused_update(p, n_bands):
     _, (jac, h0, y, w, mask, x_f, x_lin, p_inv) = _rows(p, n_bands, 256,
                                                         seed=p)
@@ -124,17 +126,33 @@ def test_jac_to_rows_is_the_jax_relayout():
         np.asarray(jps.jac_to_rows(jnp.asarray(jac))))
 
 
-@pytest.mark.parametrize("p,n_bands", [(3, 2), (10, 2), (7, 10), (21, 7)])
+@pytest.mark.parametrize("p,n_bands", [(3, 2), (10, 2), (7, 10), (21, 7),
+                                       (2, 10), (11, 7)])
 def test_unsupported_instance_raises(p, n_bands):
-    """The CUDA kernel has the (10, 10) and (7, 2) instances; any other
-    shape on a CUDA tensor raises, naming them, before any launch."""
+    """The CUDA kernel has the (10, 10), (7, 2), (2, 2), (11, 10) and
+    (11, 2) instances; any other shape on a CUDA tensor raises, naming
+    them, before any launch."""
     with pytest.raises(NotImplementedError, match=r"\(10, 10\), \(7, 2\)"):
         tfu.check_instance(p, n_bands)
 
 
-@pytest.mark.parametrize("p,n_bands", [(10, 10), (7, 2)])
+@pytest.mark.parametrize("p,n_bands", [(10, 10), (7, 2), (2, 2), (11, 10),
+                                       (11, 2)])
 def test_supported_instances_pass_the_check(p, n_bands):
     tfu.check_instance(p, n_bands)
+
+
+def test_every_instance_is_dispatched_by_the_cuda_source():
+    """Each (p, n_bands) of INSTANCES has its case in the C dispatch of
+    csrc/fused_update.cu (launch and attributes share the list)."""
+    import re
+
+    from kafka_tpu_torch.core import _build
+
+    text = (_build.CSRC / "fused_update.cu").read_text()
+    listed = {tuple(int(v) for v in m) for m in re.findall(
+        r"^\s*X\((\d+), (\d+)\)", text, flags=re.M)}
+    assert listed == set(tfu.INSTANCES)
 
 
 def test_wrapper_refuses_other_devices():

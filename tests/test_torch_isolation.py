@@ -40,7 +40,28 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.telemetry.tracing, "
         "kafka_tpu_torch.telemetry.spans, kafka_tpu_torch.testing.fixtures, "
         "kafka_tpu_torch.obsops.identity, kafka_tpu_torch.cli, "
-        "kafka_tpu_torch.cli.run_synthetic\n"
+        "kafka_tpu_torch.cli.run_synthetic, kafka_tpu_torch.core, "
+        "kafka_tpu_torch.core.types, kafka_tpu_torch.engine.priors, "
+        "kafka_tpu_torch.obsops, kafka_tpu_torch.obsops.wcm, "
+        "kafka_tpu_torch.obsops.joint, kafka_tpu_torch.obsops.gp, "
+        "kafka_tpu_torch.obsops.gp_import, kafka_tpu_torch.obsops.mlp, "
+        "kafka_tpu_torch.obsops.protocol, kafka_tpu_torch.io.multi, "
+        "kafka_tpu_torch.testing\n"
+        "from kafka_tpu_torch import (BandBatch, GaussianState, "
+        "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
+        "from kafka_tpu_torch.core import *\n"
+        "from kafka_tpu_torch.core import (flat_to_pixel_major, "
+        "pixel_major_to_flat, block_diag_to_batched, blend_gaussians, "
+        "linear_solve)\n"
+        "from kafka_tpu_torch.io import (read_info, read_geotiff_window, "
+        "TiledTiffWriter, TiffInfo, CompositeObservations)\n"
+        "from kafka_tpu_torch.testing import (SyntheticObservations, "
+        "MemoryOutput, make_tip_problem, make_prosail_problem, "
+        "run_tip_engine, run_s2_engine, s2_observations, "
+        "joint_observations)\n"
+        "from kafka_tpu_torch.obsops import (WCMOperator, WCMAux, "
+        "ProsailJointOperator, WCMJointOperator, GPBankOperator, "
+        "MLPOperator, BandView, MappedStateModel)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')]\n"
         "print(bad)\n"
@@ -76,8 +97,10 @@ def _entry_points():
     from kafka_tpu_torch.cli import run_synthetic
     from kafka_tpu_torch.core.types import BandBatch
     from kafka_tpu_torch.engine import KalmanFilter, jrc_prior, sail_prior
-    from kafka_tpu_torch.obsops import TwoStreamOperator
+    from kafka_tpu_torch.engine import joint_prior, wcm_prior
+    from kafka_tpu_torch.obsops import TwoStreamOperator, fit_gp, fit_mlp
     from kafka_tpu_torch.testing.synthetic import (SyntheticObservations,
+                                                   joint_observations,
                                                    make_prosail_problem,
                                                    make_tip_problem,
                                                    run_s2_engine,
@@ -111,6 +134,13 @@ def _entry_points():
              "--outdir", os.devnull]),
         "run_synthetic.build_operator": lambda: run_synthetic.build_operator(
             "twostream", None),
+        "run_synthetic.build_operator wcm":
+            lambda: run_synthetic.build_operator("wcm", None),
+        "wcm_prior": lambda: wcm_prior(),
+        "joint_prior": lambda: joint_prior(),
+        "joint_observations": lambda: joint_observations([], [], None, 35.0),
+        "fit_gp": lambda: fit_gp(np.zeros((4, 2)), np.zeros(4)),
+        "fit_mlp": lambda: fit_mlp(lambda a: a, np.zeros((4, 2)), steps=1),
     }
 
 
@@ -119,7 +149,9 @@ def _entry_points():
      "make_tip_problem", "run_tip_engine", "jrc_prior", "tip_prior",
      "SyntheticObservations", "make_prosail_problem", "run_s2_engine",
      "s2_observations", "sail_prior", "run_synthetic.main",
-     "run_synthetic.build_operator"]))
+     "run_synthetic.build_operator", "run_synthetic.build_operator wcm",
+     "wcm_prior", "joint_prior", "joint_observations", "fit_gp",
+     "fit_mlp"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

@@ -101,7 +101,31 @@ one JSON line:
    read back bit-identical to a MemoryOutput copy; then kernel_update and
    faults_update at (2, 2) on a kept date.  The (7, 2) instance is timed
    on the TIP tile date's inputs (phase kernel_update, after
-   kernel_solve).
+   kernel_solve);
+15. cli_s2 — the torch ``run_s2`` driver as users run it
+   (``kafka_tpu_torch.cli.run_s2.main``, in-process, ``--config``
+   saved from ``default_config()`` with 1098 x 1098 chunks) over a
+   Sentinel-2 granule tree written on disk (2196 x 2196 px, uint16 DN,
+   four July 2017 dates, one per window) under phase main's land mask:
+   four chunks, each through the S2 reader, the SAIL prior, the engine
+   and the GeoTIFF writer, with restart markers.  Gates: 4 chunks run,
+   16 chunk-dates assimilated, fused-update launches at (10, 10) equal
+   to the chunks' iterations, every expected GeoTIFF present and finite,
+   the median LAI nearer the truth than the prior's, a second run that
+   skips every chunk and writes nothing, the port's mosaic equal to the
+   chunk rasters bit for bit; then kernel_update on a kept chunk date,
+   where 0 pixels may differ from the plain version.  Reduced: 4 of a
+   10980 x 10980 tile's 100 chunks, 4 dates;
+16. cli_modis — the torch ``run_modis`` driver over an MCD43 series
+   written on disk (the 2400 x 2400 tile, 4 dates 16 days apart, one per
+   window of the driver's own grid, ``period`` 1) under phase main's
+   land mask, the whole tile one chunk: one fused_gn launch per date,
+   every GeoTIFF present and finite, the median TeLAI nearer the truth
+   than the JRC prior's; then phase kernel on a kept date.  Reduced: 4
+   of the annual run's 23 windows.  Both driver phases print wall_s,
+   the per-chunk and per-date walls, reader seconds per date, pixel
+   steps/s, peak device bytes and their seconds; their files live in
+   ``build/chip_smoke_cli`` and are removed after.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -248,6 +272,20 @@ JOINT_KEEP = {(11, 2): 1, (11, 10): 2}
 #: the cli_wcm phase: the WCM driver over the cli tile, no checkpoint.
 CLI_WCM_ARGS = ("--operator", "wcm", "--days", "32", "--step", "4",
                 "--obs-every", "4")
+#: the cli_s2 phase: run_s2 over a 2 x 2-chunk S2 tile of 1098 x 1098
+#: chunks (the JAX harness's S2 chunk, tools/measure_baseline.py:204-207)
+#: on four July 2017 acquisitions, one per window of the Barrax grid; the
+#: fused update's inputs kept on this 0-based date of the run.
+CLI_S2_TILE = 2 * S2_TILE
+CLI_S2_DAYS = (4, 6, 8, 10)
+CLI_S2_KEEP_DATE = 1
+#: the cli_modis phase: run_modis over the MODIS tile, 4 MCD43 dates 16
+#: days apart from 2017-01-01 on the driver's grid, which ends at
+#: CLI_MODIS_END (4 windows of the annual 23); fused_gn inputs kept on
+#: this 0-based date.
+CLI_MODIS_DATES = 4
+CLI_MODIS_END = datetime.datetime(2017, 3, 6)
+CLI_MODIS_KEEP_DATE = 1
 #: the fused-update instances and the path each runs on.
 UPDATE_PATHS = {(10, 10): "main_s2", (7, 2): "reference_s2 (tip_rowloop)",
                 (2, 2): "cli_wcm", (11, 10): "main_joint",
@@ -2229,6 +2267,413 @@ def phase_cli_wcm(device, workdir: str, ny: int = TILE, nx: int = TILE,
     return rec, keeper.kept[(2, 2)]
 
 
+def chunk_rasters(chunks, grid, dates, params) -> set:
+    """The GeoTIFF names a chunked driver run writes: per chunk and per
+    window of ``grid`` a state and a sigma raster per parameter, and a QA
+    band for each window that holds one of ``dates``."""
+    from kafka_tpu_torch.core.time_grid import iterate_time_grid
+
+    observed = {ts for ts, located, _ in
+                iterate_time_grid(grid, dates, verbose=False) if located}
+    names = set()
+    for c in chunks:
+        prefix = f"{c.chunk_no:04x}"
+        for ts in grid[1:]:
+            tag = ts.strftime("A%Y%j")
+            names.update(f"{p}_{tag}_{prefix}{unc}.tif" for p in params
+                         for unc in ("", "_unc"))
+            if ts in observed:
+                names.add(f"solver_qa_{tag}_{prefix}.tif")
+    return names
+
+
+def chunk_prefix(name: str) -> str:
+    """The chunk prefix of an output name ``{param}_{A%Y%j}_{prefix}[_unc]
+    .tif``."""
+    return name[:-len(".tif")].removesuffix("_unc").rsplit("_", 1)[1]
+
+
+def folder_state(folder: str) -> dict:
+    """Every file of ``folder`` with its size and modification time."""
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        st = os.stat(os.path.join(folder, name))
+        out[name] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+class DriverProbe:
+    """Instruments one in-process run of a chunked driver: keeps each
+    chunk's KalmanFilter, each chunk's summary, the wall seconds of each
+    call to the reader class's ``get_observations``, and (with
+    ``keep_gn``) the fused Gauss-Newton kernel's inputs on that 0-based
+    date of the run.  Everything is put back on exit."""
+
+    def __init__(self, reader_cls, keep_gn=None):
+        self.reader_cls, self.keep_gn = reader_cls, keep_gn
+        self.filters, self.summaries, self.reads = [], [], []
+        self.kept_gn, self._gn_calls = {}, 0
+
+    def __enter__(self):
+        from kafka_tpu_torch.cli import drivers
+        from kafka_tpu_torch.core import solvers
+        from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+
+        self._drivers, self._solvers = drivers, solvers
+        real_kf, real_chunk = drivers.KalmanFilter, drivers.run_one_chunk
+        real_get = self._real_get = self.reader_cls.get_observations
+        self._real = (real_kf, real_chunk)
+
+        def make_kf(*args, **kwargs):
+            kf = real_kf(*args, **kwargs)
+            self.filters.append(kf)
+            return kf
+
+        def one_chunk(*args, **kwargs):
+            s = real_chunk(*args, **kwargs)
+            if s is not None:
+                self.summaries.append(s)
+            return s
+
+        def timed_get(reader, date, gather):
+            t0 = time.perf_counter()
+            try:
+                return real_get(reader, date, gather)
+            finally:
+                self.reads.append(time.perf_counter() - t0)
+
+        def keep_gn(*args, **kwargs):
+            if self._gn_calls == self.keep_gn:
+                self.kept_gn.update(zip(ROW_ARGS, args),
+                                    corrupt=kwargs.get("corrupt"))
+            self._gn_calls += 1
+            return fused_gn_rows(*args, **kwargs)
+
+        drivers.KalmanFilter, drivers.run_one_chunk = make_kf, one_chunk
+        self.reader_cls.get_observations = timed_get
+        if self.keep_gn is not None:
+            solvers.fused_gn_rows = keep_gn
+        return self
+
+    def __exit__(self, *exc):
+        from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+
+        self._drivers.KalmanFilter, self._drivers.run_one_chunk = self._real
+        self.reader_cls.get_observations = self._real_get
+        self._solvers.fused_gn_rows = fused_gn_rows
+
+    def dates(self) -> list:
+        return [r for kf in self.filters for r in kf.diagnostics_log]
+
+
+def run_driver(main_fn, argv) -> tuple:
+    """A driver's ``main`` in-process with its stdout captured and then
+    printed: (stats, the printed summary line parsed, seconds)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        stats = main_fn(list(argv))
+    seconds = time.perf_counter() - t0
+    print(printed.getvalue(), end="", flush=True)
+    return stats, json.loads(printed.getvalue().strip().splitlines()[-1]), \
+        seconds
+
+
+def raster_median(outdir: str, names, masks) -> float:
+    """Median of the rasters ``names`` over their ``masks`` pixels."""
+    from kafka_tpu_torch.io import read_geotiff
+
+    vals = [read_geotiff(os.path.join(outdir, n))[0][m]
+            for n, m in zip(names, masks)]
+    return float(np.median(np.concatenate(vals)))
+
+
+def phase_cli_s2(device, workdir: str, ny: int = CLI_S2_TILE,
+                 nx: int = CLI_S2_TILE, chunk: int = S2_TILE,
+                 seed: int = 0):
+    """The torch ``run_s2`` driver as users run it, in-process, over a
+    granule tree written on disk: ``make_s2_granule_tree`` (uint16 DN,
+    noise 0.002) over ny x nx px on the Barrax grid for CLI_S2_DAYS, the
+    seeded land mask as the state-mask GeoTIFF, ``default_config()`` with
+    chunk x chunk chunks saved as the run's ``--config``.  Each chunk runs
+    the Sentinel-2 reader, the SAIL prior, the engine (prefetch, fusion)
+    and the GeoTIFF writer; each Gauss-Newton iteration launches the fused
+    update at (10, 10).  Gates: every chunk run and every date
+    assimilated; launches equal to the chunks' summed iterations; every
+    expected GeoTIFF present and finite on the mask; the median LAI of the
+    last window nearer the truth than the SAIL prior's; a second ``main``
+    on the same arguments runs nothing and writes nothing; the port's
+    mosaic of the LAI rasters equal to the chunk rasters at their
+    offsets, bit for bit.  Returns the record and the fused update's
+    first-iteration inputs on the run's date CLI_S2_KEEP_DATE."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kafka_tpu_torch.cli import mosaic, run_s2
+    from kafka_tpu_torch.engine.priors import (PROSAIL_PARAMETER_LIST,
+                                               sail_prior_arrays)
+    from kafka_tpu_torch.io import get_chunks, read_geotiff, write_geotiff
+    from kafka_tpu_torch.io.sentinel2 import Sentinel2Observations
+    from kafka_tpu_torch.testing.fixtures import (DEFAULT_GEO,
+                                                  make_s2_granule_tree)
+
+    t_phase = time.perf_counter()
+    mask = land_mask(ny, nx, seed)
+    mask_path = os.path.join(workdir, "mask.tif")
+    write_geotiff(mask_path, mask.astype(np.uint8), DEFAULT_GEO)
+    data = os.path.join(workdir, "s2")
+    dates = [datetime.datetime(2017, 7, d) for d in CLI_S2_DAYS]
+    truth = make_s2_granule_tree(data, dates, ny=ny, nx=nx, geo=DEFAULT_GEO,
+                                 noise=0.002, seed=seed, dtype=np.uint16)
+    cfg = run_s2.default_config()
+    cfg.chunk_size = (chunk, chunk)
+    cfg_path = os.path.join(workdir, "run_s2.json")
+    cfg.save(cfg_path)
+    outdir = os.path.join(workdir, "out")
+    argv = ["--config", cfg_path, "--data-folder", data, "--state-mask",
+            mask_path, "--outdir", outdir, "--device", str(device)]
+    data_s = time.perf_counter() - t_phase
+    chunks = list(get_chunks(nx, ny, cfg.chunk_size))
+    grid = cfg.time_grid()
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with UpdateKeeper(device, {(10, 10): CLI_S2_KEEP_DATE}) as keeper, \
+            DriverProbe(Sentinel2Observations) as probe:
+        reset_launches()
+        stats, printed, _ = run_driver(run_s2.main, argv)
+        launches = launch_counts()
+    peak = keeper.run_peak()
+    failures = []
+    if printed != stats:
+        failures.append("the printed line is not the stats")
+    n = len(chunks)
+    if (stats["run"], stats["skipped"], stats["failed"],
+            stats["chunks_with_pixels"], stats["dates_assimilated"]) != \
+            (n, 0, 0, n, n * len(dates)):
+        failures.append(f"stats {stats}")
+    runs = probe.dates()
+    iterations = sum(r["n_iterations"] for r in runs)
+    by_inst = launches["fused_update_by_instance"]
+    if by_inst != {"10x10": iterations} or iterations == 0 or \
+            launches["fused_gn"] or launches["solve_rows"]:
+        failures.append(f"launches {launches} for {iterations} iterations")
+    if failures:  # the run itself failed: nothing further to check
+        emit({"phase": "cli_s2", "stats": stats, "kernel_launches": launches,
+              "failures": failures})
+        raise AssertionError("cli_s2: " + "; ".join(failures))
+
+    t0 = time.perf_counter()
+    expected = chunk_rasters(chunks, grid, dates, PROSAIL_PARAMETER_LIST)
+    written = {f for f in os.listdir(outdir) if f.endswith(".tif")}
+    if written != expected:
+        failures.append(f"{len(written)} GeoTIFFs written, "
+                        f"{len(expected)} expected: "
+                        f"{sorted(written ^ expected)[:4]}")
+    sub = {f"{c.chunk_no:04x}": mask[c.y0:c.y0 + c.ny_valid,
+                                     c.x0:c.x0 + c.nx_valid]
+           for c in chunks}
+    nonfinite = [name for name in sorted(written & expected)
+                 if not np.isfinite(read_geotiff(os.path.join(
+                     outdir, name))[0][sub[chunk_prefix(name)]]).all()]
+    if nonfinite:
+        failures.append(f"non-finite: {nonfinite[:4]}")
+    last = grid[-1].strftime("A%Y%j")
+    lai = raster_median(outdir, [f"lai_{last}_{p}.tif" for p in sub],
+                        list(sub.values()))
+    prior_lai = float(sail_prior_arrays()[0][6])
+    if not abs(lai - truth[6]) < abs(prior_lai - truth[6]):
+        failures.append(f"median LAI {lai} not nearer the truth "
+                        f"{truth[6]} than the prior's {prior_lai}")
+    check_s = time.perf_counter() - t0
+
+    # The restart: every chunk has its .done marker.
+    before = folder_state(outdir)
+    reset_launches()
+    again, _, again_s = run_driver(run_s2.main, argv)
+    again_launches = launch_counts()
+    if (again["run"], again["skipped"]) != (0, n) or \
+            folder_state(outdir) != before or \
+            again_launches["fused_update"]:
+        failures.append(f"restart ran {again} with {again_launches}")
+
+    # The port's mosaic of the LAI rasters against the chunks.
+    t0 = time.perf_counter()
+    mos_dir = os.path.join(workdir, "mosaic")
+    with contextlib.redirect_stdout(io.StringIO()):
+        mosaics = mosaic.main([outdir, "--param", "lai", "--like",
+                               mask_path, "--outdir", mos_dir])
+    mosaic_differ = []
+    for ts in grid[1:]:
+        tag = ts.strftime("A%Y%j")
+        mos, _ = read_geotiff(os.path.join(mos_dir, f"lai_{tag}.tif"))
+        for c in chunks:
+            part, _ = read_geotiff(os.path.join(
+                outdir, f"lai_{tag}_{c.chunk_no:04x}.tif"))
+            if mos[c.y0:c.y0 + c.ny_valid, c.x0:c.x0 + c.nx_valid] \
+                    .tobytes() != part.tobytes():
+                mosaic_differ.append(f"{tag}_{c.chunk_no:04x}")
+    if len(mosaics) != len(grid) - 1 or mosaic_differ:
+        failures.append(f"{len(mosaics)} mosaics; differing {mosaic_differ}")
+    mosaic_s = time.perf_counter() - t0
+    if (10, 10) not in keeper.kept:
+        failures.append(f"no fused update kept on date {CLI_S2_KEEP_DATE}")
+
+    n_valid = stats["pixels"]
+    rec = {
+        "phase": "cli_s2", "tile": [ny, nx], "chunk": list(cfg.chunk_size),
+        "chunks": n, "n_valid": n_valid, "dates": [str(d.date())
+                                                   for d in dates],
+        "reduced": {"chunks": f"{n} of a 10980 x 10980 tile's 100 "
+                              f"{chunk} x {chunk} chunks",
+                    "dates": f"{len(dates)} acquisitions of the Barrax "
+                             "grid's window"},
+        "stats": stats, "wall_s": stats["wall_s"],
+        "pixel_steps_per_s": n_valid * len(dates) / stats["wall_s"],
+        "chunk_wall_s": [s["wall_s"] for s in probe.summaries],
+        "date_wall_s": [r["wall_s"] for r in runs],
+        "reader_s_per_date": probe.reads,
+        "fused_per_date": [r.get("fused") for r in runs],
+        "kernel_launches": launches, "iterations": iterations,
+        "per_date": date_records(runs, keeper.peaks),
+        "peak_device_bytes": peak, "geotiffs": len(written),
+        "median_lai": {"last_window": lai, "truth": float(truth[6]),
+                       "prior": prior_lai},
+        "restart": {"stats": again, "seconds": again_s},
+        "mosaic": {"files": len(mosaics), "differing": len(mosaic_differ),
+                   "seconds": mosaic_s},
+        "seconds": {"data": data_s, "check": check_s,
+                    "phase": time.perf_counter() - t_phase},
+        "kept_date": CLI_S2_KEEP_DATE,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("cli_s2: " + "; ".join(failures))
+    return rec, keeper.kept[(10, 10)]
+
+
+def phase_cli_modis(device, workdir: str, ny: int = TILE, nx: int = TILE,
+                    seed: int = 0):
+    """The torch ``run_modis`` driver as users run it, in-process, over an
+    MCD43 series written on disk: ``make_mcd43_series`` (noise 0.001) over
+    the ny x nx tile for CLI_MODIS_DATES, 16 days apart on the driver's
+    own grid, the seeded land mask as the state mask,
+    ``default_config()`` with ``end`` CLI_MODIS_END and ``period`` 1 (the
+    files already sit on the grid: one per window), the whole tile one
+    chunk.  The two-stream state, the JRC initial prior and the
+    information_filter_lai propagator; each date is one launch of the
+    fused Gauss-Newton kernel.  Gates: one chunk, every date assimilated,
+    fused_gn launches equal to the dates, every expected GeoTIFF present
+    and finite on the mask, the median TeLAI of the last window nearer
+    the truth than the JRC prior's.  Returns the record and the kernel's
+    inputs on date CLI_MODIS_KEEP_DATE."""
+    import torch
+
+    from kafka_tpu_torch.cli import run_modis
+    from kafka_tpu_torch.engine.priors import TIP_PARAMETER_LIST, jrc_prior
+    from kafka_tpu_torch.io import get_chunks, read_geotiff, write_geotiff
+    from kafka_tpu_torch.io.modis import BHRObservations
+    from kafka_tpu_torch.testing.fixtures import (DEFAULT_GEO,
+                                                  make_mcd43_series)
+
+    t_phase = time.perf_counter()
+    mask = land_mask(ny, nx, seed)
+    mask_path = os.path.join(workdir, "mask.tif")
+    write_geotiff(mask_path, mask.astype(np.uint8), DEFAULT_GEO)
+    data = os.path.join(workdir, "mcd43")
+    os.makedirs(data)
+    dates = [datetime.datetime(2017, 1, 1) + datetime.timedelta(days=16 * i)
+             for i in range(CLI_MODIS_DATES)]
+    truth = make_mcd43_series(data, dates, ny=ny, nx=nx, geo=DEFAULT_GEO,
+                              noise=0.001, seed=seed)
+    cfg = run_modis.default_config()
+    cfg.end = CLI_MODIS_END
+    cfg.extra["period"] = 1
+    cfg.chunk_size = (nx, ny)
+    cfg_path = os.path.join(workdir, "run_modis.json")
+    cfg.save(cfg_path)
+    outdir = os.path.join(workdir, "out")
+    argv = ["--config", cfg_path, "--data-folder", data, "--state-mask",
+            mask_path, "--outdir", outdir, "--device", str(device)]
+    data_s = time.perf_counter() - t_phase
+    chunks = list(get_chunks(nx, ny, cfg.chunk_size))
+    grid = cfg.time_grid()
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with DriverProbe(BHRObservations, keep_gn=CLI_MODIS_KEEP_DATE) as probe:
+        reset_launches()
+        stats, printed, _ = run_driver(run_modis.main, argv)
+        launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    failures = []
+    if printed != stats:
+        failures.append("the printed line is not the stats")
+    if (stats["run"], stats["chunks_with_pixels"],
+            stats["dates_assimilated"]) != (1, 1, len(dates)):
+        failures.append(f"stats {stats}")
+    runs = probe.dates()
+    if launches["fused_gn"] != len(dates) or launches["fused_update"] or \
+            launches["solve_rows"]:
+        failures.append(f"launches {launches} for {len(dates)} dates")
+    if failures:  # the run itself failed: nothing further to check
+        emit({"phase": "cli_modis", "stats": stats,
+              "kernel_launches": launches, "failures": failures})
+        raise AssertionError("cli_modis: " + "; ".join(failures))
+    t0 = time.perf_counter()
+    expected = chunk_rasters(chunks, grid, dates, TIP_PARAMETER_LIST)
+    written = {f for f in os.listdir(outdir) if f.endswith(".tif")}
+    if written != expected:
+        failures.append(f"{len(written)} GeoTIFFs written, "
+                        f"{len(expected)} expected")
+    nonfinite = [name for name in sorted(written) if not np.isfinite(
+        read_geotiff(os.path.join(outdir, name))[0][mask]).all()]
+    if nonfinite:
+        failures.append(f"non-finite: {nonfinite[:4]}")
+    last = grid[-1].strftime("A%Y%j")
+    telai = raster_median(outdir, [f"TeLAI_{last}_0001.tif"], [mask])
+    prior_telai = float(jrc_prior("cpu").prior.mean[6])
+    if not abs(telai - truth[6]) < abs(prior_telai - truth[6]):
+        failures.append(f"median TeLAI {telai} not nearer the truth "
+                        f"{truth[6]} than the prior's {prior_telai}")
+    check_s = time.perf_counter() - t0
+    if not probe.kept_gn:
+        failures.append(f"no fused_gn call kept on date "
+                        f"{CLI_MODIS_KEEP_DATE}")
+    n_valid = stats["pixels"]
+    rec = {
+        "phase": "cli_modis", "tile": [ny, nx], "n_valid": n_valid,
+        "n_pad": probe.filters[0].gather.n_pad,
+        "dates": [str(d.date()) for d in dates],
+        "reduced": {"windows": f"{len(grid) - 1} of an annual run's 23 "
+                               "16-day windows"},
+        "stats": stats, "wall_s": stats["wall_s"],
+        "pixel_steps_per_s": n_valid * len(dates) / stats["wall_s"],
+        "chunk_wall_s": [s["wall_s"] for s in probe.summaries],
+        "date_wall_s": [r["wall_s"] for r in runs],
+        "reader_s_per_date": probe.reads,
+        "fused_per_date": [r.get("fused") for r in runs],
+        "kernel_launches": launches, "per_date": date_records(runs),
+        "peak_device_bytes": peak, "geotiffs": len(written),
+        "median_telai": {"last_window": telai, "truth": float(truth[6]),
+                         "prior": prior_telai},
+        "seconds": {"data": data_s, "check": check_s,
+                    "phase": time.perf_counter() - t_phase},
+        "kept_date": CLI_MODIS_KEEP_DATE,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("cli_modis: " + "; ".join(failures))
+    return rec, probe.kept_gn
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -2339,6 +2784,25 @@ def main() -> int:
                                            wcm_kept)
     phase_faults_update(device, wcm_kept)
     del wcm_kept
+    os.makedirs(workdir)
+    try:
+        s2_cli_rec, s2_cli_kept = phase_cli_s2(device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    s2_cli_upd = phase_kernel_update(device, "cli_s2_date (10, 10)",
+                                     s2_cli_kept)
+    del s2_cli_kept
+    if any(s2_cli_upd["pixels_differing_from_plain"].values()):
+        raise AssertionError("kernel_update (cli_s2_date): pixels differ "
+                             "from the plain version: "
+                             f"{s2_cli_upd['pixels_differing_from_plain']}")
+    os.makedirs(workdir)
+    try:
+        modis_rec, modis_kept = phase_cli_modis(device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    modis_kernel = phase_kernel(device, "cli_modis_date", modis_kept)
+    del modis_kept
     path_launches = {
         (10, 10): s2_rec["kernel_launches"]["fused_update"],
         (7, 2): ref_s2["tip_rowloop"]["launches"],
@@ -2383,7 +2847,14 @@ def main() -> int:
             trips_per_group=tile["trips_per_group"],
             geometry=tile["geometry"], **{"at_2^19": at(small)},
             paths={"main": main_rec["kernel_launches"],
-                   "cli": cli_rec["fused_gn_launches"]},
+                   "cli": cli_rec["fused_gn_launches"],
+                   "cli_modis": modis_rec["kernel_launches"]["fused_gn"]},
+            at_cli_modis_date={
+                **at(modis_kernel),
+                "path": "phase cli_modis: run_modis over the MCD43 tile",
+                "max_abs_err_vs_f64":
+                    modis_kernel["kernel_vs_f64"]["x"]["max"],
+                "trips_per_group": modis_kernel["trips_per_group"]},
             at_cli_fused_date={
                 **at(cli_kernel),
                 "path": "phase cli: run_synthetic --operator twostream, "
@@ -2400,7 +2871,13 @@ def main() -> int:
             paths={"main_s2": s2_rec["kernel_launches"]["fused_update"],
                    "main_joint": joint_rec["kernel_launches"]
                    ["fused_update"],
-                   "cli_wcm": wcm_rec["kernel_launches"]["fused_update"]},
+                   "cli_wcm": wcm_rec["kernel_launches"]["fused_update"],
+                   "cli_s2": s2_cli_rec["kernel_launches"]["fused_update"]},
+            at_cli_s2_date={
+                **at(s2_cli_upd),
+                "path": "phase cli_s2: run_s2 over four 1098 x 1098 chunks",
+                "pixels_differing_from_plain":
+                    s2_cli_upd["pixels_differing_from_plain"]},
             instances=update_instances),
         kernel_entry(
             "solve_rows", "cuda", "kafka_tpu_torch/csrc/solve_rows.cu",

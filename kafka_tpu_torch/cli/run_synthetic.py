@@ -46,7 +46,7 @@ from ..io import GeoTIFFOutput, read_geotiff
 from ..obsops import IdentityOperator, TwoStreamOperator, WCMAux, WCMOperator
 from ..testing.fixtures import DEFAULT_GEO, make_pivot_mask
 from ..testing.synthetic import SyntheticObservations
-from . import add_telemetry_arg, make_console
+from . import add_device_arg, add_telemetry_arg, make_console
 
 #: flags of the JAX driver this port does not run yet, with the ROADMAP
 #: slice that brings each: (flag, is it set?, slice).
@@ -171,9 +171,7 @@ def parse_args(argv=None):
     ap.add_argument("--scan-window", type=int, default=8,
                     help="temporal fusion: windows per fused block "
                          "(1 = unfused)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: CUDA; 'cpu' runs on the "
-                         "CPU)")
+    add_device_arg(ap)
     add_telemetry_arg(ap)
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)

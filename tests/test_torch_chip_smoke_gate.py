@@ -341,3 +341,86 @@ def test_phase_cli_wcm_fails_without_kernel_launches(tmp_path):
     """On the CPU nothing launches a kernel: the launch gate refuses."""
     with pytest.raises(AssertionError, match="launches"):
         cs.phase_cli_wcm(torch.device("cpu"), str(tmp_path), ny=32, nx=32)
+
+
+# --- the real-sensor driver phases ------------------------------------------
+
+@pytest.fixture
+def counted_gn_plain(monkeypatch):
+    """The fused Gauss-Newton kernel's plain version counted as a launch,
+    so phase_cli_modis's launch gate can be rehearsed on the CPU."""
+    from kafka_tpu_torch.core import fused_gn as fg
+
+    real = fg.fused_gn_raw_plain
+
+    def counted(*args, **kwargs):
+        fg.fused_gn_rows.launches += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fg, "fused_gn_raw_plain", counted)
+
+
+def test_chunk_rasters_is_the_drivers_file_set():
+    """The expected names: two chunks, a three-window grid with dates in
+    the first two windows (half-open on the right) and none in the last."""
+    import datetime
+
+    from kafka_tpu_torch.io import get_chunks
+
+    d = datetime.datetime
+    grid = [d(2017, 7, 3), d(2017, 7, 5), d(2017, 7, 7), d(2017, 7, 9)]
+    names = cs.chunk_rasters(list(get_chunks(8, 4, (4, 4))), grid,
+                             [d(2017, 7, 3), d(2017, 7, 6)], ("a", "b"))
+    assert len(names) == 2 * (3 * 4 + 2)
+    assert "solver_qa_A2017186_0001.tif" in names      # Jul 5: holds Jul 3
+    assert "solver_qa_A2017190_0002.tif" not in names  # Jul 9: no date
+    assert "b_A2017190_0002_unc.tif" in names
+    assert {cs.chunk_prefix(n) for n in names} == {"0001", "0002"}
+
+
+def test_phase_cli_s2_rehearsal(tmp_path, counted_plain):
+    """phase_cli_s2 at 96 x 96 px in four 48 x 48 chunks on the CPU: every
+    chunk-date assimilated, (10, 10) launches equal to the iterations,
+    the expected GeoTIFFs, the restart that skips every chunk, the mosaic
+    equal to the chunks; then the kernel phase on the kept date."""
+    rec, kept = cs.phase_cli_s2(torch.device("cpu"), str(tmp_path), ny=96,
+                                nx=96, chunk=48)
+    assert rec["chunks"] == 4 and rec["stats"]["dates_assimilated"] == 16
+    assert rec["kernel_launches"]["fused_update_by_instance"] == \
+        {"10x10": rec["iterations"]}
+    assert rec["geotiffs"] == 4 * (4 * 20 + 4)
+    assert (rec["restart"]["stats"]["run"],
+            rec["restart"]["stats"]["skipped"]) == (0, 4)
+    assert rec["mosaic"] == {**rec["mosaic"], "files": 4, "differing": 0}
+    assert len(rec["reader_s_per_date"]) == 16
+    assert kept["xf_rows"].shape[0] == 10
+    _held(kept)
+
+
+def test_phase_cli_s2_fails_without_kernel_launches(tmp_path):
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_cli_s2(torch.device("cpu"), str(tmp_path), ny=64, nx=64,
+                        chunk=64)
+
+
+def test_phase_cli_modis_rehearsal(tmp_path, counted_gn_plain):
+    """phase_cli_modis at 64 x 64 px on the CPU: one chunk, 4 dates, one
+    fused_gn launch per date, 4 x 15 GeoTIFFs, TeLAI toward the truth,
+    and the kernel's inputs kept on the kept date."""
+    rec, kept = cs.phase_cli_modis(torch.device("cpu"), str(tmp_path),
+                                   ny=64, nx=64)
+    assert rec["stats"]["dates_assimilated"] == cs.CLI_MODIS_DATES == 4
+    assert rec["kernel_launches"]["fused_gn"] == 4
+    assert rec["geotiffs"] == 4 * 15
+    m = rec["median_telai"]
+    assert abs(m["last_window"] - m["truth"]) < abs(m["prior"] - m["truth"])
+    # phase kernel itself reads the compiled kernel's geometry (the card
+    # only); its inputs are the fused_gn call's, on the kept date.
+    assert set(kept) == {*cs.ROW_ARGS, "corrupt"}
+    assert kept["xf_rows"].shape == (7, rec["n_pad"])
+
+
+def test_phase_cli_modis_fails_without_kernel_launches(tmp_path):
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_cli_modis(torch.device("cpu"), str(tmp_path), ny=64,
+                           nx=64)

@@ -46,7 +46,15 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.obsops.joint, kafka_tpu_torch.obsops.gp, "
         "kafka_tpu_torch.obsops.gp_import, kafka_tpu_torch.obsops.mlp, "
         "kafka_tpu_torch.obsops.protocol, kafka_tpu_torch.io.multi, "
-        "kafka_tpu_torch.testing\n"
+        "kafka_tpu_torch.testing, kafka_tpu_torch.io.tiling, "
+        "kafka_tpu_torch.io.warp, kafka_tpu_torch.io.roi, "
+        "kafka_tpu_torch.io.sentinel2, kafka_tpu_torch.io.modis, "
+        "kafka_tpu_torch.io.sentinel1, kafka_tpu_torch.engine.config, "
+        "kafka_tpu_torch.shard, kafka_tpu_torch.shard.scheduler, "
+        "kafka_tpu_torch.cli.drivers, kafka_tpu_torch.cli.run_s2, "
+        "kafka_tpu_torch.cli.run_modis, kafka_tpu_torch.cli.run_s1, "
+        "kafka_tpu_torch.cli.run_joint, kafka_tpu_torch.cli.mosaic, "
+        "kafka_tpu_torch.cli.import_emulators\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"
@@ -54,7 +62,15 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "pixel_major_to_flat, block_diag_to_batched, blend_gaussians, "
         "linear_solve)\n"
         "from kafka_tpu_torch.io import (read_info, read_geotiff_window, "
-        "TiledTiffWriter, TiffInfo, CompositeObservations)\n"
+        "TiledTiffWriter, TiffInfo, CompositeObservations, "
+        "BHRObservations, SynergyKernels, S1Observations, "
+        "Sentinel2Observations, find_nearest_geometry, "
+        "geometry_bank_aux_builder, parse_s2_xml, Chunk, "
+        "chunk_geotransform, chunk_mask, get_chunks, from_lonlat, "
+        "grid_mapping, lonlat_to_utm, reproject_raster, resample, "
+        "to_lonlat, utm_to_lonlat)\n"
+        "from kafka_tpu_torch.testing.fixtures import (make_s2_granule_tree, "
+        "make_mcd43_series, make_s1_series, make_synergy_series)\n"
         "from kafka_tpu_torch.testing import (SyntheticObservations, "
         "MemoryOutput, make_tip_problem, make_prosail_problem, "
         "run_tip_engine, run_s2_engine, s2_observations, "
@@ -107,9 +123,27 @@ def _entry_points():
                                                    run_tip_engine,
                                                    s2_observations)
 
+    from kafka_tpu_torch.cli import (drivers, run_joint, run_modis, run_s1,
+                                     run_s2)
+    from kafka_tpu_torch.io import (BHRObservations, S1Observations,
+                                    Sentinel2Observations, SynergyKernels)
+
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
+    geo = ((0.0, 10.0, 0.0, 0.0, 0.0, -10.0), 32630)
     return {
+        "run_s2.main": lambda: run_s2.main(["--outdir", os.devnull]),
+        "run_modis.main": lambda: run_modis.main(["--outdir", os.devnull]),
+        "run_s1.main": lambda: run_s1.main(["--outdir", os.devnull]),
+        "run_joint.main": lambda: run_joint.main(
+            ["--outdir", os.devnull, "--s1-folder", os.devnull]),
+        "run_config": lambda: drivers.run_config(run_s2.default_config()),
+        "RunConfig.make_prior": lambda: run_s2.default_config().make_prior(),
+        "Sentinel2Observations": lambda: Sentinel2Observations(
+            str(REPO), op, geo),
+        "BHRObservations": lambda: BHRObservations(str(REPO), op),
+        "SynergyKernels": lambda: SynergyKernels(str(REPO), op),
+        "S1Observations": lambda: S1Observations(str(REPO), geo),
         "resolve_device": lambda: resolve_device(None),
         "KalmanFilter": lambda: KalmanFilter(None, None, np.ones((2, 2)),
                                              ["a"] * 7),
@@ -151,7 +185,10 @@ def _entry_points():
      "s2_observations", "sail_prior", "run_synthetic.main",
      "run_synthetic.build_operator", "run_synthetic.build_operator wcm",
      "wcm_prior", "joint_prior", "joint_observations", "fit_gp",
-     "fit_mlp"]))
+     "fit_mlp", "run_s2.main", "run_modis.main", "run_s1.main",
+     "run_joint.main", "run_config", "RunConfig.make_prior",
+     "Sentinel2Observations", "BHRObservations", "SynergyKernels",
+     "S1Observations"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

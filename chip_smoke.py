@@ -4,7 +4,7 @@
 
 Needs one CUDA device; exits non-zero without one, and without the
 kafka_tpu_torch package beside it.  Imports neither JAX nor kafka_tpu.
-The three kernels (csrc/fused_gn.cu, fused_update.cu with its five
+The three kernels (csrc/fused_gn.cu, fused_update.cu with its nine
 (p, bands) instances, solve_rows.cu) are built at the start, one nvcc
 each, in parallel.  Phases, each printing
 one JSON line:
@@ -125,7 +125,43 @@ one JSON line:
    of the annual run's 23 windows.  Both driver phases print wall_s,
    the per-chunk and per-date walls, reader seconds per date, pixel
    steps/s, peak device bytes and their seconds; their files live in
-   ``build/chip_smoke_cli`` and are removed after.
+   ``build/chip_smoke_cli`` and are removed after;
+17. cli_mod09 — the torch ``run_mod09`` driver over a MOD09GA tree
+   written on disk (the 2400 x 2400 500 m tile, its 1 km QA and angle
+   rasters, 8 daily dates from 2017-06-01) under phase main's land mask
+   in four 1200 x 1200 chunks: the 21-parameter Ross-Li kernel-weight
+   state on the dense large-p solve (torch.linalg Cholesky) under the
+   exact information filter.  Gates: 4 chunks and 32 chunk-dates run, 0
+   hand-kernel launches, every GeoTIFF present and finite on the mask,
+   the median b1_iso of the last window within 0.02 of the truth, a
+   restart that skips all 4 chunks and writes nothing, the first chunk
+   run alone unfused equal to the fused run bit for bit; the dense
+   update split into assembly, Cholesky and triangular solves on a kept
+   chunk date, and the propagation.  Reduced: 8 of the config's 30
+   days, 1200 x 1200 chunks instead of 256 x 256;
+18. per_pixel — phase main's tile run with per_pixel_convergence: (7, 2)
+   fused-update launches equal the iterations, the converged fraction
+   and its gauge equal the frozen mask's mean, held to the plain loop
+   (use_pallas False) as phase reference holds its runs; the first date
+   again in the engine's default linearisation blocks, its wall
+   recorded; then kernel_update on a kept iteration's inputs (0 pixels
+   may differ);
+19. band_seq — one window of the tile with band_sequential: (7, 1)
+   launches equal the per-band iterations, no block fused, held to the
+   plain loop; kernel_update and faults_update at (7, 1) on kept
+   inputs;
+20. band_seq_fleet — one window each of the WCM, S2 and joint states
+   with band_sequential on a 512 x 512 tile: launches at (2, 1),
+   (10, 1) and (11, 1) equal each run's per-band iterations, no block
+   fused, outputs finite; kernel_update at each instance on a kept
+   iteration's inputs (0 pixels may differ) and on seeded 2^19-px rows
+   by the float64 rule;
+21. hessian — one tile date with hessian_correction (one fused_gn
+   launch, then the correction and the eigenvalue floor): A finite,
+   every pixel at or above the floor, the correction on 4096 sampled
+   pixels within 1e-4 of a float64 torch.func evaluation, untouched
+   pixels' A equal to A - C bit for bit; the ms of the Hessian and of
+   the batched eigh.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -230,6 +266,10 @@ S2_TILE = 1098
 KERNELS = ("fused_gn", "fused_update", "solve_rows")
 #: kernel inputs kept from this main-path date (0-based).
 KEEP_DATE = 1
+#: the MODIS tile run's time grid and acquisition days (days from
+#: 2021-06-01): 4 windows, 6 dates.
+TIP_GRID_DAYS = (0, 16, 32, 48)
+TIP_OBS_DAYS = (3, 10, 19, 26, 35, 42)
 #: positional arguments of the solver's fused_gn_rows call.
 ROW_ARGS = ("lin_rows", "y", "r_inv", "mask_f", "xf_rows", "pf_rows", "tol",
             "min_iterations", "max_iterations", "relaxation",
@@ -289,7 +329,40 @@ CLI_MODIS_KEEP_DATE = 1
 #: the fused-update instances and the path each runs on.
 UPDATE_PATHS = {(10, 10): "main_s2", (7, 2): "reference_s2 (tip_rowloop)",
                 (2, 2): "cli_wcm", (11, 10): "main_joint",
-                (11, 2): "main_joint"}
+                (11, 2): "main_joint", (7, 1): "band_seq",
+                (2, 1): "band_seq_fleet (WCM)", (10, 1): "band_seq_fleet (S2)",
+                (11, 1): "band_seq_fleet (joint)"}
+#: the cli_mod09 phase: run_mod09 over the 2400 x 2400 MOD09GA tile (the
+#: 1 km QA and angle grid is 1200 x 1200), CLI_MOD09_DATES daily dates
+#: from 2017-06-01 on the driver's daily grid cut to CLI_MOD09_END (its
+#: windows are [t, t + 1 day), so one date per window), in
+#: CLI_MOD09_CHUNK x CLI_MOD09_CHUNK chunks; the dense update's inputs
+#: are kept on this 0-based date of the run.
+CLI_MOD09_DATES = 8
+CLI_MOD09_END = datetime.datetime(2017, 6, 9)
+CLI_MOD09_CHUNK = 1200
+CLI_MOD09_KEEP_DATE = 1
+#: the median b1_iso of the last window within this of the truth (the
+#: JAX driver test's budget, tests/test_drivers.py:228-231).
+MOD09_ISO_GATE = 0.02
+#: phase per_pixel keeps the (7, 2) fused update's inputs on this date.
+PER_PIXEL_KEEP_DATE = 1
+#: phases per_pixel and band_seq linearise the tile in one block (the
+#: ``linearize_block`` solver option; the same values as the engine's
+#: default ENGINE_BLOCK-px blocks): per block, the eager torch.func
+#: linearisation pays its launches again (phase per_pixel times one
+#: linearisation of the tile both ways).
+ONE_BLOCK = 1 << 30
+ENGINE_BLOCK = 262144
+#: phase band_seq_fleet's all-valid tile side: one window each of the
+#: WCM, S2 and joint states in band-sequential mode (its time is the
+#: eager per-band linearisation's dispatch, which hardly grows with the
+#: tile up to one ENGINE_BLOCK).
+BAND_SEQ_FLEET_TILE = 512
+#: the hessian phase's sampled pixels and the relative budget of the
+#: correction against a float64 evaluation.
+HESSIAN_SAMPLE = 4096
+HESSIAN_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -690,9 +763,11 @@ def date_records(dates, peaks=None) -> list:
         "date": str(r["date"].date()), "n_iterations": r["n_iterations"],
         "convergence_norm": r["convergence_norm"],
         "chi2_per_band": r["chi2_per_band"],
-        "cap_bailouts": r["cap_bailouts"],
-        "damped_recovered": r["damped_recovered"],
-        "quarantined": r["quarantined"], "nonfinite": r["nonfinite"],
+        # None in the modes without solve health (per-pixel, dense).
+        "cap_bailouts": r.get("cap_bailouts"),
+        "damped_recovered": r.get("damped_recovered"),
+        "quarantined": r.get("quarantined"), "nonfinite": r.get("nonfinite"),
+        "converged_frac": r.get("converged_frac"),
         "wall_s": r["wall_s"], "fused": r.get("fused"),
     } for r in dates]
     for rec, peak in zip(recs, peaks or ()):
@@ -713,41 +788,13 @@ def land_mask(ny: int, nx: int, seed: int, land_frac: float = 0.8):
 
 
 def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
-    """KalmanFilter.run over a full MODIS tile through the kernel.
-    Returns the phase record and the kernel's inputs on date KEEP_DATE."""
+    """KalmanFilter.run over a full MODIS tile through the kernel
+    (``tip_tile_run``: 4 windows, 6 dates).  Returns the phase record and
+    the kernel's inputs on date KEEP_DATE."""
     import torch
 
     from kafka_tpu_torch.core import solvers
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
-    from kafka_tpu_torch.core.propagators import tip_prior_arrays
-    from kafka_tpu_torch.engine import (TIP_PARAMETER_LIST, KalmanFilter,
-                                        jrc_prior)
-    from kafka_tpu_torch.obsops import TwoStreamOperator
-    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
-                                                   SyntheticObservations)
-
-    def day(i):
-        return datetime.datetime(2021, 6, 1) + datetime.timedelta(days=i)
-
-    t_setup = time.perf_counter()
-    mask = land_mask(ny, nx, seed)
-    rng = np.random.default_rng(seed)
-    mean_h = tip_prior_arrays()[0]
-    truth = np.clip(mean_h + rng.normal(0, 0.05, (ny, nx, 7)),
-                    0.05, 0.95).astype(np.float32)
-    grid_days = (0, 16, 32, 48)
-    obs_days = (3, 10, 19, 26, 35, 42)
-    op = TwoStreamOperator()
-    obs = SyntheticObservations(
-        [day(i) for i in obs_days], op, lambda date: truth, sigma=0.005,
-        mask_prob=0.1, seed=seed, device=device,
-    )
-    out = MemoryOutput()
-    prior = jrc_prior(device)
-    kf = KalmanFilter(obs, out, mask, TIP_PARAMETER_LIST,
-                      state_propagation=None, prior=prior, device=device)
-    x0, p_inv0 = prior.process_prior(None, kf.gather)
-    setup_s = time.perf_counter() - t_setup
 
     # Keep the kernel's inputs on one date: the solver's call goes
     # through unchanged, the tensors are only referenced (nothing
@@ -767,18 +814,17 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     try:
         fused_gn_rows.launches = 0
         t0 = time.perf_counter()
-        kf.run([day(i) for i in grid_days], x0, None, p_inv0)
-        _sync(device)
-        run_s = time.perf_counter() - t0
+        kf, out, run_s = tip_tile_run(device, ny, nx, seed)
+        setup_s = time.perf_counter() - t0 - run_s
         launches = fused_gn_rows.launches
     finally:
         solvers.fused_gn_rows = fused_gn_rows
     dates = kf.diagnostics_log
-    finite = outputs_finite(out, mask.shape)
+    finite = outputs_finite(out, kf.gather.mask.shape)
     per_date = date_records(dates)
     rec = {
         "phase": "main", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
-        "n_pad": kf.gather.n_pad, "windows": len(grid_days) - 1,
+        "n_pad": kf.gather.n_pad, "windows": len(TIP_GRID_DAYS) - 1,
         "dates_assimilated": len(dates), "kernel_launches": launches,
         "outputs_finite": finite, "setup_s": setup_s, "run_s": run_s,
         "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
@@ -787,7 +833,7 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
         "per_date": per_date,
     }
     emit(rec)
-    if launches != len(dates) or len(dates) != len(obs_days):
+    if launches != len(dates) or len(dates) != len(TIP_OBS_DAYS):
         raise AssertionError(
             f"{launches} kernel launches for {len(dates)} dates")
     if not finite:
@@ -1935,17 +1981,23 @@ UPDATE_ROW_NAMES = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
 
 
 class UpdateKeeper:
-    """Wraps ``solvers.iterated_solve`` and ``solvers.fused_update_rows``
-    for one run: counts the dates, records each date's peak device bytes
-    (and the peak between dates, ``run_peak``), and keeps (clones) the
-    fused update's inputs of the first iteration on date
-    ``keep[(p, n_bands)]`` of each instance.  The solver's calls go
-    through unchanged."""
+    """Wraps ``solvers.iterated_solve``, ``solvers.kalman_update`` and the
+    fused update's two routes (``_launch_cuda`` and
+    ``fused_update_raw_plain``, which ``fused_update_rows`` reaches by
+    device) for one run: counts the dates, records each date's peak
+    device bytes (and the peak between dates, ``run_peak``) and its
+    per-pixel frozen mask (``frozen``, on the host; None without
+    per-pixel convergence), and keeps (clones) the fused update's inputs
+    of the first iteration on date ``keep[(p, n_bands)]`` of each
+    instance, and ``kalman_update``'s inputs (the dense update's, at
+    p > 16) of the first iteration on date ``keep["dense"]``.  The
+    solver's calls go through unchanged."""
 
     def __init__(self, device, keep: dict):
         self.device, self.keep = device, dict(keep)
         self.date = -1
         self.kept, self.peaks, self._between = {}, [], []
+        self.frozen = []
 
     def __enter__(self):
         import torch
@@ -1954,8 +2006,9 @@ class UpdateKeeper:
         from kafka_tpu_torch.core import solvers
 
         self._solvers, self._fu = solvers, fu_mod
-        real_solve = self._real_solve = solvers.iterated_solve
-        real_update = fu_mod.fused_update_rows
+        self._real = (solvers.iterated_solve, solvers.kalman_update,
+                      fu_mod._launch_cuda, fu_mod.fused_update_raw_plain)
+        real_solve, real_kalman = self._real[:2]
         cuda = self.device.type == "cuda"
 
         def date_wrap(*args, **kwargs):
@@ -1970,22 +2023,43 @@ class UpdateKeeper:
             _sync(self.device)
             self.peaks.append(torch.cuda.max_memory_allocated(self.device)
                               if cuda else None)
+            mask = res[2].converged_mask
+            self.frozen.append(None if mask is None else mask.cpu())
             return res
 
-        def keep(*args, **kwargs):
-            inst = (args[6].shape[0], args[1].shape[0])
-            if self.keep.get(inst) == self.date and inst not in self.kept:
-                self.kept[inst] = {k: v.clone() for k, v in
-                                   zip(UPDATE_ROW_NAMES, args)}
-            return real_update(*args, **kwargs)
+        def keep_kalman(lin, obs, x_lin, x_f, p_inv, *args, **kwargs):
+            if self.keep.get("dense") == self.date and \
+                    "dense" not in self.kept:
+                self.kept["dense"] = dict(
+                    lin=lin, obs=obs, x_lin=x_lin.clone(), x_f=x_f.clone(),
+                    p_inv=p_inv.clone())
+            return real_kalman(lin, obs, x_lin, x_f, p_inv, *args,
+                               **kwargs)
 
-        solvers.iterated_solve = date_wrap
-        solvers.fused_update_rows = keep
+        def keeping(route):
+            def keep(*args):
+                inst = (args[6].shape[0], args[1].shape[0])
+                if self.keep.get(inst) == self.date and \
+                        inst not in self.kept:
+                    rows = {k: None if v is None else v.clone()
+                            for k, v in zip(UPDATE_ROW_NAMES, args)}
+                    # kalman_update's fused step passes no escalation row.
+                    if rows.get("esc_row") is None:
+                        rows["esc_row"] = torch.zeros_like(rows["h0"][:1])
+                    self.kept[inst] = rows
+                return route(*args)
+            return keep
+
+        solvers.iterated_solve, solvers.kalman_update = date_wrap, \
+            keep_kalman
+        fu_mod._launch_cuda = keeping(self._real[2])
+        fu_mod.fused_update_raw_plain = keeping(self._real[3])
         return self
 
     def __exit__(self, *exc):
-        self._solvers.iterated_solve = self._real_solve
-        self._solvers.fused_update_rows = self._fu.fused_update_rows
+        (self._solvers.iterated_solve, self._solvers.kalman_update,
+         self._fu._launch_cuda, self._fu.fused_update_raw_plain) = \
+            self._real
 
     def run_peak(self):
         """Peak device bytes over the whole run (None off the card); read
@@ -2674,6 +2748,696 @@ def phase_cli_modis(device, workdir: str, ny: int = TILE, nx: int = TILE,
     return rec, probe.kept_gn
 
 
+def read_rasters(paths) -> list:
+    """The first band of each GeoTIFF, read on a thread per core (the
+    codec releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kafka_tpu_torch.io import read_geotiff
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return list(pool.map(lambda p: read_geotiff(p)[0], paths))
+
+
+def tip_tile_run(device, ny: int, nx: int, seed: int, solver_options=None,
+                 grid_days=TIP_GRID_DAYS, obs_days=TIP_OBS_DAYS,
+                 **filter_kwargs):
+    """The MODIS tile configuration of phase main and the phases after
+    it (the seeded land mask, the truth around the TIP prior, jrc_prior,
+    prior-only advance, sigma 0.005 with 10 % masked) run by KalmanFilter
+    with ``solver_options`` and ``filter_kwargs``.  Returns the filter,
+    its MemoryOutput and the run's seconds (set-up excluded)."""
+    from kafka_tpu_torch.core.propagators import tip_prior_arrays
+    from kafka_tpu_torch.engine import (TIP_PARAMETER_LIST, KalmanFilter,
+                                        jrc_prior)
+    from kafka_tpu_torch.obsops import TwoStreamOperator
+    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
+                                                   SyntheticObservations)
+
+    def day(i):
+        return datetime.datetime(2021, 6, 1) + datetime.timedelta(days=i)
+
+    mask = land_mask(ny, nx, seed)
+    rng = np.random.default_rng(seed)
+    truth = np.clip(tip_prior_arrays()[0] + rng.normal(0, 0.05, (ny, nx, 7)),
+                    0.05, 0.95).astype(np.float32)
+    obs = SyntheticObservations(
+        [day(i) for i in obs_days], TwoStreamOperator(), lambda date: truth,
+        sigma=0.005, mask_prob=0.1, seed=seed, device=device)
+    out = MemoryOutput()
+    prior = jrc_prior(device)
+    kf = KalmanFilter(obs, out, mask, TIP_PARAMETER_LIST,
+                      state_propagation=None, prior=prior,
+                      solver_options=solver_options, device=device,
+                      **filter_kwargs)
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    t0 = time.perf_counter()
+    kf.run([day(i) for i in grid_days], x0, None, p_inv0)
+    _sync(device)
+    return kf, out, time.perf_counter() - t0
+
+
+def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
+    """phase main's tile run (6 dates) with per_pixel_convergence (and
+    ONE_BLOCK linearisation): every Gauss-Newton step is one
+    kalman_update, the fused update at (7, 2).
+    Gates: (7, 2) launches equal the summed iterations, nothing else
+    launched; outputs finite; each date's converged_frac and the
+    kafka_engine_converged_frac gauge equal the frozen mask's mean over
+    the valid pixels; the run held to the same run with use_pallas False
+    by phase reference's rule (max |difference| <= X_ATOL, QA equal).
+    Then the first window's first date alone in the engine's default
+    linearisation blocks (as users run it): its wall beside the
+    ONE_BLOCK run's, its launches equal to its iterations.
+    Returns the record and the fused update's first-iteration inputs on
+    date PER_PIXEL_KEEP_DATE."""
+    import torch
+
+    from kafka_tpu_torch.core import solvers
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+
+    opts = {"per_pixel_convergence": True, "linearize_block": ONE_BLOCK}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with use(MetricsRegistry()) as reg, \
+            UpdateKeeper(device, {(7, 2): PER_PIXEL_KEEP_DATE}) as keeper:
+        reset_launches()
+        kf, out, run_s = tip_tile_run(device, ny, nx, seed, opts)
+        launches = launch_counts()
+        peak = keeper.run_peak()
+    gauge = reg.gauge("kafka_engine_converged_frac").value()
+    dates = kf.diagnostics_log
+    n_valid = kf.gather.n_valid
+    iterations = sum(r["n_iterations"] for r in dates)
+    if launches["fused_update_by_instance"] != {"7x2": iterations} or \
+            launches["fused_gn"] or launches["solve_rows"]:
+        raise AssertionError(f"per_pixel: launches {launches} for "
+                             f"{iterations} iterations")
+    failures = []
+    finite = outputs_finite(out, kf.gather.mask.shape)
+    if not finite:
+        failures.append("non-finite output raster")
+    fracs = [float(m[:n_valid].float().mean()) for m in keeper.frozen
+             if m is not None]
+    if len(fracs) != len(dates) or \
+            [r.get("converged_frac") for r in dates] != fracs or \
+            gauge != fracs[-1]:
+        recorded = [r.get("converged_frac") for r in dates]
+        failures.append(f"converged_frac {recorded}, frozen means {fracs}, "
+                        f"gauge {gauge}")
+    kf_p, out_p, plain_s = tip_tile_run(
+        device, ny, nx, seed, {**opts, "use_pallas": False})
+    vs_plain = compare_runs(out, out_p)
+    if vs_plain["max_abs_err"] > X_ATOL or not vs_plain["solver_qa_equal"]:
+        failures.append(f"against the plain loop: {vs_plain}")
+    # The window's first date as users run it: the engine's default
+    # ENGINE_BLOCK-px linearisation blocks.
+    reset_launches()
+    kf_d, out_d, default_s = tip_tile_run(
+        device, ny, nx, seed, {"per_pixel_convergence": True},
+        grid_days=TIP_GRID_DAYS[:2], obs_days=TIP_OBS_DAYS[:1])
+    launches_d = launch_counts()
+    iters_d = sum(r["n_iterations"] for r in kf_d.diagnostics_log)
+    finite_d = outputs_finite(out_d, kf_d.gather.mask.shape)
+    if launches_d["fused_update_by_instance"] != {"7x2": iters_d} or \
+            not finite_d:
+        failures.append(f"default blocks: launches {launches_d} for "
+                        f"{iters_d} iterations, finite {finite_d}")
+    default_blocks = {
+        "run_s": default_s, "iterations": iters_d,
+        "date_wall_s": [r["wall_s"] for r in kf_d.diagnostics_log],
+        "one_block_date_wall_s": dates[0]["wall_s"],
+        "one_block_iterations": dates[0]["n_iterations"]}
+    del kf_d, out_d
+    # One linearisation of the kept state, in the engine's blocks and in
+    # one block (the two give the same values).
+    linearize = kf.observations.operator.linearize
+    x_kept = keeper.kept[(7, 2)]["xl_rows"].T.contiguous() \
+        if (7, 2) in keeper.kept else None
+    lin_ms = None if x_kept is None else {
+        "engine_blocks": time_ms(lambda: solvers._blocked_linearize(
+            linearize, None, x_kept, ENGINE_BLOCK), device, 2),
+        "one_block": time_ms(lambda: linearize(None, x_kept), device, 2)}
+    rec = {
+        "phase": "per_pixel", "tile": [ny, nx], "n_valid": n_valid,
+        "n_pad": kf.gather.n_pad, "dates_assimilated": len(dates),
+        "kernel_launches": launches, "iterations": iterations,
+        "iterations_plain": [r["n_iterations"] for r in
+                             kf_p.diagnostics_log],
+        "converged_frac": fracs, "gauge": gauge, "outputs_finite": finite,
+        "vs_plain": vs_plain, "run_s": run_s, "plain_run_s": plain_s,
+        "linearize_ms": lin_ms, "default_blocks": default_blocks,
+        "per_date": date_records(dates, keeper.peaks),
+        "peak_device_bytes": peak, "kept_date": PER_PIXEL_KEEP_DATE,
+    }
+    emit(rec)
+    if (7, 2) not in keeper.kept:
+        failures.append(f"no (7, 2) update kept on date "
+                        f"{PER_PIXEL_KEEP_DATE}")
+    if failures:
+        raise AssertionError("per_pixel: " + "; ".join(failures))
+    return rec, keeper.kept[(7, 2)]
+
+
+def phase_band_seq(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
+    """One window of phase main's tile (two acquisitions) with
+    band_sequential (and ONE_BLOCK linearisation): each date's two bands
+    assimilated one after the
+    other through BandViews, each band's loop the row loop around the
+    fused update at (7, 1).  Gates: (7, 1) launches equal the per-band
+    iterations summed, nothing else launched; no block fused; outputs
+    finite; held to the same run with use_pallas False by phase
+    reference's rule.  Returns the record and the (7, 1) update's
+    first-iteration inputs on the first date."""
+    import torch
+
+    window = {"grid_days": (0, 16), "obs_days": (3, 10)}
+    opts = {"linearize_block": ONE_BLOCK}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with UpdateKeeper(device, {(7, 1): 0}) as keeper:
+        reset_launches()
+        kf, out, run_s = tip_tile_run(device, ny, nx, seed, opts,
+                                      band_sequential=True, **window)
+        launches = launch_counts()
+        peak = keeper.run_peak()
+    dates = kf.diagnostics_log
+    iterations = sum(r["n_iterations"] for r in dates)
+    if launches["fused_update_by_instance"] != {"7x1": iterations} or \
+            launches["fused_gn"] or launches["solve_rows"]:
+        raise AssertionError(f"band_seq: launches {launches} for "
+                             f"{iterations} iterations")
+    failures = []
+    if any(r.get("fused") for r in dates) or len(dates) != 2:
+        failures.append(f"records {[r.get('fused') for r in dates]}")
+    finite = outputs_finite(out, kf.gather.mask.shape)
+    if not finite:
+        failures.append("non-finite output raster")
+    kf_p, out_p, plain_s = tip_tile_run(
+        device, ny, nx, seed, {**opts, "use_pallas": False},
+        band_sequential=True, **window)
+    vs_plain = compare_runs(out, out_p)
+    if vs_plain["max_abs_err"] > X_ATOL or not vs_plain["solver_qa_equal"]:
+        failures.append(f"against the plain loop: {vs_plain}")
+    rec = {
+        "phase": "band_seq", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
+        "n_pad": kf.gather.n_pad, "dates_assimilated": len(dates),
+        "kernel_launches": launches, "iterations": iterations,
+        "iterations_plain": [r["n_iterations"] for r in
+                             kf_p.diagnostics_log],
+        "outputs_finite": finite, "vs_plain": vs_plain, "run_s": run_s,
+        "plain_run_s": plain_s,
+        "per_date": date_records(dates, keeper.peaks),
+        "peak_device_bytes": peak,
+    }
+    emit(rec)
+    if (7, 1) not in keeper.kept:
+        failures.append("no (7, 1) update kept on the first date")
+    if failures:
+        raise AssertionError("band_seq: " + "; ".join(failures))
+    return rec, keeper.kept[(7, 1)]
+
+
+def band_seq_fleet_runs(device, ny: int, nx: int, seed: int):
+    """The WCM, S2 and joint configurations, one window each in
+    band_sequential mode, on an all-valid ny x nx tile: yields ``(name,
+    (p, 1) instance, filter, grid, x0, p_inv0)``.  WCM: the torch
+    run_synthetic --operator wcm configuration (23 degree incidence,
+    sigma 0.002, the exact information propagator, Q 1e-3, relaxation
+    0.5), one date.  S2: phase main_s2's (the SAIL prior, s2_truth,
+    sigma 0.005, relaxation 0.7), one date.  Joint: phase main_joint's
+    (joint_prior, JOINT_Q, per-pixel incidence in JOINT_THETA), its
+    first S2 date and first S1 date, one window each."""
+    from kafka_tpu_torch.cli.run_synthetic import build_operator
+    from kafka_tpu_torch.core.propagators import propagate_information_filter
+    from kafka_tpu_torch.engine import (JOINT_PARAMETER_LIST,
+                                        PROSAIL_PARAMETER_LIST, KalmanFilter,
+                                        joint_prior, sail_prior)
+    from kafka_tpu_torch.testing import joint_observations, joint_truth
+    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
+                                                   SyntheticObservations,
+                                                   s2_observations)
+
+    def day(i):
+        return datetime.datetime(2017, 7, 1) + datetime.timedelta(days=i)
+
+    mask = np.ones((ny, nx), bool)
+
+    def filt(obs, params, propagator, prior, q, relaxation):
+        kf = KalmanFilter(obs, MemoryOutput(), mask, params,
+                          state_propagation=propagator, prior=prior,
+                          solver_options={"relaxation": relaxation},
+                          band_sequential=True, device=device)
+        kf.set_trajectory_model()
+        kf.set_trajectory_uncertainty(np.asarray(q, np.float32))
+        return kf
+
+    op, params, prior, truth_val, aux_fn, sigma = build_operator("wcm",
+                                                                 device)
+    truth = np.broadcast_to(truth_val, (ny, nx, 2)).astype(np.float32)
+    obs = SyntheticObservations([day(1)], op, lambda d: truth, sigma=sigma,
+                                aux_fn=aux_fn, mask_prob=0.1, seed=seed,
+                                device=device)
+    kf = filt(obs, params, propagate_information_filter, None,
+              np.full(2, 1e-3), 0.5)
+    yield ("wcm", (2, 1), kf, [day(0), day(4)],
+           *prior.process_prior(None, kf.gather))
+
+    truth = s2_truth(ny, nx, seed)
+    obs = s2_observations([day(3)], lambda d: truth,
+                          angles=(30.5, 5.0, -50.0), sigma=0.005,
+                          mask_prob=0.1, seed=seed, device=device)
+    prior = sail_prior(device)
+    kf = filt(obs, PROSAIL_PARAMETER_LIST, None, prior, np.zeros(10), 0.7)
+    yield ("s2", (10, 1), kf, [day(2), day(4)],
+           *prior.process_prior(None, kf.gather))
+
+    truth = joint_truth(mask.shape)
+    theta = np.random.default_rng(seed).uniform(
+        *JOINT_THETA, size=(ny, nx)).astype(np.float32)
+    s2_dates, s1_dates, grid = joint_dates()
+    obs = joint_observations(s2_dates[:1], s1_dates[:1], lambda d: truth,
+                             theta, s2_angles=(30.5, 5.0, -50.0),
+                             s1_sigma=JOINT_S1_SIGMA, device=device)
+    kf = filt(obs, JOINT_PARAMETER_LIST, propagate_information_filter, None,
+              JOINT_Q, 0.7)
+    yield ("joint", (11, 1), kf, grid[:3],
+           *joint_prior(device).process_prior(None, kf.gather))
+
+
+def phase_band_seq_fleet(device, ny: int = BAND_SEQ_FLEET_TILE,
+                         nx: int = BAND_SEQ_FLEET_TILE, seed: int = 0):
+    """The band-sequential mode on the WCM, S2 and joint states
+    (``band_seq_fleet_runs``), each band's loop the row loop around the
+    fused update at (2, 1), (10, 1) and (11, 1).  Gates per
+    configuration: that instance's launches equal the per-band
+    iterations summed, nothing else launched; no block fused; every
+    date assimilated; outputs finite.  Returns the record and each
+    instance's first-iteration inputs on the first date."""
+    import torch
+
+    recs, kept = {}, {}
+    failures = []
+    for name, inst, kf, grid, x0, p_inv0 in band_seq_fleet_runs(
+            device, ny, nx, seed):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with UpdateKeeper(device, {inst: 0}) as keeper:
+            reset_launches()
+            t0 = time.perf_counter()
+            kf.run(grid, x0, None, p_inv0)
+            _sync(device)
+            run_s = time.perf_counter() - t0
+            launches = launch_counts()
+            peak = keeper.run_peak()
+        dates = kf.diagnostics_log
+        iterations = sum(r["n_iterations"] for r in dates)
+        key = f"{inst[0]}x{inst[1]}"
+        if launches["fused_update_by_instance"] != {key: iterations} or \
+                launches["fused_gn"] or launches["solve_rows"]:
+            raise AssertionError(f"band_seq_fleet ({name}): launches "
+                                 f"{launches} for {iterations} iterations")
+        finite = outputs_finite(kf.output, kf.gather.mask.shape)
+        if any(r.get("fused") for r in dates) or \
+                len(dates) != len(grid) - 1 or not finite:
+            failures.append(f"{name}: fused {[r.get('fused') for r in dates]}"
+                            f", finite {finite}")
+        if inst in keeper.kept:
+            kept[inst] = keeper.kept[inst]
+        else:
+            failures.append(f"{name}: no {inst} update kept")
+        recs[name] = {
+            "instance": key, "n_valid": kf.gather.n_valid,
+            "n_pad": kf.gather.n_pad, "dates_assimilated": len(dates),
+            "kernel_launches": launches, "iterations": iterations,
+            "outputs_finite": finite, "run_s": run_s,
+            "per_date": date_records(dates, keeper.peaks),
+            "peak_device_bytes": peak}
+        del kf
+    rec = {"phase": "band_seq_fleet", "tile": [ny, nx], "runs": recs}
+    emit(rec)
+    if failures:
+        raise AssertionError("band_seq_fleet: " + "; ".join(failures))
+    return rec, kept
+
+
+def seeded_update_rows(p: int, nb: int, n: int, device, seed: int) -> dict:
+    """``n`` seeded fused-update problems at (p, nb) in row layout:
+    standard normal Jacobians, h0 and y, weights in [0.5, 2], 70 % of the
+    entries observed (NaN y under the mask), x_lin near x_f, prior
+    information M M^T + 3 I, no escalation."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g)
+
+    mask = torch.rand(nb, n, generator=g) > 0.3
+    x_f = normal(p, n)
+    m = normal(n, p, p)
+    p_inv = m @ m.mT + 3.0 * torch.eye(p)
+    rows = dict(
+        jac_rows=normal(nb * p, n), h0=normal(nb, n),
+        y=torch.where(mask, normal(nb, n), float("nan")),
+        w=torch.where(mask, 0.5 + 1.5 * torch.rand(nb, n, generator=g), 0.0),
+        m=mask.float(), xl_rows=x_f + 0.1 * normal(p, n), xf_rows=x_f,
+        pf_rows=torch.stack([p_inv[:, i, j] for i in range(p)
+                             for j in range(i + 1)]),
+        esc_row=torch.zeros(1, n))
+    return {k: v.to(device).contiguous() for k, v in rows.items()}
+
+
+def phase_hessian(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
+    """One date of phase main's tile with hessian_correction: one
+    fused_gn launch, then the second-order correction C (torch.func
+    forward over reverse of the two-stream forward) and the eigenvalue
+    floor.  Gates: one fused_gn launch; A finite; every valid pixel's
+    smallest eigenvalue (float64) at least the floor, less the float32
+    rounding of the rebuild (4 ulps of the largest); C on HESSIAN_SAMPLE
+    sampled pixels within HESSIAN_RTOL of a float64 torch.func
+    evaluation (relative to the pixel's largest entry); the pixels the
+    floor leaves alone keep A - C bit for bit.  Prints the ms of the
+    correction and of the batched eigh on the tile."""
+    import torch
+
+    from kafka_tpu_torch.core import hessian as hess_mod
+    from kafka_tpu_torch.core import solvers
+    from kafka_tpu_torch.core.linalg import EIGH_BLOCK, eigh_blocked
+
+    seen = {}
+    real_corr, real_floor = hess_mod.hessian_correction, \
+        solvers.eigenvalue_floor
+
+    def keep_corr(fwd, x, r_inv, inn, mask):
+        c = real_corr(fwd, x, r_inv, inn, mask)
+        seen.update(fwd=fwd, x=x, r_inv=r_inv, inn=inn, mask=mask, c=c)
+        return c
+
+    def keep_floor(a):
+        out = real_floor(a)
+        seen.update(a_in=a, a_out=out)
+        return out
+
+    hess_mod.hessian_correction = keep_corr
+    solvers.eigenvalue_floor = keep_floor
+    try:
+        reset_launches()
+        kf, out, run_s = tip_tile_run(device, ny, nx, seed, None,
+                                      hessian_correction=True,
+                                      grid_days=(0, 16), obs_days=(3,))
+        launches = launch_counts()
+    finally:
+        hess_mod.hessian_correction = real_corr
+        solvers.eigenvalue_floor = real_floor
+    if launches["fused_gn"] != 1 or launches["fused_update"] or \
+            launches["solve_rows"] or "a_out" not in seen:
+        raise AssertionError(f"hessian: launches {launches} for one date, "
+                             f"correction run: {'a_out' in seen}")
+    failures = []
+    n_valid = kf.gather.n_valid
+    a_in, a_out, c = seen["a_in"], seen["a_out"], seen["c"]
+    finite = bool(torch.isfinite(a_out).all())
+    # The floor's own decision, recomputed: eigh is deterministic.
+    w = eigh_blocked(a_in)[0]
+    floor = 1e-6 * torch.clamp(w[:, -1:].abs(), min=1e-3)
+    bad = w[:, 0] < floor[:, 0]
+    healthy_same = bool((a_out[~bad].view(torch.int32)
+                         == a_in[~bad].view(torch.int32)).all())
+    w64 = eigh_blocked(a_out[:n_valid].double())[0]
+    w_max = w64[:, -1].abs()
+    floor64 = 1e-6 * torch.clamp(w_max, min=1e-3)
+    slack = 4 * float(np.finfo(np.float32).eps) * w_max
+    below = int((w64[:, 0] < floor64 - slack).sum())
+    idx = torch.as_tensor(np.random.default_rng(seed).choice(
+        n_valid, min(HESSIAN_SAMPLE, n_valid), replace=False),
+        device=device)
+    c64 = hess_mod.hessian_correction(
+        seen["fwd"], seen["x"][idx].double(), seen["r_inv"][:, idx].double(),
+        seen["inn"][:, idx].double(), seen["mask"][:, idx])
+    scale = c64.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    rel = ((c[idx].double() - c64).abs().amax(dim=(1, 2)) / scale)
+    # Timing on the date's inputs: the correction, and eigh on the tile.
+    hess_ms = time_ms(lambda: hess_mod.hessian_correction(
+        seen["fwd"], seen["x"], seen["r_inv"], seen["inn"], seen["mask"]),
+        device, 2)
+    eigh_ms = time_ms(lambda: eigh_blocked(a_in), device, 2)
+    floor_ms = time_ms(lambda: solvers.eigenvalue_floor(a_in), device, 2)
+    # Why eigh_blocked slices: one batched eigh call at EIGH_BLOCK and at
+    # twice that many seeded SPD matrices (recorded, not gated).
+    eigh_batches = {}
+    for n_mat in (EIGH_BLOCK, 2 * EIGH_BLOCK):
+        g = torch.Generator(device="cpu").manual_seed(n_mat)
+        m = torch.randn(n_mat, 7, 7, generator=g).to(device)
+        try:
+            torch.linalg.eigh(m @ m.mT + torch.eye(7, device=device))
+            _sync(device)
+            eigh_batches[n_mat] = "ok"
+        except RuntimeError as exc:
+            eigh_batches[n_mat] = str(exc)[:80]
+    rec = {
+        "phase": "hessian", "tile": [ny, nx], "n_valid": n_valid,
+        "n_pad": kf.gather.n_pad, "kernel_launches": launches,
+        "a_finite": finite, "pixels_floored": int(bad.sum()),
+        "healthy_a_equal_a_minus_c": healthy_same,
+        "pixels_below_floor": below,
+        "correction_vs_f64": {"sampled": int(idx.numel()),
+                              **quantile_summary(rel.float())},
+        "correction_max_abs": float(c.abs().max()),
+        "hessian_ms": hess_ms, "eigh_ms": eigh_ms,
+        "eigenvalue_floor_ms": floor_ms, "eigh_batches": eigh_batches,
+        "run_s": run_s,
+        "per_date": date_records(kf.diagnostics_log),
+    }
+    emit(rec)
+    if not finite:
+        failures.append("non-finite A")
+    if below:
+        failures.append(f"{below} pixels below the eigenvalue floor")
+    if not healthy_same:
+        failures.append("a pixel the floor leaves alone changed")
+    if float(rel.max()) > HESSIAN_RTOL:
+        failures.append(f"correction off float64 by {float(rel.max())}")
+    if failures:
+        raise AssertionError("hessian: " + "; ".join(failures))
+    return rec
+
+
+def dense_update_split(device, kept: dict, reps: int = 3) -> dict:
+    """Milliseconds of the dense update's parts on kept inputs: the
+    assembly (build_normal_equations), the factor (cholesky_dense, and
+    the bare cholesky_ex inside it), the two triangular solves, and one
+    exact information-filter propagation of the kept P^-1 (Q = 0)."""
+    import torch
+
+    from kafka_tpu_torch.core import linalg, propagators, solvers
+
+    lin, obs = kept["lin"], kept["obs"]
+    x_lin, x_f, p_inv = kept["x_lin"], kept["x_f"], kept["p_inv"]
+    p = x_f.shape[-1]
+    a, b = solvers.build_normal_equations(lin, obs, x_lin, x_f, p_inv)
+    chol = linalg.cholesky_dense(a)
+    eye = torch.eye(p, dtype=torch.float32, device=device)
+    q0 = torch.zeros(p, dtype=torch.float32, device=device)
+    out = {
+        "assembly_ms": time_ms(lambda: solvers.build_normal_equations(
+            lin, obs, x_lin, x_f, p_inv), device, reps),
+        "cholesky_dense_ms": time_ms(lambda: linalg.cholesky_dense(a),
+                                     device, reps),
+        "cholesky_ex_ms": time_ms(lambda: torch.linalg.cholesky_ex(a),
+                                  device, reps),
+        "triangular_solves_ms": time_ms(
+            lambda: linalg._solve_chol_dense(chol, b[..., None]), device,
+            reps),
+        "propagation_ms": time_ms(
+            lambda: propagators.propagate_information_filter(
+                x_f, None, p_inv, eye, q0), device, reps),
+        "nonfinite_pixels": int((~torch.isfinite(chol).all(dim=(1, 2)))
+                                .sum()),
+    }
+    del a, b, chol
+    return out
+
+
+def phase_cli_mod09(device, workdir: str, ny: int = TILE, nx: int = TILE,
+                    chunk: int = CLI_MOD09_CHUNK, seed: int = 0):
+    """The torch ``run_mod09`` driver as users run it, in-process, over a
+    MOD09GA granule tree written on disk: ``make_mod09_granules`` (noise
+    0.002) over the ny x nx 500 m tile (the 1 km QA and angle rasters at
+    half that) for CLI_MOD09_DATES daily dates, phase main's land mask as
+    the state mask, ``default_config()`` with ``end`` CLI_MOD09_END and
+    chunk x chunk chunks.  The 21-parameter Ross-Li kernel-weight state
+    takes the dense large-p solve (torch.linalg) under the exact
+    information filter: no hand kernel.  Gates: every chunk run and
+    every date assimilated; 0 kernel launches; every expected GeoTIFF
+    present and finite on the mask; the median b1_iso of the last window
+    within MOD09_ISO_GATE of the truth; a second ``main`` that skips
+    every chunk and writes nothing; the first chunk run alone unfused
+    (scan_window 1) equal to the fused run bit for bit.  Prints the
+    dense update split into its parts on a kept chunk date."""
+    import torch
+
+    from kafka_tpu_torch.cli import run_mod09
+    from kafka_tpu_torch.engine.priors import (KERNEL_PARAMETER_LIST,
+                                               kernels_prior_arrays)
+    from kafka_tpu_torch.io import get_chunks, write_geotiff
+    from kafka_tpu_torch.io.mod09 import MOD09Observations
+    from kafka_tpu_torch.testing.fixtures import (DEFAULT_GEO,
+                                                  make_mod09_granules)
+
+    t_phase = time.perf_counter()
+    mask = land_mask(ny, nx, seed)
+    mask_path = os.path.join(workdir, "mask.tif")
+    write_geotiff(mask_path, mask.astype(np.uint8), DEFAULT_GEO)
+    data = os.path.join(workdir, "mod09")
+    dates = [datetime.datetime(2017, 6, 1) + datetime.timedelta(days=i)
+             for i in range(CLI_MOD09_DATES)]
+    truth = make_mod09_granules(data, dates, ny=ny // 2, nx=nx // 2,
+                                geo=DEFAULT_GEO, noise=0.002, seed=seed)
+    cfg = run_mod09.default_config()
+    cfg.end = CLI_MOD09_END
+    cfg.chunk_size = (chunk, chunk)
+    cfg_path = os.path.join(workdir, "run_mod09.json")
+    cfg.save(cfg_path)
+    outdir = os.path.join(workdir, "out")
+    argv = ["--config", cfg_path, "--data-folder", data, "--state-mask",
+            mask_path, "--outdir", outdir, "--device", str(device)]
+    data_s = time.perf_counter() - t_phase
+    chunks = list(get_chunks(nx, ny, cfg.chunk_size))
+    grid = cfg.time_grid()
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with DriverProbe(MOD09Observations) as probe, \
+            UpdateKeeper(device, {"dense": CLI_MOD09_KEEP_DATE}) as keeper:
+        reset_launches()
+        stats, printed, _ = run_driver(run_mod09.main, argv)
+        launches = launch_counts()
+    peak = keeper.run_peak()
+    failures = []
+    if printed != stats:
+        failures.append("the printed line is not the stats")
+    n = len(chunks)
+    if (stats["run"], stats["skipped"], stats["failed"],
+            stats["chunks_with_pixels"], stats["dates_assimilated"]) != \
+            (n, 0, 0, n, n * len(dates)):
+        failures.append(f"stats {stats}")
+    if launches["fused_gn"] or launches["fused_update"] or \
+            launches["solve_rows"]:
+        failures.append(f"hand-kernel launches {launches} on the dense "
+                        "path")
+    if failures:  # the run itself failed: nothing further to check
+        emit({"phase": "cli_mod09", "stats": stats,
+              "kernel_launches": launches, "failures": failures})
+        raise AssertionError("cli_mod09: " + "; ".join(failures))
+    runs = probe.dates()
+
+    t0 = time.perf_counter()
+    # No solve health on the dense path: no QA band.
+    expected = {f for f in chunk_rasters(chunks, grid, dates,
+                                         KERNEL_PARAMETER_LIST)
+                if not f.startswith("solver_qa_")}
+    written = {f for f in os.listdir(outdir) if f.endswith(".tif")}
+    if written != expected:
+        failures.append(f"{len(written)} GeoTIFFs written, "
+                        f"{len(expected)} expected: "
+                        f"{sorted(written ^ expected)[:4]}")
+    sub = {f"{c.chunk_no:04x}": mask[c.y0:c.y0 + c.ny_valid,
+                                     c.x0:c.x0 + c.nx_valid]
+           for c in chunks}
+    names = sorted(written & expected)
+    nonfinite = [name for name, arr in zip(names, read_rasters(
+        [os.path.join(outdir, name) for name in names]))
+        if not np.isfinite(arr[sub[chunk_prefix(name)]]).all()]
+    if nonfinite:
+        failures.append(f"non-finite: {nonfinite[:4]}")
+    last = grid[-1].strftime("A%Y%j")
+    iso = raster_median(outdir, [f"b1_iso_{last}_{p}.tif" for p in sub],
+                        list(sub.values()))
+    if not abs(iso - truth[0]) < MOD09_ISO_GATE:
+        failures.append(f"median b1_iso {iso}, truth {truth[0]}")
+    check_s = time.perf_counter() - t0
+
+    # The restart: every chunk has its .done marker.
+    before = folder_state(outdir)
+    reset_launches()
+    again, _, again_s = run_driver(run_mod09.main, argv)
+    if (again["run"], again["skipped"]) != (0, n) or \
+            folder_state(outdir) != before:
+        failures.append(f"restart ran {again}")
+
+    # The first chunk alone, unfused: its rasters equal the fused run's.
+    t0 = time.perf_counter()
+    first = chunks[0]
+    mask1 = np.zeros_like(mask)
+    sl = (slice(first.y0, first.y0 + first.ny_valid),
+          slice(first.x0, first.x0 + first.nx_valid))
+    mask1[sl] = mask[sl]
+    mask1_path = os.path.join(workdir, "mask_first_chunk.tif")
+    write_geotiff(mask1_path, mask1.astype(np.uint8), DEFAULT_GEO)
+    cfg.scan_window = 1
+    cfg1_path = os.path.join(workdir, "run_mod09_unfused.json")
+    cfg.save(cfg1_path)
+    out1 = os.path.join(workdir, "out_unfused")
+    one, _, _ = run_driver(run_mod09.main, [
+        "--config", cfg1_path, "--data-folder", data, "--state-mask",
+        mask1_path, "--outdir", out1, "--device", str(device)])
+    prefix = f"{first.chunk_no:04x}"
+    mine = sorted(f for f in os.listdir(out1) if f.endswith(".tif"))
+    differ = [f for f, a, b in zip(
+        mine, read_rasters([os.path.join(out1, f) for f in mine]),
+        read_rasters([os.path.join(outdir, f) for f in mine]))
+        if a.tobytes() != b.tobytes()]
+    if one["chunks_with_pixels"] != 1 or not mine or differ or \
+            any(chunk_prefix(f) != prefix for f in mine):
+        failures.append(f"unfused first chunk: {one}, {len(mine)} files, "
+                        f"differing {differ[:4]}")
+    unfused_s = time.perf_counter() - t0
+    dense = keeper.kept.pop("dense", None)
+    split = {} if dense is None else dense_update_split(device, dense)
+    if dense is None:
+        failures.append(f"no dense update kept on date "
+                        f"{CLI_MOD09_KEEP_DATE}")
+    del dense
+
+    n_valid = stats["pixels"]
+    iters = [r["n_iterations"] for r in runs]
+    rec = {
+        "phase": "cli_mod09", "tile": [ny, nx], "chunk": list(cfg.chunk_size),
+        "chunks": n, "n_valid": n_valid, "p": len(KERNEL_PARAMETER_LIST),
+        "dates": [str(d.date()) for d in dates],
+        "reduced": {"dates": f"{len(dates)} of the config's 30 daily "
+                             "dates",
+                    "chunk": f"{chunk} x {chunk} instead of the default "
+                             "256 x 256"},
+        "stats": stats, "wall_s": stats["wall_s"],
+        "pixel_steps_per_s": n_valid * len(dates) / stats["wall_s"],
+        "chunk_wall_s": [s["wall_s"] for s in probe.summaries],
+        "date_wall_s": [r["wall_s"] for r in runs],
+        "reader_s_per_date": probe.reads,
+        "fused_per_date": [r.get("fused") for r in runs],
+        "iterations_per_date": iters,
+        "kernel_launches": launches, "peak_device_bytes": peak,
+        "geotiffs": len(written),
+        "median_b1_iso": {"last_window": iso, "truth": float(truth[0]),
+                          "prior": float(kernels_prior_arrays()[0][0])},
+        "dense_update_split": {**split, "updates_per_date":
+                               iters[CLI_MOD09_KEEP_DATE]
+                               if len(iters) > CLI_MOD09_KEEP_DATE else None},
+        "restart": {"stats": again, "seconds": again_s},
+        "unfused_first_chunk": {"files": len(mine), "differing": len(differ),
+                                "seconds": unfused_s},
+        "seconds": {"data": data_s, "check": check_s,
+                    "phase": time.perf_counter() - t_phase},
+        "kept_date": CLI_MOD09_KEEP_DATE,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("cli_mod09: " + "; ".join(failures))
+    return rec
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -2803,6 +3567,35 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     modis_kernel = phase_kernel(device, "cli_modis_date", modis_kept)
     del modis_kept
+    os.makedirs(workdir)
+    try:
+        phase_cli_mod09(device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    pp_rec, pp_kept = phase_per_pixel(device)
+    pp_upd = phase_kernel_update(device, "per_pixel_date (7, 2)", pp_kept)
+    del pp_kept
+    bs_rec, bs_kept = phase_band_seq(device)
+    upd_recs[(7, 1)] = phase_kernel_update(device, "band_seq_date (7, 1)",
+                                           bs_kept)
+    phase_faults_update(device, bs_kept)
+    del bs_kept
+    fleet_rec, fleet_kept = phase_band_seq_fleet(device)
+    fleet_upd = {}
+    for inst in ((2, 1), (10, 1), (11, 1)):
+        fleet_upd[inst] = phase_kernel_update(
+            device, f"band_seq_fleet_date {inst}", fleet_kept.pop(inst))
+        upd_recs[inst] = phase_kernel_update(
+            device, f"2^19 {inst}",
+            seeded_update_rows(*inst, 2 ** 19, device, seed=100 * inst[0]))
+    for label, r in (("per_pixel", pp_upd), ("band_seq", upd_recs[(7, 1)]),
+                     *((f"band_seq_fleet {inst}", r)
+                       for inst, r in fleet_upd.items())):
+        if any(r["pixels_differing_from_plain"].values()):
+            raise AssertionError(
+                f"kernel_update ({label}): pixels differ from the plain "
+                f"version: {r['pixels_differing_from_plain']}")
+    hess_rec = phase_hessian(device)
     path_launches = {
         (10, 10): s2_rec["kernel_launches"]["fused_update"],
         (7, 2): ref_s2["tip_rowloop"]["launches"],
@@ -2811,7 +3604,11 @@ def main() -> int:
         (11, 10): joint_rec["kernel_launches"]["fused_update_by_instance"]
         ["11x10"],
         (11, 2): joint_rec["kernel_launches"]["fused_update_by_instance"]
-        ["11x2"]}
+        ["11x2"],
+        (7, 1): bs_rec["kernel_launches"]["fused_update_by_instance"]["7x1"],
+        **{inst: fleet_rec["runs"][name]["kernel_launches"]["fused_update"]
+           for inst, name in (((2, 1), "wcm"), ((10, 1), "s2"),
+                              ((11, 1), "joint"))}}
     update_instances = {}
     for inst in fused_update.INSTANCES:
         attr = fused_update.kernel_attributes(*inst)
@@ -2823,6 +3620,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"]["x"],
             "registers": attr["registers"],
             "spill_bytes": attr["local_bytes"]}
+        if inst in fleet_upd:
+            r = fleet_upd[inst]
+            update_instances[f"{inst[0]}x{inst[1]}"]["at_path_date"] = {
+                **{k: r[k] for k in ("case", "n_pix", "ms", "plain_ms",
+                                     "bound_ms")},
+                "pixels_differing_from_plain":
+                    r["pixels_differing_from_plain"]}
     print(smi, flush=True)
 
     def at(rec):
@@ -2848,7 +3652,8 @@ def main() -> int:
             geometry=tile["geometry"], **{"at_2^19": at(small)},
             paths={"main": main_rec["kernel_launches"],
                    "cli": cli_rec["fused_gn_launches"],
-                   "cli_modis": modis_rec["kernel_launches"]["fused_gn"]},
+                   "cli_modis": modis_rec["kernel_launches"]["fused_gn"],
+                   "hessian": hess_rec["kernel_launches"]["fused_gn"]},
             at_cli_modis_date={
                 **at(modis_kernel),
                 "path": "phase cli_modis: run_modis over the MCD43 tile",
@@ -2872,7 +3677,18 @@ def main() -> int:
                    "main_joint": joint_rec["kernel_launches"]
                    ["fused_update"],
                    "cli_wcm": wcm_rec["kernel_launches"]["fused_update"],
-                   "cli_s2": s2_cli_rec["kernel_launches"]["fused_update"]},
+                   "cli_s2": s2_cli_rec["kernel_launches"]["fused_update"],
+                   "per_pixel": pp_rec["kernel_launches"]["fused_update"],
+                   "band_seq": bs_rec["kernel_launches"]["fused_update"],
+                   **{f"band_seq_fleet_{name}": r["kernel_launches"]
+                      ["fused_update"]
+                      for name, r in fleet_rec["runs"].items()}},
+            at_per_pixel_date={
+                **at(pp_upd),
+                "path": "phase per_pixel: per_pixel_convergence, MODIS "
+                        "tile, (7, 2)",
+                "pixels_differing_from_plain":
+                    pp_upd["pixels_differing_from_plain"]},
             at_cli_s2_date={
                 **at(s2_cli_upd),
                 "path": "phase cli_s2: run_s2 over four 1098 x 1098 chunks",

@@ -1,14 +1,13 @@
 """Core numerics of the port: types, packed linear algebra, solve health,
 propagators, the fused Gauss-Newton kernel and the solvers.
 
-Re-exports the names of ``kafka_tpu.core`` that the port has.  Of the
-JAX package's 35, three are not here:
-
-- ``assimilate_date_jit``: its counterpart is ``assimilate_date`` (PyTorch
-  runs eagerly; nothing is compiled per shape);
-- ``build_normal_equations`` (the dense large-p form) and
-  ``hessian_correction`` come with the real-sensor path (ROADMAP item 13).
+Re-exports the names of ``kafka_tpu.core``.  Of the JAX package's 35,
+one is not here: ``assimilate_date_jit``, whose counterpart is
+``assimilate_date`` (PyTorch runs eagerly; nothing is compiled per
+shape).
 """
+
+from .hessian import hessian_correction
 
 from .linalg import (
     batched_diag,
@@ -37,6 +36,7 @@ from .solvers import (
     MAX_ITERATIONS,
     MIN_ITERATIONS,
     assimilate_date,
+    build_normal_equations,
     iterated_solve,
     kalman_update,
     linear_solve,
@@ -57,9 +57,10 @@ __all__ = [
     "MAX_ITERATIONS", "MIN_ITERATIONS", "PixelPrior", "SolveDiagnostics",
     "advance", "assimilate_date", "batched_diag", "batched_diagonal",
     "blend_gaussians", "blend_prior", "block_diag_to_batched",
-    "broadcast_prior", "flat_to_pixel_major", "iterate_time_grid",
-    "iterated_solve", "kalman_update", "linear_solve",
-    "make_no_propagation", "make_prior_reset_propagator", "no_propagation",
+    "broadcast_prior", "build_normal_equations", "flat_to_pixel_major",
+    "hessian_correction", "iterate_time_grid", "iterated_solve",
+    "kalman_update", "linear_solve", "make_no_propagation",
+    "make_prior_reset_propagator", "no_propagation",
     "pixel_major_to_flat", "propagate_information_filter",
     "propagate_information_filter_approx", "propagate_information_filter_lai",
     "propagate_standard_kalman", "solve_batched", "solve_spd_batched",

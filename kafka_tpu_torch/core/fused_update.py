@@ -37,9 +37,12 @@ from .linalg import cholesky_packed, pack_rows, solve_chol_vectors, tri_rows
 
 #: (p, n_bands) instances of the CUDA kernel: PROSAIL on Sentinel-2 (and
 #: the GP and MLP emulators of its bands), TIP through the row loop
-#: (``{"inkernel_linearize": False}``), the SAR-only WCM state, and the
-#: joint S2 + S1 state on its S2 and its S1 dates.
-INSTANCES = ((10, 10), (7, 2), (2, 2), (11, 10), (11, 2))
+#: (``{"inkernel_linearize": False}`` or per-pixel convergence), the
+#: SAR-only WCM state, the joint S2 + S1 state on its S2 and its S1
+#: dates, and one band of the WCM, TIP, S2 and joint states
+#: (band-sequential assimilation).
+INSTANCES = ((10, 10), (7, 2), (2, 2), (11, 10), (11, 2),
+             (2, 1), (7, 1), (10, 1), (11, 1))
 
 
 def _idx(i: int, j: int) -> int:
@@ -48,9 +51,11 @@ def _idx(i: int, j: int) -> int:
 
 def jac_to_rows(jac: torch.Tensor) -> torch.Tensor:
     """``(B, n, p)`` Jacobian -> ``(B*p, n)`` lane rows (row ``b*p + k``
-    is ``J[b, :, k]``): the one relayout the out-of-kernel path pays."""
+    is ``J[b, :, k]``): the one relayout the out-of-kernel path pays.
+    Contiguous, as the kernel takes its rows (for one band the reshape
+    alone would return a strided view)."""
     n_bands, n, p = jac.shape
-    return jac.permute(0, 2, 1).reshape(n_bands * p, n)
+    return jac.permute(0, 2, 1).reshape(n_bands * p, n).contiguous()
 
 
 def check_instance(p: int, n_bands: int) -> None:

@@ -15,8 +15,10 @@ import math
 
 import torch
 
-# The unrolled elementwise factorisation covers every real state (p=7
-# TIP, p=10 PROSAIL); larger blocks go to torch.linalg.
+# The unrolled elementwise factorisation covers the small states (p=7
+# TIP, p=10 PROSAIL, p=11 joint); larger blocks (the p=21 Ross-Li
+# kernel-weight state) go to torch.linalg, as the JAX package's go to
+# XLA's Cholesky.
 UNROLL_MAX_P = 16
 
 
@@ -126,12 +128,32 @@ def unpack_symmetric(a_packed) -> torch.Tensor:
                                     for j in range(i + 1)]))
 
 
+def cholesky_dense(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a batch of dense SPD matrices with the
+    semantics of ``jax.lax.linalg.cholesky``: the input is symmetrised
+    as ``(a + a^T) / 2`` first, and a matrix that is not positive
+    definite yields a factor of NaN instead of an error.
+    ``cholesky_ex`` does not check ``info``, so nothing syncs the
+    device; its partial factor on such a matrix is masked here."""
+    chol, info = torch.linalg.cholesky_ex((a + a.mT) / 2)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full((), float("nan"), dtype=chol.dtype,
+                                  device=chol.device), chol)
+
+
+def _solve_chol_dense(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``L L^T X = B`` by two triangular solves; ``b`` (..., p, k)."""
+    y = torch.linalg.solve_triangular(chol, b, upper=False)
+    return torch.linalg.solve_triangular(chol.mT, y, upper=True)
+
+
 def solve_spd_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``a[i] x[i] = b[i]`` for a batch of SPD matrices."""
+    """Solve ``a[i] x[i] = b[i]`` for a batch of SPD matrices: the
+    unrolled packed Cholesky up to ``UNROLL_MAX_P``, the dense library
+    factor above it (NaN for a non-PD pixel, as in the JAX package)."""
     if a.shape[-1] <= UNROLL_MAX_P:
         return _solve_chol_unrolled(cholesky_packed(pack_symmetric(a)), b)
-    chol = torch.linalg.cholesky(a)
-    return torch.cholesky_solve(b[..., None], chol)[..., 0]
+    return _solve_chol_dense(cholesky_dense(a), b[..., None])[..., 0]
 
 
 def solve_batched(a: torch.Tensor, b: torch.Tensor,
@@ -159,7 +181,26 @@ def spd_inverse_batched(a: torch.Tensor) -> torch.Tensor:
             for j in range(p)
         ]
         return torch.stack(cols, dim=-1)
-    return torch.cholesky_inverse(torch.linalg.cholesky(a))
+    eye = torch.eye(p, dtype=a.dtype, device=a.device).expand(a.shape)
+    return _solve_chol_dense(cholesky_dense(a), eye)
+
+
+#: Matrices per batched ``torch.linalg.eigh`` call: cuSOLVER's batched
+#: eigensolver (``cusolverDnXsyevBatched``, CUDA 12.8) refuses a tile's
+#: batch with CUSOLVER_STATUS_INVALID_VALUE (chip_smoke.py's phase
+#: hessian records a batch of this size and of twice it).
+EIGH_BLOCK = 16384
+
+
+def eigh_blocked(a: torch.Tensor):
+    """``torch.linalg.eigh`` of a ``(n, p, p)`` batch in ``EIGH_BLOCK``
+    slices: ``(w (n, p) ascending, v (n, p, p))``."""
+    if a.shape[0] <= EIGH_BLOCK:
+        return torch.linalg.eigh(a)
+    parts = [torch.linalg.eigh(a[s:s + EIGH_BLOCK])
+             for s in range(0, a.shape[0], EIGH_BLOCK)]
+    return (torch.cat([w for w, _ in parts]),
+            torch.cat([v for _, v in parts]))
 
 
 def batched_diag(d: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,4 @@
-"""The variational-Kalman update (port of the main-path part of
-``kafka_tpu/core/solvers.py``).
+"""The variational-Kalman update (port of ``kafka_tpu/core/solvers.py``).
 
 Per pixel the analysis solves the linearised normal equations
 
@@ -25,15 +24,22 @@ the fused path for every problem on the packed small-state path
   kernel 2) per Gauss-Newton iteration;
 
 and ``{"use_pallas": False}`` opts out to the plain global-norm loop with
-solve health (``_iterated_solve_health``).  ``assimilate_windows_scan``
-runs a block of fused windows (advance, then ``iterated_solve``, per
-window) for the engine's temporal fusion.  Not ported:
-``per_pixel_convergence``, the dense large-p fallback and the Hessian
-correction.
+solve health (``_iterated_solve_health``).  Two modes keep the JAX
+package's generic loop without solve health (``_iterated_solve_generic``):
+``per_pixel_convergence`` (each step one ``kalman_update``, the fused
+update on the packed path) and the dense large-p fallback (p > 16 or
+more than 32 bands: ``build_normal_equations`` and a ``torch.linalg``
+Cholesky, the counterpart of XLA's; unset ``use_pallas`` takes it,
+an explicit True raises as in the JAX package).  ``hessian_forward``
+subtracts the second-order correction (``core.hessian``) after any
+path, under an eigenvalue floor.  ``assimilate_windows_scan`` runs a
+block of fused windows (advance, then ``iterated_solve``, per window)
+for the engine's temporal fusion.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Any, Callable, NamedTuple
 
@@ -46,8 +52,10 @@ from .fused_update import fused_update, fused_update_rows, jac_to_rows
 from .linalg import (
     UNROLL_MAX_P,
     cholesky_packed,
+    eigh_blocked,
     pack_rows,
     solve_chol_vectors,
+    solve_spd_batched,
     solve_spd_packed,
     tri_rows,
     unpack_rows,
@@ -65,6 +73,28 @@ STRUCTURAL_OPTION_KEYS = (
     "linearize_block", "use_pallas", "per_pixel_convergence",
     "inkernel_linearize", "min_iterations", "max_iterations",
 )
+
+def build_normal_equations(lin: Linearization, obs: BandBatch, x_lin,
+                           x_forecast, p_inv_forecast):
+    """Dense assembly: ``A`` (n_pix, p, p) and ``b`` (n_pix, p), the large-p
+    form of the JAX package.  The contractions run in float32 (TF32 is
+    off for the whole package), the counterpart of its
+    ``Precision.HIGHEST``."""
+    f32 = torch.float32
+    jac = lin.jac.to(f32)
+    r_inv = obs.r_inv.to(f32)
+    y_tilde = torch.where(
+        obs.mask,
+        obs.y.to(f32) + torch.einsum("bnp,np->bn", jac, x_lin.to(f32))
+        - lin.h0.to(f32),
+        0.0,
+    )
+    wj = jac * r_inv[..., None]
+    a = torch.einsum("bnp,bnq->npq", wj, jac) + p_inv_forecast.to(f32)
+    b = torch.einsum("bnp,bn->np", wj, y_tilde) + torch.einsum(
+        "npq,nq->np", p_inv_forecast.to(f32), x_forecast.to(f32))
+    return a, b
+
 
 def build_normal_equations_packed(lin: Linearization, obs: BandBatch,
                                   x_lin, x_forecast, p_inv_forecast):
@@ -126,23 +156,30 @@ def _packed_update_health(lin, obs, x_lin, x_forecast, p_inv_forecast, esc):
 
 def kalman_update(lin: Linearization, obs: BandBatch, x_lin, x_forecast,
                   p_inv_forecast, use_pallas: bool = False):
-    """One linearised update: ``(x_analysis, A)``.  The packed path only
-    (the dense large-p form is not ported); ``use_pallas`` runs it as one
-    launch of the fused update (``core.fused_update``)."""
+    """One linearised update: ``(x_analysis, A)``.  Small states take the
+    packed path (``use_pallas``: one launch of the fused update,
+    ``core.fused_update``); p > ``UNROLL_MAX_P`` or more than 32 bands
+    the dense assembly and library Cholesky, where ``use_pallas``
+    raises as in the JAX package."""
     p = x_forecast.shape[-1]
-    if p > UNROLL_MAX_P or lin.jac.shape[0] > 32:
-        raise NotImplementedError(
-            f"the dense large-p update (p={p}, {lin.jac.shape[0]} bands) "
-            "is not ported yet"
+    n_bands = lin.jac.shape[0]
+    if p <= UNROLL_MAX_P and n_bands <= 32:
+        if use_pallas:
+            x, a_packed = fused_update(lin, obs, x_lin, x_forecast,
+                                       p_inv_forecast)
+            return x, unpack_symmetric(a_packed)
+        a_packed, b = build_normal_equations_packed(
+            lin, obs, x_lin, x_forecast, p_inv_forecast
         )
+        return solve_spd_packed(a_packed, b), unpack_symmetric(a_packed)
     if use_pallas:
-        x, a_packed = fused_update(lin, obs, x_lin, x_forecast,
-                                   p_inv_forecast)
-        return x, unpack_symmetric(a_packed)
-    a_packed, b = build_normal_equations_packed(
-        lin, obs, x_lin, x_forecast, p_inv_forecast
-    )
-    return solve_spd_packed(a_packed, b), unpack_symmetric(a_packed)
+        raise NotImplementedError(
+            "use_pallas covers the packed small-state path only "
+            f"(p <= {UNROLL_MAX_P}, <= 32 bands); this problem has "
+            f"p={p}, {n_bands} bands")
+    a, b = build_normal_equations(lin, obs, x_lin, x_forecast,
+                                  p_inv_forecast)
+    return solve_spd_batched(a, b), a
 
 
 def _kernel_bounds_rows(state_bounds, p: int):
@@ -427,6 +464,80 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
         (verd, nonfin_count, clip_sat)
 
 
+def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
+                            min_iterations, max_iterations, relaxation,
+                            state_bounds, numel, use_fused,
+                            per_pixel_convergence):
+    """The JAX package's generic while loop (no solve health): one
+    ``kalman_update`` per step (``use_fused``: the fused update), a
+    damped, bounds-projected step, and either the global norm or the
+    per-pixel freeze.  Returns ``(x, A, fwd, innovations, n_done, norm,
+    frozen)`` with ``frozen`` None in global-norm mode.
+
+    Per-pixel mode freezes a pixel after TWO consecutive steps with
+    ``||dx_i||_2 / p < tol`` (an oscillating pixel's step dips below tol
+    at each turn), counts only unfrozen steps in the norm, and stops
+    once every pixel froze (after ``min_iterations``) or past the cap."""
+    f32 = torch.float32
+    n_pix, p = x_forecast.shape
+    n_bands = obs.y.shape[0]
+    dev = x_forecast.device
+    tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
+    numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
+    relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
+    lo = hi = None
+    if state_bounds is not None:
+        lo, hi = (torch.as_tensor(v, dtype=f32, device=dev)
+                  for v in state_bounds)
+    x = x_forecast.to(f32)
+    a = torch.zeros((n_pix, p, p), dtype=f32, device=dev)
+    h0 = torch.zeros((n_bands, n_pix), dtype=f32, device=dev)
+    jac = torch.zeros((n_bands, n_pix, p), dtype=f32, device=dev)
+    frozen = small = None
+    if per_pixel_convergence:
+        frozen = torch.zeros(n_pix, dtype=torch.bool, device=dev)
+        small = torch.zeros(n_pix, dtype=torch.bool, device=dev)
+    n_done = 0
+    norm = torch.tensor(float("inf"), dtype=f32, device=dev)
+    while True:
+        # One host sync per iteration: the while loop's condition.
+        if per_pixel_convergence:
+            done = bool(frozen.all()) and n_done >= min_iterations
+        else:
+            done = bool(norm < tol_t) and n_done >= min_iterations
+        if done or n_done > max_iterations:
+            break
+        x_prev = x
+        lin = one_lin(x_prev)
+        x_new, a = kalman_update(lin, obs, x_prev, x_forecast,
+                                 p_inv_forecast, use_pallas=use_fused)
+        x_new = x_prev + relax_t * (x_new - x_prev)
+        if lo is not None:
+            x_new = torch.minimum(torch.maximum(x_new, lo), hi)
+        step = x_new - x_prev
+        if per_pixel_convergence:
+            pix_norm = torch.sqrt((step * step).sum(dim=-1)) / p
+            x = torch.where(frozen[:, None], x_prev, x_new)
+            small_now = pix_norm < tol_t
+            newly = small_now & small if n_done + 1 >= min_iterations \
+                else torch.zeros_like(small_now)
+            norm = torch.sqrt((torch.where(frozen[:, None], 0.0, step) ** 2)
+                              .sum()) / numel_t
+            frozen = frozen | newly
+            small = small_now
+        else:
+            x = x_new
+            norm = torch.linalg.vector_norm(step) / numel_t
+        h0, jac = lin.h0.to(f32), lin.jac.to(f32)
+        n_done += 1
+    # Diagnostics of the reference: fwd = J (x_a - x_f) + H0, innovations
+    # y - H0 at the last linearisation.
+    fwd = torch.einsum("bnp,np->bn", jac, x - x_forecast) + h0
+    innovations = torch.where(obs.mask, obs.y - h0, 0.0)
+    n_done_t = torch.tensor(n_done, dtype=torch.int32, device=dev)
+    return x, a, fwd, innovations, n_done_t, norm, frozen
+
+
 def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
                    p_inv_forecast, operator_params: Any = None,
                    tol: float = CONVERGENCE_TOL,
@@ -437,54 +548,58 @@ def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
                    linearize_block: Any = None, use_pallas=None,
                    per_pixel_convergence: bool = False,
                    inkernel_linearize: bool = True, corrupt: Any = None):
-    """Gauss-Newton relinearisation loop in global-norm mode with solve
-    health; returns ``(x_analysis, p_inv_analysis, diagnostics)``.
-    Options mean what they mean in the JAX ``iterated_solve``;
-    ``use_pallas=None`` (the port's default) means the fused path, as
-    ``True`` does; ``False`` is the plain loop."""
+    """Gauss-Newton relinearisation loop; returns ``(x_analysis,
+    p_inv_analysis, diagnostics)``.  Options mean what they mean in the
+    JAX ``iterated_solve``; ``use_pallas=None`` (the port's default)
+    means the fused path wherever the packed path applies, as ``True``
+    does there; ``False`` is the plain loop."""
     n_pix, p = x_forecast.shape
     n_bands = obs.y.shape[0]
-    if per_pixel_convergence:
-        raise NotImplementedError(
-            "per_pixel_convergence is not ported yet (ROADMAP)")
-    if p > UNROLL_MAX_P or n_bands > 32:
-        raise NotImplementedError(
-            f"the dense large-p fallback (p={p}, {n_bands} bands) is not "
-            "ported yet (ROADMAP)")
-    if hessian_forward is not None:
-        raise NotImplementedError(
-            "the Hessian correction is not ported yet (ROADMAP)")
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
-    if use_pallas is None or use_pallas:
-        x, a, fwd, innovations, n_done, norm, health = _iterated_solve_rows(
-            linearize, obs, x_forecast, p_inv_forecast, operator_params,
-            tol, min_iterations, max_iterations, relaxation, state_bounds,
-            norm_denominator, linearize_block,
-            inkernel_linearize=inkernel_linearize, corrupt=corrupt,
-        )
+    packed = p <= UNROLL_MAX_P and n_bands <= 32
+    use_block = linearize_block is not None \
+        and 0 < int(linearize_block) < n_pix
+
+    def one_lin(x_prev):
+        if use_block:
+            lin = _blocked_linearize(linearize, operator_params, x_prev,
+                                     int(linearize_block))
+        else:
+            lin = _call_linearize(linearize, operator_params, x_prev)
+        if corrupt is not None:
+            lin = lin._replace(h0=solver_health.corrupt_h0(lin.h0, corrupt))
+        return lin
+
+    frozen = health = None
+    if packed and not per_pixel_convergence:
+        if use_pallas is None or use_pallas:
+            x, a, fwd, innovations, n_done, norm, health = \
+                _iterated_solve_rows(
+                    linearize, obs, x_forecast, p_inv_forecast,
+                    operator_params, tol, min_iterations, max_iterations,
+                    relaxation, state_bounds, norm_denominator,
+                    linearize_block, inkernel_linearize=inkernel_linearize,
+                    corrupt=corrupt,
+                )
+        else:
+            x, a, fwd, innovations, n_done, norm, health = \
+                _iterated_solve_health(
+                    one_lin, obs, x_forecast, p_inv_forecast, tol,
+                    min_iterations, max_iterations, relaxation,
+                    state_bounds, numel,
+                )
     else:
-        use_block = linearize_block is not None \
-            and 0 < int(linearize_block) < n_pix
-
-        def one_lin(x_prev):
-            if use_block:
-                lin = _blocked_linearize(linearize, operator_params, x_prev,
-                                         int(linearize_block))
-            else:
-                lin = _call_linearize(linearize, operator_params, x_prev)
-            if corrupt is not None:
-                lin = lin._replace(
-                    h0=solver_health.corrupt_h0(lin.h0, corrupt))
-            return lin
-
-        x, a, fwd, innovations, n_done, norm, health = \
-            _iterated_solve_health(
+        use_fused = packed if use_pallas is None else bool(use_pallas)
+        x, a, fwd, innovations, n_done, norm, frozen = \
+            _iterated_solve_generic(
                 one_lin, obs, x_forecast, p_inv_forecast, tol,
                 min_iterations, max_iterations, relaxation, state_bounds,
-                numel,
+                numel, use_fused, per_pixel_convergence,
             )
     return _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
-                         state_bounds, health)
+                         state_bounds, health, frozen=frozen,
+                         hessian_forward=hessian_forward,
+                         operator_params=operator_params)
 
 
 def linear_solve(lin: Linearization, obs: BandBatch, x_forecast,
@@ -523,9 +638,33 @@ def _window_telemetry_scalars(x, innovations, obs, state_bounds):
     return chi2, clipped, nodata
 
 
+def eigenvalue_floor(a: torch.Tensor) -> torch.Tensor:
+    """Clamp each pixel's eigenvalues to ``1e-6 * max(|w_max|, 1e-3)``
+    (the JAX package's PSD guard after the unguarded second-order
+    subtraction).  Only pixels off the cone take the rebuilt matrix;
+    the others keep their exact A (the eigh round trip would smear
+    ~1e-7 over every pixel).  Eigenvector signs do not matter: the
+    rebuild ``V diag(w) V^T`` is invariant to them."""
+    w, v = eigh_blocked(a)
+    floor = 1e-6 * torch.clamp(w[..., -1:].abs(), min=1e-3)
+    fixed = torch.einsum("nij,nj,nkj->nik", v, torch.maximum(w, floor), v)
+    bad = w[..., 0] < floor[..., 0]
+    return torch.where(bad[:, None, None], fixed, a)
+
+
 def _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
-                  state_bounds=None, health=None):
-    """Diagnostics packaging (the Hessian correction is not ported)."""
+                  state_bounds=None, health=None, frozen=None,
+                  hessian_forward=None, operator_params=None):
+    """Shared post-loop tail: the optional second-order Hessian
+    correction (under the eigenvalue floor) and the diagnostics."""
+    if hessian_forward is not None:
+        from .hessian import hessian_correction
+
+        # A ``(params, x_pixel)`` forward is closed over the date's params.
+        fwd_pixel = functools.partial(_call_linearize, hessian_forward,
+                                      operator_params)
+        a = eigenvalue_floor(a - hessian_correction(
+            fwd_pixel, x, obs.r_inv, innovations, obs.mask))
     chi2, clipped, nodata = _window_telemetry_scalars(
         x, innovations, obs, state_bounds
     )
@@ -535,7 +674,7 @@ def _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
         cap, damped, quar = solver_health.verdict_counts(verdicts)
     diags = SolveDiagnostics(
         innovations=innovations, fwd_modelled=fwd, n_iterations=n_done,
-        convergence_norm=norm, converged_mask=None, chi2_per_band=chi2,
+        convergence_norm=norm, converged_mask=frozen, chi2_per_band=chi2,
         clipped_count=clipped, nodata_count=nodata,
         health_verdicts=verdicts, cap_bailout_count=cap,
         damped_recovered_count=damped, quarantined_count=quar,
@@ -545,7 +684,8 @@ def _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
 
 
 def _call_linearize(linearize, operator_params, x):
-    """Support ``f(params, x)`` and plain ``f(x)`` closures."""
+    """Support ``f(params, x)`` and plain ``f(x)`` closures (a linearise
+    or a per-pixel forward)."""
     try:
         n_args = len(inspect.signature(linearize).parameters)
     except (ValueError, TypeError):
@@ -732,8 +872,8 @@ def assimilate_windows_scan(linearize: LinearizeFn, obs_stacked: BandBatch,
     (``stack_aux``).  The prior, if any, must be date-invariant.
 
     Returns ``(x_final, p_inv_final, xs (K, n, p), p_inv_diags (K, n, p),
-    n_iterations (K,), convergence_norms (K,), converged_masks (None:
-    per-pixel convergence is not ported), window_stats)``."""
+    n_iterations (K,), convergence_norms (K,), converged_masks ((K, n)
+    bool under ``per_pixel_convergence``, else None), window_stats)``."""
     from .linalg import batched_diagonal, spd_inverse_batched
     from .propagators import advance as advance_fn
 
@@ -792,4 +932,5 @@ def assimilate_windows_scan(linearize: LinearizeFn, obs_stacked: BandBatch,
         chi2_per_band=stacked("chi2_per_band"),
         clipped_count=stacked("clipped_count"),
         nodata_count=stacked("nodata_count"), **health)
-    return x_a, p_inv_a, xs, diag_s, iters, norms, None, stats
+    converged = stacked("converged_mask") if per_pixel else None
+    return x_a, p_inv_a, xs, diag_s, iters, norms, converged, stats

@@ -21,7 +21,9 @@
 // 1,172 B/px, against about 1.6 kFLOP/px of float32 arithmetic, well
 // under the card's operations-per-byte balance.  The other instances move
 // 328 floats/px at (11, 10), 200 at (11, 2), 104 at (7, 2) and 29 at
-// (2, 2), all bound by bytes too.  So the design is about reading each
+// (2, 2), and the one-band instances of band-sequential assimilation 184
+// at (11, 1), 158 at (10, 1), 92 at (7, 1) and 22 at (2, 1), all bound by
+// bytes too.  So the design is about reading each
 // byte once, coalesced:
 //
 // - Nothing couples pixels (the TPU kernel's gcd(n, 2048) block is only
@@ -167,14 +169,19 @@ int attributes(int* out) {
   X(7, 2)                               \
   X(2, 2)                               \
   X(11, 10)                             \
-  X(11, 2)
+  X(11, 2)                              \
+  X(2, 1)                               \
+  X(7, 1)                               \
+  X(10, 1)                              \
+  X(11, 1)
 
 extern "C" {
 
 // Launch the (p, n_bands) instance on `stream`: (10, 10) for PROSAIL on
 // Sentinel-2 and the emulators of its bands, (7, 2) for TIP, (2, 2) for
 // the SAR-only WCM state, (11, 10) and (11, 2) for the joint S2 + S1
-// state's S2 and S1 dates.  Arrays are row-major (rows, n) float32 on
+// state's S2 and S1 dates, and (2, 1), (7, 1), (10, 1), (11, 1) for one
+// band of the WCM, TIP, S2 and joint states (band-sequential mode).  Arrays are row-major (rows, n) float32 on
 // the device: jac (n_bands * p), h0 / y / w / m (n_bands), xl / xf (p),
 // pf (tri(p)), esc (1); outputs x (p), a (tri(p)), inn (n_bands), hb (2).
 // Returns the CUDA error code of the launch (0 on success).

@@ -14,10 +14,10 @@ Differences from the JAX module:
   ``make_initial_prior`` and the drivers' ``run_config(..., device=)``;
 - no bench-artifact gate (``pallas_default_ready``): the port's kernel
   rule decides the solve route.  An unset ``use_pallas`` means the fused
-  path (the CUDA kernels on the card, their plain versions on the CPU);
-  ``{"use_pallas": False}`` means the plain global-norm loop;
-- the ``kernels`` operator and prior and the ``mod09`` observations are
-  not ported yet and raise ``NotImplementedError``.
+  path where the packed small-state path applies (the CUDA kernels on
+  the card, their plain versions on the CPU) and the dense library path
+  above it (the 21-parameter ``kernels`` state); ``{"use_pallas":
+  False}`` means the plain loop.
 """
 
 from __future__ import annotations
@@ -29,10 +29,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core import propagators as prop
 
-#: ROADMAP item that brings the MODIS kernel-weight (Ross-Li) path.
-_ITEM_13B = ("is not ported to kafka_tpu_torch yet; it comes with ROADMAP "
-             "Queue 1 item 13b (MOD09 and the Ross-Li kernels state)")
-
 PROPAGATORS: Dict[str, Optional[Callable]] = {
     # The five reference propagation schemes, plus prior-only advance.
     "none": None,
@@ -42,13 +38,6 @@ PROPAGATORS: Dict[str, Optional[Callable]] = {
     "information_filter_lai": prop.propagate_information_filter_lai,
     "no_propagation": prop.no_propagation,
 }
-
-
-def _not_ported(what: str):
-    def make(cfg):
-        raise NotImplementedError(f"{what} {_ITEM_13B}")
-
-    return make
 
 
 def _operator_registry() -> Dict[str, Callable]:
@@ -62,7 +51,7 @@ def _operator_registry() -> Dict[str, Callable]:
         "twostream": lambda cfg: TwoStreamOperator(),
         "wcm": lambda cfg: WCMOperator(),
         "prosail": lambda cfg: _make_prosail(cfg),
-        "kernels": _not_ported("operator 'kernels'"),
+        "kernels": lambda cfg: _make_kernels(cfg),
         "prosail_joint": lambda cfg: _joint_op("ProsailJointOperator"),
         "wcm_joint": lambda cfg: _joint_op("WCMJointOperator"),
         # Converted gp_emulator banks as the S2 operator: per-date
@@ -87,6 +76,23 @@ def _joint_op(name):
     return getattr(joint, name)()
 
 
+def _kernel_bands(cfg, what: str) -> int:
+    """MODIS band count of a kernel-weight config: 3 weights per band."""
+    n_bands, rem = divmod(cfg.n_params, 3)
+    if rem:
+        raise ValueError(
+            f"the kernels {what} needs 3 weights per band; "
+            f"parameter_list has {cfg.n_params} entries"
+        )
+    return n_bands
+
+
+def _make_kernels(cfg):
+    from ..obsops.kernels import KernelsOperator
+
+    return KernelsOperator(n_modis_bands=_kernel_bands(cfg, "operator"))
+
+
 def _make_prosail(cfg):
     from ..obsops.prosail import ProsailOperator
 
@@ -96,12 +102,15 @@ def _make_prosail(cfg):
 def _named_prior(name: Optional[str], cfg: Optional["RunConfig"] = None,
                  device=None):
     """The named prior on ``device`` (None means CUDA), or None."""
-    from .priors import jrc_prior, joint_prior, sail_prior, wcm_prior
+    from .priors import (jrc_prior, joint_prior, kernels_prior, sail_prior,
+                         wcm_prior)
 
     if name is None:
         return None
     if name == "kernels":
-        raise NotImplementedError(f"prior 'kernels' {_ITEM_13B}")
+        # The band count follows the state size, as for the operator.
+        n_bands = 7 if cfg is None else _kernel_bands(cfg, "prior")
+        return kernels_prior(n_modis_bands=n_bands, device=device)
     return {
         "tip": jrc_prior,
         "jrc": jrc_prior,
@@ -115,9 +124,8 @@ def _named_prior(name: Optional[str], cfg: Optional["RunConfig"] = None,
 class RunConfig:
     """One assimilation run, declaratively.  The fields, their defaults
     and their meaning are those of the JAX ``RunConfig``; the port reads
-    them the same way, except where a field selects something it has
-    not ported (``device_mesh="local"``, ``band_sequential``,
-    ``hessian_correction`` raise where they are used)."""
+    them the same way, except ``device_mesh="local"`` (a pixel mesh),
+    which is not ported and raises where it is used."""
 
     parameter_list: Sequence[str]
     start: datetime.datetime
@@ -228,7 +236,12 @@ class RunConfig:
                 period=self.extra.get("period", 16), device=device,
             )
         if self.observations == "mod09":
-            raise NotImplementedError(f"observations 'mod09' {_ITEM_13B}")
+            from ..io.mod09 import MOD09Observations
+
+            return MOD09Observations(
+                self.data_folder, operator,
+                start_time=self.start, end_time=self.end, device=device,
+            )
         if self.observations == "synergy":
             from ..io.modis import SynergyKernels
 

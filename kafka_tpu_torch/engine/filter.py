@@ -26,10 +26,18 @@ As in the JAX engine:
   on adjacent windows) and ``run(..., advance_first=True)`` resumes from
   one; a state padded for another pixel batch is re-padded.
 
-Not ported (they raise ``NotImplementedError`` when set): mesh sharding,
-band-sequential mode and the Hessian correction.  The telemetry quality
-ledger, the performance gauges and the ``obs.bias`` site come with the
-telemetry slice.
+- ``hessian_correction`` hands the operator's ``forward_pixel`` to the
+  solver (unfused, fused and band-sequential alike), which subtracts
+  the second-order term under an eigenvalue floor;
+- ``band_sequential`` assimilates an acquisition one band at a time
+  through ``BandView``s (each band's posterior the next band's prior;
+  fusion off), merging the diagnostics as the JAX engine does;
+- ``per_pixel_convergence`` adds the frozen fraction to the date's one
+  packed read (``kafka_engine_converged_frac``).
+
+Not ported: mesh sharding (raises ``NotImplementedError`` when set).
+The telemetry quality ledger, the performance gauges and the
+``obs.bias`` site come with the telemetry slice.
 """
 
 from __future__ import annotations
@@ -92,12 +100,9 @@ class KalmanFilter:
         max_degraded_dates: int = 8,
         device=None,
     ):
-        for name, value in (("mesh", mesh is not None),
-                            ("band_sequential", band_sequential),
-                            ("hessian_correction", hessian_correction)):
-            if value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP.md, Queue 1)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh is not ported yet (ROADMAP.md, Queue 1)")
         self.device = resolve_device(device)
         self.observations = observations
         self.output = output
@@ -107,6 +112,12 @@ class KalmanFilter:
         self._state_propagator = state_propagation
         self.prior = prior
         self.solver_options = solver_options
+        # Second-order correction of the posterior information (the
+        # operator's forward_pixel goes to the solver).
+        self.hessian_correction = bool(hessian_correction)
+        # The reference's band-by-band assimilation; disables fusion.
+        self.band_sequential = bool(band_sequential)
+        self._band_views: dict = {}
         # Depth of the observation prefetch; 0 reads synchronously.
         self.prefetch_depth = int(prefetch_depth)
         self.prefetch_workers = max(1, int(prefetch_workers))
@@ -267,10 +278,16 @@ class KalmanFilter:
             faults.fault_point("device.oom", date=str(date))
             t0 = time.perf_counter()
             opts = self.date_solver_options(obs.operator)
-            x_a, p_inv_a, diags = assimilate_date(
-                obs.operator.linearize, obs.bands, x_a, p_inv_a, obs.aux,
-                opts or None, None, device=self.device,
-            )
+            if self.band_sequential:
+                x_a, p_inv_a, diags = self._assimilate_band_sequential(
+                    obs, x_a, p_inv_a, opts)
+            else:
+                x_a, p_inv_a, diags = assimilate_date(
+                    obs.operator.linearize, obs.bands, x_a, p_inv_a,
+                    obs.aux, opts or None,
+                    self._hessian_forward(obs.operator),
+                    device=self.device,
+                )
             p_a = None
             if diags.health_verdicts is not None:
                 self._window_verdicts = (
@@ -281,6 +298,92 @@ class KalmanFilter:
             if self.diagnostics:
                 self._record_window(self._date_record(date, obs, diags, t0))
         return x_a, p_a, p_inv_a
+
+    def _hessian_forward(self, operator):
+        """The per-pixel forward model for the Hessian correction, or
+        None when the correction is off."""
+        if not self.hessian_correction:
+            return None
+        return getattr(operator, "forward_pixel", None)
+
+    def _band_view(self, operator, band: int):
+        """The cached single-band view of ``operator``.  A linearize-only
+        operator fails here with a clear message: the sequential mode
+        slices the operator's ``forward_pixel`` per band."""
+        from ..obsops.protocol import BandView, ObservationModel
+
+        fwd = getattr(type(operator), "forward_pixel", None)
+        if fwd is None or fwd is ObservationModel.forward_pixel:
+            raise TypeError(
+                "band_sequential=True requires the operator to "
+                "implement forward_pixel; "
+                f"{type(operator).__name__} only provides linearize"
+            )
+        key = (id(operator), band)
+        view = self._band_views.get(key)
+        if view is None or view.inner is not operator:
+            view = self._band_views[key] = BandView(operator, band)
+        return view
+
+    def _assimilate_band_sequential(self, obs, x_a, p_inv_a, opts):
+        """One acquisition with its bands assimilated one after another
+        (the reference's ``assimilate_band`` semantics): per band a full
+        Gauss-Newton loop, its posterior the next band's prior, the
+        Hessian correction per band.  Merged as the JAX engine merges:
+        iterations summed, the worst band's norm, converged masks ANDed,
+        innovations, residuals and chi^2 concatenated, nodata summed,
+        the last band's clipped counts; verdicts ORed (NODATA only where
+        no band observed) with their counts recomputed, non-finite
+        counts summed."""
+        n_bands = obs.bands.y.shape[0]
+        iters_total = 0
+        norms, masks, innovations, fwds, chi2s = [], [], [], [], []
+        verds, nonfins = [], []
+        nodata_total = None
+        last = None
+        for b in range(n_bands):
+            band_obs = BandBatch(y=obs.bands.y[b:b + 1],
+                                 r_inv=obs.bands.r_inv[b:b + 1],
+                                 mask=obs.bands.mask[b:b + 1])
+            view = self._band_view(obs.operator, b)
+            x_a, p_inv_a, last = assimilate_date(
+                view.linearize, band_obs, x_a, p_inv_a, obs.aux,
+                opts or None, self._hessian_forward(view),
+                device=self.device,
+            )
+            iters_total = iters_total + last.n_iterations
+            norms.append(last.convergence_norm)
+            innovations.append(last.innovations)
+            fwds.append(last.fwd_modelled)
+            chi2s.append(last.chi2_per_band)
+            nodata_total = last.nodata_count if nodata_total is None \
+                else nodata_total + last.nodata_count
+            if last.converged_mask is not None:
+                masks.append(last.converged_mask)
+            if last.health_verdicts is not None:
+                verds.append(last.health_verdicts)
+                nonfins.append(last.nonfinite_count)
+        diags = last._replace(
+            n_iterations=iters_total,
+            convergence_norm=torch.stack(norms).max(),
+            innovations=torch.cat(innovations),
+            fwd_modelled=torch.cat(fwds),
+            converged_mask=(torch.stack(masks).all(dim=0) if masks
+                            else None),
+            chi2_per_band=torch.cat(chi2s),
+            nodata_count=nodata_total,
+        )
+        if verds and len(verds) == n_bands:
+            merged = verds[0]
+            for v in verds[1:]:
+                merged = solver_health.merge_verdicts(merged, v)
+            cap, damped, quar = solver_health.verdict_counts(merged)
+            diags = diags._replace(
+                health_verdicts=merged, cap_bailout_count=cap,
+                damped_recovered_count=damped, quarantined_count=quar,
+                nonfinite_count=sum(nonfins),
+            )
+        return x_a, p_inv_a, diags
 
     def _nodata_valid(self, raw: int, n_bands: int) -> int:
         """Nodata count over real pixels: the device-side count includes
@@ -301,6 +404,11 @@ class KalmanFilter:
             ]),
             diags.chi2_per_band.float(),
         ]
+        has_frac = diags.converged_mask is not None
+        if has_frac:
+            # The frozen fraction over valid pixels joins the same read.
+            parts.append(diags.converged_mask[:self.gather.n_valid]
+                         .float().mean()[None])
         has_health = diags.health_verdicts is not None
         if has_health:
             parts.append(torch.stack([
@@ -320,8 +428,10 @@ class KalmanFilter:
             "chi2_per_band": [float(v) for v in packed[4:4 + n_bands]],
             "wall_s": time.perf_counter() - t0,
         }
+        if has_frac:
+            rec["converged_frac"] = float(packed[4 + n_bands])
         if has_health:
-            h0 = 4 + n_bands
+            h0 = 4 + n_bands + int(has_frac)
             rec["cap_bailouts"] = int(packed[h0])
             rec["damped_recovered"] = int(packed[h0 + 1])
             rec["quarantined"] = int(packed[h0 + 2])
@@ -372,6 +482,12 @@ class KalmanFilter:
             "kafka_engine_nodata_pixels_total",
             "masked-out (NaN/nodata) observation entries across bands",
         ).inc(rec["nodata"])
+        if "converged_frac" in rec:
+            reg.gauge(
+                "kafka_engine_converged_frac",
+                "fraction of valid pixels frozen at convergence "
+                "(per_pixel_convergence mode)",
+            ).set(rec["converged_frac"])
         if "quarantined" in rec:
             self._record_solver_health(reg, rec)
         reg.emit("solve", **{k: (str(v) if k == "date" else v)
@@ -525,9 +641,9 @@ class KalmanFilter:
     _SCAN_MAX_AUX_BYTES = 64 * 1024 * 1024
 
     def _fusion_possible(self) -> bool:
-        """Engine-level fusability: fusion on, and a date-invariant (or
-        absent) prior."""
-        if self.scan_window <= 1:
+        """Engine-level fusability: fusion on, not band-sequential, and a
+        date-invariant (or absent) prior."""
+        if self.scan_window <= 1 or self.band_sequential:
             return False
         return self.prior is None or bool(
             getattr(self.prior, "date_invariant", False))
@@ -622,12 +738,13 @@ class KalmanFilter:
             mask=torch.stack([o.bands.mask for _, o in block]),
         )
         aux_stacked = stack_aux([o.aux for _, o in block])
-        x_fin, p_inv_fin, xs, diag_s, iters, norms, _, wstats = (
+        x_fin, p_inv_fin, xs, diag_s, iters, norms, converged, wstats = (
             assimilate_windows_scan(
                 first.operator.linearize, bands, x_analysis, p_inv,
                 aux_stacked, self.trajectory_model,
                 self.trajectory_uncertainty, prior_mean, prior_inv,
-                self._state_propagator, opts or None, None,
+                self._state_propagator, opts or None,
+                self._hessian_forward(first.operator),
             )
         )
         timesteps = [ts for ts, _ in block]
@@ -651,15 +768,16 @@ class KalmanFilter:
                             qa_one(ts, wstats.health_verdicts[k],
                                    self.gather)
         if self.diagnostics:
-            self._block_records(timesteps, first, iters, norms, wstats, t0)
+            self._block_records(timesteps, first, iters, norms, converged,
+                                wstats, t0)
         self._maybe_checkpoint(
             checkpointer, timesteps[-1], x_fin, None, p_inv_fin,
             n_windows=len(timesteps), is_last=is_last,
         )
         return x_fin, None, p_inv_fin
 
-    def _block_records(self, timesteps, first, iters, norms, wstats,
-                       t0) -> None:
+    def _block_records(self, timesteps, first, iters, norms, converged,
+                       wstats, t0) -> None:
         """One record per fused window, from ONE packed device->host read
         of the whole block's scalars; ``wall_s`` is the block's wall time
         over its windows and ``fused`` the block's length."""
@@ -669,6 +787,10 @@ class KalmanFilter:
         scalars = [iters.float(), norms.float(),
                    wstats.clipped_count.float(), wstats.nodata_count.float(),
                    wstats.chi2_per_band.float().reshape(-1)]
+        if converged is not None:
+            # Per window, the frozen fraction over valid pixels.
+            scalars.append(converged[:, :self.gather.n_valid].float()
+                           .mean(dim=1))
         has_health = wstats.health_verdicts is not None
         if has_health:
             scalars += [wstats.cap_bailout_count.float(),
@@ -679,7 +801,7 @@ class KalmanFilter:
         packed = torch.cat(scalars).cpu().numpy()
         wall = time.perf_counter() - t0
         chi0 = 4 * k
-        h0 = chi0 + k * n_bands
+        h0 = chi0 + k * n_bands + (k if converged is not None else 0)
         for j, ts in enumerate(timesteps):
             rec = {
                 "date": ts,
@@ -694,6 +816,8 @@ class KalmanFilter:
                 "wall_s": wall / k,
                 "fused": k,
             }
+            if converged is not None:
+                rec["converged_frac"] = float(packed[chi0 + k * n_bands + j])
             if has_health:
                 rec["cap_bailouts"] = int(packed[h0 + j])
                 rec["damped_recovered"] = int(packed[h0 + k + j])

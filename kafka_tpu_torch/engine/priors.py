@@ -1,5 +1,5 @@
-"""Prior objects (port of the TIP, S2, joint S2 + S1 and WCM parts of
-``kafka_tpu/engine/priors.py``)."""
+"""Prior objects (port of ``kafka_tpu/engine/priors.py``): the TIP, S2,
+joint S2 + S1, WCM and MOD09 kernel-weight priors."""
 
 from __future__ import annotations
 
@@ -17,6 +17,16 @@ from .state import PixelGather
 TIP_PARAMETER_LIST = (
     "w_vis", "x_vis", "a_vis", "w_nir", "x_nir", "a_nir", "TeLAI",
 )
+
+
+def kernel_parameter_list(n_modis_bands: int) -> Tuple[str, ...]:
+    """Kernel-weight parameter names: (iso, vol, geo) per MODIS band."""
+    return tuple(f"b{b + 1}_{k}" for b in range(n_modis_bands)
+                 for k in ("iso", "vol", "geo"))
+
+
+# The 21-parameter Ross-Li kernel-weight state of the MOD09 driver.
+KERNEL_PARAMETER_LIST = kernel_parameter_list(7)
 
 
 class FixedGaussianPrior:
@@ -139,3 +149,28 @@ def wcm_prior(device=None) -> FixedGaussianPrior:
                           for a in wcm_prior_arrays())
     return FixedGaussianPrior(PixelPrior(mean=mean, cov=cov, inv_cov=inv_cov),
                               WCM_PARAMETER_LIST)
+
+
+def kernels_prior_arrays(n_modis_bands: int = 7, sigma: float = 0.2):
+    """The MOD09 kernel-weight prior's ``(mean, cov, inv_cov)`` as float32
+    numpy: moderate isotropic, smaller volumetric and geometric weights,
+    a broad diagonal covariance."""
+    mean = np.tile(np.array([0.15, 0.05, 0.02], np.float32), n_modis_bands)
+    sig = np.full(3 * n_modis_bands, sigma, np.float32)
+    return (mean, np.diag(sig ** 2).astype(np.float32),
+            np.diag(1.0 / sig ** 2).astype(np.float32))
+
+
+def kernels_prior(n_modis_bands: int = 7, sigma: float = 0.2,
+                  device=None) -> FixedGaussianPrior:
+    """A weak prior for the MOD09 kernel-weight state (``kernels_prior``
+    of the JAX package), so the retrieval is observation-driven, on
+    ``device``."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    mean, cov, inv_cov = (torch.as_tensor(a, device=dev)
+                          for a in kernels_prior_arrays(n_modis_bands,
+                                                        sigma))
+    return FixedGaussianPrior(PixelPrior(mean=mean, cov=cov, inv_cov=inv_cov),
+                              kernel_parameter_list(n_modis_bands))

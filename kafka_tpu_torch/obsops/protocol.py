@@ -3,8 +3,9 @@
 An operator is a differentiable PyTorch function of one pixel's state,
 ``forward_pixel(aux, x_pixel) -> (n_bands,)``; the batched ``forward``
 and ``linearize`` derive from it with ``torch.func`` (``vmap`` over
-pixels, ``jacfwd`` per pixel) — the counterparts of ``jax.vmap`` and
-``jax.jacfwd`` in the JAX package.
+pixels, ``jacfwd`` per pixel; ``hessian`` for second derivatives) — the
+counterparts of ``jax.vmap``, ``jax.jacfwd`` and ``jax.hessian`` in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import hessian, jacfwd, vmap
 
 from ..core.types import Linearization
 
@@ -83,6 +84,14 @@ class ObservationModel:
 
         h0, jac = vmap(value_and_jac, in_dims=(dims, 0))(aux, x)
         return Linearization(h0=h0.T, jac=jac.permute(1, 0, 2))
+
+    def hessian(self, aux: Any, x: torch.Tensor) -> torch.Tensor:
+        """(n_pix, p) -> (n_pix, n_bands, p, p) second derivatives
+        (``torch.func.hessian``, forward over reverse, per pixel)."""
+        dims = self.aux_in_axes(aux, x.shape[0])
+        return vmap(
+            lambda a, xi: hessian(lambda z: self.forward_pixel(a, z))(xi),
+            in_dims=(dims, 0))(aux, x)
 
 
 class BandView(ObservationModel):

@@ -1,13 +1,12 @@
 """Raster fixtures (port of ``kafka_tpu/testing/fixtures.py``): the
 Barrax-like footprint, procedural centre-pivot field masks, and on-disk
 sensor data for the real-sensor drivers — a Sentinel-2 granule tree, an
-MCD43 kernel-weight series, a Synergy series and a Sentinel-1 NetCDF
-series — each physically consistent (the port's forward model at a known
-truth).  File names, layouts and random draws are the JAX package's for
+MCD43 kernel-weight series, MOD09GA granules, a Synergy series and a
+Sentinel-1 NetCDF series — each physically consistent (the port's
+forward model at a known truth).  File names, layouts and random draws are the JAX package's for
 the same arguments; the forward models run in PyTorch on the CPU (one
 pixel each), so float values agree to float32 rounding and uint16 DN to
-one count.  The MOD09 granules wait for the Ross-Li kernels (ROADMAP
-Queue 1 item 13b)."""
+one count."""
 
 from __future__ import annotations
 
@@ -127,6 +126,67 @@ def make_s2_granule_tree(
             f.write(_S2_METADATA_XML.format(sza=sza, saa=saa, vza=vza,
                                             vaa=vaa))
     return truth_state
+
+
+def make_mod09_granules(
+    dirpath: str,
+    dates,
+    truth_weights=None,
+    ny: int = 32,
+    nx: int = 32,
+    geo: GeoInfo = DEFAULT_GEO,
+    noise: float = 0.0,
+    seed: int = 0,
+    angles=None,
+):
+    """Write MOD09GA-style granule directories whose 7-band reflectances
+    are the Ross-Li kernel model at ``truth_weights`` under each date's
+    geometry (the JAX package's ``make_mod09_granules``, file for file
+    for the same seed; the kernels are the port's own, on the CPU).
+
+    ``ny, nx`` is the 1 km grid; reflectances are written at the 2x
+    500 m resolution.  ``angles`` maps each date to ``(sza, saa, vza,
+    vaa)`` degrees (a default sweep when None).  Returns the ``(21,)``
+    truth kernel-weight state."""
+    from ..obsops.kernels import ross_li_kernels
+
+    rng = np.random.default_rng(seed)
+    if truth_weights is None:
+        # Plausible MODIS land-band weights: moderate iso, smaller vol/geo.
+        iso = np.array([0.05, 0.3, 0.04, 0.06, 0.25, 0.2, 0.1])
+        truth_weights = np.stack([iso, 0.4 * iso, 0.15 * iso],
+                                 axis=1).reshape(-1)
+    truth_weights = np.asarray(truth_weights, np.float32)
+    w = truth_weights.reshape(7, 3)
+    for di, date in enumerate(dates):
+        if angles is not None:
+            sza, saa, vza, vaa = angles[di]
+        else:  # a geometry sweep makes the kernel weights identifiable
+            sza, saa = 25.0 + 3.0 * di, 140.0
+            vza, vaa = 10.0 + 5.0 * (di % 4), 140.0 + 30.0 * (di % 3)
+        gran = os.path.join(dirpath, f"MOD09GA.A{date.strftime('%Y%j')}")
+        os.makedirs(gran, exist_ok=True)
+        k_vol, k_geo = (float(k) for k in ross_li_kernels(sza, vza,
+                                                          vaa - saa))
+        for band in range(7):
+            refl = w[band, 0] + k_vol * w[band, 1] + k_geo * w[band, 2]
+            field = np.full((2 * ny, 2 * nx), refl, np.float32)
+            if noise > 0:
+                field = field + rng.normal(0, noise, field.shape)
+            write_geotiff(
+                os.path.join(gran, f"sur_refl_b{band + 1:02d}.tif"),
+                np.clip(field * 10000.0, 1.0, 16000.0).astype(np.int16),
+                geo,
+            )
+        write_geotiff(  # QA word 8: clear sky, no shadow, land
+            os.path.join(gran, "state_1km.tif"),
+            np.full((ny, nx), 8, np.uint16), geo,
+        )
+        for name, deg in (("SolarZenith_1", sza), ("SolarAzimuth_1", saa),
+                          ("SensorZenith_1", vza), ("SensorAzimuth_1", vaa)):
+            write_geotiff(os.path.join(gran, name + ".tif"),
+                          np.full((ny, nx), round(deg * 100), np.int16), geo)
+    return truth_weights
 
 
 def make_synergy_series(

@@ -360,6 +360,17 @@ def counted_gn_plain(monkeypatch):
     monkeypatch.setattr(fg, "fused_gn_raw_plain", counted)
 
 
+def test_phase_main_rehearsal(counted_gn_plain):
+    """phase_main at 48 x 48 on the CPU: the tile configuration of
+    tip_tile_run, one fused_gn launch per date, the kernel's inputs kept
+    on KEEP_DATE."""
+    rec, kept = cs.phase_main(torch.device("cpu"), ny=48, nx=48)
+    assert rec["dates_assimilated"] == len(cs.TIP_OBS_DAYS) == \
+        rec["kernel_launches"]
+    assert rec["windows"] == len(cs.TIP_GRID_DAYS) - 1
+    assert kept["xf_rows"].shape == (7, rec["n_pad"])
+
+
 def test_chunk_rasters_is_the_drivers_file_set():
     """The expected names: two chunks, a three-window grid with dates in
     the first two windows (half-open on the right) and none in the last."""
@@ -424,3 +435,129 @@ def test_phase_cli_modis_fails_without_kernel_launches(tmp_path):
     with pytest.raises(AssertionError, match="launches"):
         cs.phase_cli_modis(torch.device("cpu"), str(tmp_path), ny=64,
                            nx=64)
+
+
+# --- the real-sensor path's rest: MOD09, per-pixel, band-sequential,
+# the Hessian correction ------------------------------------------------------
+
+def test_phase_cli_mod09_rehearsal(tmp_path):
+    """phase_cli_mod09 at 96 x 96 px in four 48 x 48 chunks on the CPU:
+    every chunk-date assimilated on the dense path with no kernel
+    launch, 8 windows x 21 weights x 2 rasters per chunk, b1_iso at the
+    truth, the restart that skips every chunk, the unfused first chunk
+    equal to the fused run, the dense update's parts timed."""
+    rec = cs.phase_cli_mod09(torch.device("cpu"), str(tmp_path), ny=96,
+                             nx=96, chunk=48)
+    assert rec["chunks"] == 4 and rec["stats"]["dates_assimilated"] == 32
+    assert rec["kernel_launches"]["fused_update"] == 0
+    assert rec["geotiffs"] == 4 * cs.CLI_MOD09_DATES * 21 * 2
+    assert (rec["restart"]["stats"]["run"],
+            rec["restart"]["stats"]["skipped"]) == (0, 4)
+    assert rec["unfused_first_chunk"]["differing"] == 0
+    assert rec["unfused_first_chunk"]["files"] == cs.CLI_MOD09_DATES * 42
+    assert any(rec["fused_per_date"])
+    split = rec["dense_update_split"]
+    assert split["nonfinite_pixels"] == 0 and split["updates_per_date"] >= 2
+    assert {"assembly_ms", "cholesky_ex_ms", "triangular_solves_ms",
+            "propagation_ms"} <= set(split)
+
+
+def test_phase_cli_mod09_refuses_a_retrieval_off_the_truth(tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setattr(cs, "MOD09_ISO_GATE", 0.0)
+    with pytest.raises(AssertionError, match="b1_iso"):
+        cs.phase_cli_mod09(torch.device("cpu"), str(tmp_path), ny=48,
+                           nx=48, chunk=48)
+
+
+def test_phase_per_pixel_rehearsal(counted_plain):
+    """phase_per_pixel at 48 x 48 on the CPU: (7, 2) launches equal the
+    iterations, the converged fraction and its gauge equal the frozen
+    mask's mean, the plain loop's run the same; then the kernel phase on
+    the kept iteration."""
+    rec, kept = cs.phase_per_pixel(torch.device("cpu"), ny=48, nx=48)
+    assert rec["kernel_launches"]["fused_update_by_instance"] == \
+        {"7x2": rec["iterations"]}
+    assert rec["gauge"] == rec["converged_frac"][-1]
+    assert len(rec["converged_frac"]) == rec["dates_assimilated"] == 6
+    assert rec["vs_plain"]["max_abs_err"] <= cs.X_ATOL
+    default = rec["default_blocks"]
+    assert len(default["date_wall_s"]) == 1 and default["iterations"] >= 1
+    assert kept["xf_rows"].shape == (7, rec["n_pad"])
+    _held(kept)
+
+
+def test_phase_per_pixel_fails_without_kernel_launches():
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_per_pixel(torch.device("cpu"), ny=48, nx=48)
+
+
+def test_phase_band_seq_rehearsal(counted_plain):
+    """phase_band_seq at 48 x 48 on the CPU: two dates, (7, 1) launches
+    equal the per-band iterations, no block fused, the plain loop's run
+    the same; then the kernel phases at (7, 1) on the kept inputs and on
+    seeded rows of the other one-band instances."""
+    rec, kept = cs.phase_band_seq(torch.device("cpu"), ny=48, nx=48)
+    assert rec["kernel_launches"]["fused_update_by_instance"] == \
+        {"7x1": rec["iterations"]}
+    assert rec["iterations"] == sum(rec["iterations_plain"])
+    assert not any(d["fused"] for d in rec["per_date"])
+    assert kept["h0"].shape[0] == 1
+    _held(kept)
+    for p, nb in ((2, 1), (10, 1), (11, 1)):
+        rows = cs.seeded_update_rows(p, nb, 1000, torch.device("cpu"), p)
+        assert rows["jac_rows"].shape == (p, 1000)
+        assert rows["pf_rows"].shape == (p * (p + 1) // 2, 1000)
+        rec = cs.phase_kernel_update(torch.device("cpu"), "seeded", rows,
+                                     kernel_reps=1, plain_reps=1)
+        assert not any(rec["pixels_differing_from_plain"].values())
+
+
+def test_phase_band_seq_fails_without_kernel_launches():
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_band_seq(torch.device("cpu"), ny=48, nx=48)
+
+
+def test_phase_band_seq_fleet_rehearsal(counted_plain):
+    """phase_band_seq_fleet at 12 x 12 on the CPU: the WCM, S2 and joint
+    runs each launch only their one-band instance, as often as their
+    per-band iterations, with no block fused; then the kernel phase on
+    each kept instance."""
+    rec, kept = cs.phase_band_seq_fleet(torch.device("cpu"), ny=12, nx=12)
+    runs = rec["runs"]
+    assert {name: r["instance"] for name, r in runs.items()} == \
+        {"wcm": "2x1", "s2": "10x1", "joint": "11x1"}
+    for r in runs.values():
+        assert r["kernel_launches"]["fused_update_by_instance"] == \
+            {r["instance"]: r["iterations"]}
+        assert not any(d["fused"] for d in r["per_date"])
+    assert [runs[n]["dates_assimilated"] for n in ("wcm", "s2", "joint")] \
+        == [1, 1, 2]
+    assert set(kept) == {(2, 1), (10, 1), (11, 1)}
+    for (p, nb), rows in kept.items():
+        assert rows["xf_rows"].shape[0] == p and rows["h0"].shape[0] == nb
+        upd = cs.phase_kernel_update(torch.device("cpu"), "rehearsal", rows,
+                                     kernel_reps=1, plain_reps=1)
+        assert not any(upd["pixels_differing_from_plain"].values())
+
+
+def test_phase_band_seq_fleet_fails_without_kernel_launches():
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_band_seq_fleet(torch.device("cpu"), ny=12, nx=12)
+
+
+def test_phase_hessian_rehearsal(counted_gn_plain):
+    """phase_hessian at 48 x 48 on the CPU: one fused_gn launch, A
+    finite and above the floor, the correction held to float64, the
+    pixels the floor leaves alone equal to A - C bit for bit."""
+    rec = cs.phase_hessian(torch.device("cpu"), ny=48, nx=48)
+    assert rec["kernel_launches"]["fused_gn"] == 1
+    assert rec["a_finite"] and rec["healthy_a_equal_a_minus_c"]
+    assert rec["pixels_below_floor"] == 0
+    assert rec["correction_vs_f64"]["max"] <= cs.HESSIAN_RTOL
+    assert rec["correction_max_abs"] > 0
+
+
+def test_phase_hessian_fails_without_kernel_launch():
+    with pytest.raises(AssertionError, match="launches"):
+        cs.phase_hessian(torch.device("cpu"), ny=48, nx=48)

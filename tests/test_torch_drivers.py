@@ -538,6 +538,27 @@ def test_drivers_default_to_cuda(modis, monkeypatch):
     assert not os.path.exists(modis["root"] / "refused")
 
 
+@pytest.fixture(scope="module")
+def mod09(tmp_path_factory):
+    """A 16 x 16 MOD09 tree (four dates, two days apart) under a full
+    mask, with the MOD09 driver's config cut to 2017-06-07."""
+    from kafka_tpu_torch.cli import run_mod09 as tmod09
+    from kafka_tpu_torch.testing.fixtures import make_mod09_granules
+
+    root = tmp_path_factory.mktemp("mod09")
+    dates = [day(2017, 6, 1) + datetime.timedelta(days=2 * i)
+             for i in range(4)]
+    make_mod09_granules(str(root / "mod09"), dates, ny=8, nx=8,
+                        noise=0.002, seed=5, geo=GEO)
+    write_geotiff(str(root / "mask.tif"), np.ones((16, 16), np.uint8), GEO)
+    cfg = tmod09.default_config()
+    cfg.end = day(2017, 6, 7)
+    cfg.chunk_size = (16, 16)
+    cfg.pad_multiple = 64
+    cfg.save(str(root / "cfg.json"))
+    return {"root": root, "data": root / "mod09"}
+
+
 @pytest.mark.parametrize("change,match", [
     (dict(device_mesh="local"), "slice 5"),
     (dict(operator="kernels"), "13b"),
@@ -546,15 +567,61 @@ def test_drivers_default_to_cuda(modis, monkeypatch):
     (dict(band_sequential=True), "band_sequential"),
     (dict(hessian_correction=True), "hessian_correction"),
 ])
-def test_unported_options_raise(modis, tmp_path, change, match):
-    cfg = RunConfig.load(str(modis["root"] / "cfg.json"))
-    cfg.data_folder = str(modis["root"] / "mcd43")
-    cfg.state_mask = str(modis["root"] / "mask.tif")
-    cfg.output_folder = str(tmp_path)
+def test_unported_options_raise(modis, mod09, tmp_path, change, match):
+    """Of these options only ``device_mesh="local"`` is still refused
+    (ROADMAP slice 5).  The others run, each through both packages'
+    ``run_config`` on the same tree and held to the JAX driver by the
+    budgets of ``same_outputs``: the kernel-weight ones (``match``
+    "13b") over the MOD09 tree with the MOD09 driver's config, the
+    engine modes over the MCD43 tile with the MODIS driver's."""
+    from kafka_tpu.cli import drivers as jdrivers
+    from kafka_tpu.engine.config import RunConfig as JRunConfig
+
+    tree = mod09 if match == "13b" else modis
+    root = tree["root"]
+    cfg = RunConfig.load(str(root / "cfg.json"))
+    cfg.data_folder = str(tree.get("data", root / "mcd43"))
+    cfg.state_mask = str(root / "mask.tif")
+    cfg.output_folder = str(tmp_path / "torch")
     for k, v in change.items():
         setattr(cfg, k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        drivers.run_config(cfg, device="cpu")
+    if match == "slice 5":
+        with pytest.raises(NotImplementedError, match=match):
+            drivers.run_config(cfg, device="cpu")
+        return
+    st = drivers.run_config(cfg, device="cpu")
+    jcfg = JRunConfig.from_json(cfg.to_json())
+    jcfg.output_folder = str(tmp_path / "jax")
+    sj = jdrivers.run_config(jcfg)
+    assert but_wall(st) == but_wall(sj) and st["run"] == 1
+    assert same_outputs(tmp_path / "torch", tmp_path / "jax") > 0
+
+
+def test_synergy_driver_matches_jax(modis, tmp_path):
+    """``observations="synergy"`` (broadband VIS/NIR BHR from per-band
+    kernel-weight series) through the two-stream operator and the JRC
+    prior: the MODIS driver's config with the Synergy reader, run by
+    both packages' ``run_config`` on one ``make_synergy_series`` tree."""
+    from kafka_tpu.cli import drivers as jdrivers
+    from kafka_tpu.engine.config import RunConfig as JRunConfig
+    from kafka_tpu_torch.testing.fixtures import make_synergy_series
+
+    root = modis["root"]
+    make_synergy_series(str(tmp_path / "syn"), MODIS_DATES, ny=40, nx=40,
+                        geo=GEO)
+    cfg = RunConfig.load(str(root / "cfg.json"))
+    cfg.observations = "synergy"
+    cfg.data_folder = str(tmp_path / "syn")
+    cfg.state_mask = str(root / "mask.tif")
+    cfg.output_folder = str(tmp_path / "torch")
+    st = drivers.run_config(cfg, device="cpu")
+    jcfg = JRunConfig.from_json(cfg.to_json())
+    jcfg.output_folder = str(tmp_path / "jax")
+    sj = jdrivers.run_config(jcfg)
+    assert but_wall(st) == but_wall(sj)
+    assert (st["run"], st["dates_assimilated"]) == (1, 4)
+    # 4 windows x (7 states + 7 sigmas + QA)
+    assert same_outputs(tmp_path / "torch", tmp_path / "jax") == 4 * 15
 
 
 @pytest.mark.parametrize("kw", [dict(num_processes=2), dict(queue=True)])

@@ -55,9 +55,10 @@ def _rows(p, n_bands, n, seed):
     ), (jac, h0, y, w, mask, x_f, x_lin, p_inv)
 
 
-@pytest.mark.parametrize("n", [256, 1280])
-@pytest.mark.parametrize("p,n_bands", [(7, 2), (10, 10), (2, 2), (11, 10),
-                                       (11, 2)])
+@pytest.mark.parametrize("p,n_bands,n", [
+    (p, nb, n) for n in (256, 1280)
+    for p, nb in ((7, 2), (10, 10), (2, 2), (11, 10), (11, 2))
+] + [(2, 1, 256), (7, 1, 256), (10, 1, 256), (11, 1, 256)])
 def test_plain_fused_update_matches_jax_kernel(p, n_bands, n):
     rows, _ = _rows(p, n_bands, n, seed=p * 1000 + n)
     order = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
@@ -94,7 +95,8 @@ def test_escalation_inflates_the_factored_diagonal_only():
 
 
 @pytest.mark.parametrize("p,n_bands", [(7, 2), (10, 10), (2, 2), (11, 10),
-                                       (11, 2)])
+                                       (11, 2), (2, 1), (7, 1), (10, 1),
+                                       (11, 1)])
 def test_kalman_update_use_pallas_matches_jax_fused_update(p, n_bands):
     _, (jac, h0, y, w, mask, x_f, x_lin, p_inv) = _rows(p, n_bands, 256,
                                                         seed=p)
@@ -129,15 +131,17 @@ def test_jac_to_rows_is_the_jax_relayout():
 @pytest.mark.parametrize("p,n_bands", [(3, 2), (10, 2), (7, 10), (21, 7),
                                        (2, 10), (11, 7)])
 def test_unsupported_instance_raises(p, n_bands):
-    """The CUDA kernel has the (10, 10), (7, 2), (2, 2), (11, 10) and
-    (11, 2) instances; any other shape on a CUDA tensor raises, naming
-    them, before any launch."""
+    """The CUDA kernel has the (10, 10), (7, 2), (2, 2), (11, 10),
+    (11, 2), (2, 1), (7, 1), (10, 1) and (11, 1) instances; any other
+    shape on a CUDA tensor raises, naming them, before any launch (the
+    p = 21 kernel-weight state takes the dense library path instead)."""
     with pytest.raises(NotImplementedError, match=r"\(10, 10\), \(7, 2\)"):
         tfu.check_instance(p, n_bands)
 
 
 @pytest.mark.parametrize("p,n_bands", [(10, 10), (7, 2), (2, 2), (11, 10),
-                                       (11, 2)])
+                                       (11, 2), (2, 1), (7, 1), (10, 1),
+                                       (11, 1)])
 def test_supported_instances_pass_the_check(p, n_bands):
     tfu.check_instance(p, n_bands)
 

@@ -54,13 +54,15 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.cli.drivers, kafka_tpu_torch.cli.run_s2, "
         "kafka_tpu_torch.cli.run_modis, kafka_tpu_torch.cli.run_s1, "
         "kafka_tpu_torch.cli.run_joint, kafka_tpu_torch.cli.mosaic, "
-        "kafka_tpu_torch.cli.import_emulators\n"
+        "kafka_tpu_torch.cli.import_emulators, kafka_tpu_torch.core.hessian, "
+        "kafka_tpu_torch.obsops.kernels, kafka_tpu_torch.io.mod09, "
+        "kafka_tpu_torch.cli.run_mod09\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"
         "from kafka_tpu_torch.core import (flat_to_pixel_major, "
         "pixel_major_to_flat, block_diag_to_batched, blend_gaussians, "
-        "linear_solve)\n"
+        "linear_solve, build_normal_equations, hessian_correction)\n"
         "from kafka_tpu_torch.io import (read_info, read_geotiff_window, "
         "TiledTiffWriter, TiffInfo, CompositeObservations, "
         "BHRObservations, SynergyKernels, S1Observations, "
@@ -68,16 +70,21 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "geometry_bank_aux_builder, parse_s2_xml, Chunk, "
         "chunk_geotransform, chunk_mask, get_chunks, from_lonlat, "
         "grid_mapping, lonlat_to_utm, reproject_raster, resample, "
-        "to_lonlat, utm_to_lonlat)\n"
+        "to_lonlat, utm_to_lonlat, MOD09Observations, decode_state_qa, "
+        "zoom2_nearest)\n"
         "from kafka_tpu_torch.testing.fixtures import (make_s2_granule_tree, "
-        "make_mcd43_series, make_s1_series, make_synergy_series)\n"
+        "make_mcd43_series, make_s1_series, make_synergy_series, "
+        "make_mod09_granules)\n"
         "from kafka_tpu_torch.testing import (SyntheticObservations, "
         "MemoryOutput, make_tip_problem, make_prosail_problem, "
         "run_tip_engine, run_s2_engine, s2_observations, "
         "joint_observations)\n"
         "from kafka_tpu_torch.obsops import (WCMOperator, WCMAux, "
         "ProsailJointOperator, WCMJointOperator, GPBankOperator, "
-        "MLPOperator, BandView, MappedStateModel)\n"
+        "MLPOperator, BandView, MappedStateModel, KernelsOperator, "
+        "KernelsAux, ross_li_kernels)\n"
+        "from kafka_tpu_torch.engine import (kernels_prior, "
+        "KERNEL_PARAMETER_LIST)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')]\n"
         "print(bad)\n"
@@ -113,7 +120,7 @@ def _entry_points():
     from kafka_tpu_torch.cli import run_synthetic
     from kafka_tpu_torch.core.types import BandBatch
     from kafka_tpu_torch.engine import KalmanFilter, jrc_prior, sail_prior
-    from kafka_tpu_torch.engine import joint_prior, wcm_prior
+    from kafka_tpu_torch.engine import joint_prior, kernels_prior, wcm_prior
     from kafka_tpu_torch.obsops import TwoStreamOperator, fit_gp, fit_mlp
     from kafka_tpu_torch.testing.synthetic import (SyntheticObservations,
                                                    joint_observations,
@@ -123,10 +130,12 @@ def _entry_points():
                                                    run_tip_engine,
                                                    s2_observations)
 
-    from kafka_tpu_torch.cli import (drivers, run_joint, run_modis, run_s1,
-                                     run_s2)
-    from kafka_tpu_torch.io import (BHRObservations, S1Observations,
-                                    Sentinel2Observations, SynergyKernels)
+    from kafka_tpu_torch.cli import (drivers, run_joint, run_mod09,
+                                     run_modis, run_s1, run_s2)
+    from kafka_tpu_torch.io import (BHRObservations, MOD09Observations,
+                                    S1Observations, Sentinel2Observations,
+                                    SynergyKernels)
+    from kafka_tpu_torch.obsops import KernelsOperator
 
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
@@ -134,6 +143,12 @@ def _entry_points():
     return {
         "run_s2.main": lambda: run_s2.main(["--outdir", os.devnull]),
         "run_modis.main": lambda: run_modis.main(["--outdir", os.devnull]),
+        "run_mod09.main": lambda: run_mod09.main(["--outdir", os.devnull]),
+        "MOD09Observations": lambda: MOD09Observations(str(REPO),
+                                                       KernelsOperator()),
+        "kernels_prior": lambda: kernels_prior(),
+        "RunConfig.make_initial_prior kernels":
+            lambda: run_mod09.default_config().make_initial_prior(),
         "run_s1.main": lambda: run_s1.main(["--outdir", os.devnull]),
         "run_joint.main": lambda: run_joint.main(
             ["--outdir", os.devnull, "--s1-folder", os.devnull]),
@@ -188,7 +203,8 @@ def _entry_points():
      "fit_mlp", "run_s2.main", "run_modis.main", "run_s1.main",
      "run_joint.main", "run_config", "RunConfig.make_prior",
      "Sentinel2Observations", "BHRObservations", "SynergyKernels",
-     "S1Observations"]))
+     "S1Observations", "run_mod09.main", "MOD09Observations",
+     "kernels_prior", "RunConfig.make_initial_prior kernels"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

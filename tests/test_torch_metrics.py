@@ -16,7 +16,7 @@ only the counts and buckets: its pinned pixels' innovations are read at
 iterates clipped against data beyond the bound, with sigma 0.001, where
 an ulp of the iterate moves chi^2 by percents.
 ``kafka_engine_converged_frac`` comes with
-``per_pixel_convergence`` and is not compared.
+``per_pixel_convergence`` and is compared in test_torch_per_pixel.py.
 
 The faults run arms the ``solver.pixel`` fault on pixels 3-5 (their
 linearisation reads NaN: quarantined) and starts 16 pixels on the upper

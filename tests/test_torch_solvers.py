@@ -208,9 +208,11 @@ def test_operator_without_inkernel_defaults_to_plain_loop(monkeypatch):
     "operator_params", "per_pixel_convergence", "hessian",
 ])
 def test_unported_paths_raise(case, monkeypatch):
-    """The first four cases once raised for want of the fused update;
-    they now run through the row loop around it.  The rest are still
-    not ported and raise."""
+    """Paths the port once refused.  The first four run through the row
+    loop around the fused update; per-pixel convergence and the Hessian
+    correction run too, each held to the JAX package on the same
+    problem (the per-pixel frozen mask and iterations equal, x within
+    X_ATOL; the corrected A within the A budget)."""
     updates = _spy_update(monkeypatch)
     coeff, bands, x0, p0 = _quad(n=64, seed=3)
     op = _TorchQuad(coeff)
@@ -228,21 +230,44 @@ def test_unported_paths_raise(case, monkeypatch):
     elif case == "per_pixel_convergence":
         opts = {"per_pixel_convergence": True}
     else:
-        hess = op.linearize
-    def run():
-        return tsolvers.assimilate_date(
-            lin, convert.band_batch(*bands, "cpu"), x0, p0, params, opts,
-            hess, device="cpu")
+        c = torch.as_tensor(coeff)
 
+        def hess(x_pixel):
+            return (c * x_pixel ** 2).sum(dim=-1)
+
+    x, a, d = tsolvers.assimilate_date(
+        lin, convert.band_batch(*bands, "cpu"), x0, p0, params, opts,
+        hess, device="cpu")
+    assert np.isfinite(x.numpy()).all()
     if case in ("pallas_no_inkernel", "inkernel_opt_out", "per_pixel_bounds",
                 "operator_params"):
-        x, a, d = run()
         assert len(updates) == int(d.n_iterations) > 0
-        assert np.isfinite(x.numpy()).all()
         assert d.health_verdicts is not None
+        return
+    jop = _JaxQuad(coeff)
+    jc = jnp.asarray(coeff)
+    jhess = None if hess is None \
+        else (lambda x_pixel: (jc * x_pixel ** 2).sum(axis=-1))
+    jopts = dict(opts, use_pallas=True)
+    xj, aj, dj = jsolvers.assimilate_date_jit(
+        jop.linearize, JBandBatch(*(jnp.asarray(v) for v in bands)),
+        jnp.asarray(x0), jnp.asarray(p0), None, jopts, jhess)
+    assert int(d.n_iterations) == int(dj.n_iterations)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=X_ATOL)
+    aj = np.asarray(aj)
+    diag = np.abs(np.diagonal(aj, axis1=-2, axis2=-1))
+    scale = np.sqrt(diag[:, :, None] * diag[:, None, :])
+    assert (np.abs(a.numpy() - aj) <= A_TOL + A_TOL * scale).all()
+    if case == "per_pixel_convergence":
+        np.testing.assert_array_equal(d.converged_mask.numpy(),
+                                      np.asarray(dj.converged_mask))
+        assert d.health_verdicts is None and not updates
     else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run()
+        # The in-kernel loop, then the correction: A moves, x does not.
+        _, a0, _ = tsolvers.assimilate_date(
+            lin, convert.band_batch(*bands, "cpu"), x0, p0, None, {},
+            device="cpu")
+        assert np.abs(a.numpy() - a0.numpy()).max() > 1e-3
 
 
 def test_structural_option_keys_carry_over():

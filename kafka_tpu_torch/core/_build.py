@@ -12,6 +12,7 @@ with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import concurrent.futures
+import threading
 import ctypes
 import hashlib
 import os
@@ -42,6 +43,9 @@ SOURCE_FLAGS = {
 }
 
 _LOADED: dict = {}
+_LOAD_LOCK = threading.Lock()
+#: every kernel source of the package (``csrc/<name>.cu``).
+KERNEL_SOURCES = ("fused_gn", "fused_update", "solve_rows")
 #: name -> {"path", "seconds", "log", "cached"} of the builds made or
 #: found by this process.
 BUILDS: dict = {}
@@ -165,8 +169,10 @@ def attributes(name: str, symbol: str, *int_args) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
-    return lib
+    """The loaded library for ``csrc/<name>.cu``, built if needed (one
+    thread builds; the others wait for it)."""
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+        return lib

@@ -105,11 +105,14 @@ def _bounds(state_bounds_rows, p: int):
 def fused_gn_raw_plain(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                        min_iterations: int, max_iterations: int, relaxation,
                        state_bounds_rows, norm_denominator,
-                       block: int = 2048, corrupt=None):
+                       block: int = 2048, corrupt=None, scalar_n=None):
     """Plain PyTorch version of the kernel; returns
     ``(x, a, fwd, inn, st, hl)`` rows.  All pixels step together; a
     converged group keeps its carry by select, which is what the TPU
-    kernel's skipped trips leave."""
+    kernel's skipped trips leave.  ``scalar_n`` (default ``n``) is the
+    pixel count whose share of the convergence test each group takes:
+    a launch of K members folded into one pixel axis passes one
+    member's ``n`` with the member's group size as ``block``."""
     f32 = torch.float32
     n_coeff, n = pf_rows.shape
     p = xf_rows.shape[0]
@@ -120,7 +123,8 @@ def fused_gn_raw_plain(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     block = _block(n, block)
     n_blk = n // block
     relax, thresh_sq, moving_sq = _scalars(
-        tol, norm_denominator, relaxation, block, n, p
+        tol, norm_denominator, relaxation, block,
+        n if scalar_n is None else scalar_n, p
     )
     bnd = _bounds(state_bounds_rows, p)
     lo = hi = None
@@ -269,7 +273,8 @@ def fused_gn_raw_plain(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
 
 def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                  min_iterations, max_iterations, relaxation,
-                 state_bounds_rows, norm_denominator, block, corrupt):
+                 state_bounds_rows, norm_denominator, block, corrupt,
+                 scalar_n=None):
     """Launch ``csrc/fused_gn.cu`` on the current stream (no sync)."""
     from . import _build
 
@@ -296,7 +301,8 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
         cor_ptr = cor.data_ptr()
     block = launch_geometry(n, block)["group"]
     relax, thresh_sq, moving_sq = _scalars(
-        tol, norm_denominator, relaxation, block, n, p
+        tol, norm_denominator, relaxation, block,
+        n if scalar_n is None else scalar_n, p
     )
     bnd = _bounds(state_bounds_rows, p)
     has_bounds = bnd is not None
@@ -359,12 +365,13 @@ def kernel_geometry(n: int, block: int = 2048) -> dict:
 def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                  min_iterations: int, max_iterations: int, relaxation,
                  state_bounds_rows, norm_denominator, block: int = 2048,
-                 corrupt=None):
+                 corrupt=None, scalar_n=None):
     """Raw outputs ``(x, a, fwd, inn, st, hl)``: the plain version for
-    CPU tensors, the CUDA kernel for CUDA tensors."""
+    CPU tensors, the CUDA kernel for CUDA tensors (``scalar_n``: see
+    :func:`fused_gn_raw_plain`)."""
     args = (lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
             min_iterations, max_iterations, relaxation, state_bounds_rows,
-            norm_denominator, block, corrupt)
+            norm_denominator, block, corrupt, scalar_n)
     if xf_rows.device.type == "cpu":
         return fused_gn_raw_plain(*args)
     if xf_rows.device.type == "cuda":
@@ -378,7 +385,10 @@ def summarise(raw, n: int, block: int, norm_denominator):
     ``n_done`` the max over groups, ``norm`` the global final step norm."""
     x, a, fwd, inn, st, hl = raw
     block = _block(n, block)
-    per_block = st[:, ::block]
+    # A fresh contiguous copy: the sums below then see the same layout
+    # whether ``raw`` is one launch's output or one member's slice of a
+    # folded launch (serve.batch), and give the same bits.
+    per_block = st[:, ::block].contiguous()
     n_done = per_block[0].max().to(torch.int32)
     numel = torch.tensor(float(norm_denominator), dtype=torch.float32,
                          device=st.device)

@@ -232,6 +232,41 @@ def _bounds_rows(state_bounds, n_pix: int, p: int, dev):
     return to_rows(lo), to_rows(hi)
 
 
+def _inkernel_ok(linearize, operator_params, min_iterations,
+                 max_iterations, state_bounds, p: int,
+                 inkernel_linearize) -> bool:
+    """The JAX engagement conditions of the in-kernel branch: the
+    operator advertises ``inkernel_linearize``, its params are empty,
+    the iteration bounds are ints and the bounds are per-parameter."""
+    owner = getattr(linearize, "__self__", None)
+    return bool(
+        inkernel_linearize
+        and owner is not None
+        and getattr(owner, "inkernel_linearize", False)
+        and _params_empty(operator_params)
+        and isinstance(min_iterations, int)
+        and isinstance(max_iterations, int)
+        and _kernel_bounds_rows(state_bounds, p) is not False
+    )
+
+
+def _gn_rows_inputs(obs, x_forecast, p_inv_forecast, corrupt):
+    """The fused Gauss-Newton kernel's row inputs of one problem:
+    ``(y, w, mask_f, xf_rows, pf_rows, corrupt)``."""
+    f32 = torch.float32
+    return (obs.y.to(f32).contiguous(), obs.r_inv.to(f32).contiguous(),
+            obs.mask.to(f32).contiguous(), x_forecast.T.to(f32).contiguous(),
+            pack_rows(p_inv_forecast),
+            None if corrupt is None else corrupt.to(f32).contiguous())
+
+
+def _gn_rows_result(summary):
+    """The row path's return tuple from ``fused_gn.summarise``."""
+    x_rows, a_rows, fwd, inn, n_done, norm, verd, nonfin, clip_sat = summary
+    return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done, norm,
+            (verd, nonfin, clip_sat))
+
+
 def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
                          operator_params, tol, min_iterations,
                          max_iterations, relaxation, state_bounds,
@@ -240,45 +275,94 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
     """The fused path in row layout (JAX ``_iterated_solve_rows``).
 
     The in-kernel branch runs the whole loop in ``fused_gn_rows`` when
-    the operator advertises ``inkernel_linearize``, the operator params
-    are empty, the iteration bounds are ints and the bounds are
-    per-parameter.  Otherwise the out-of-kernel row loop: P_f^-1 is packed
-    to (tri(p), n) rows once, the iterate is carried as (p, n) rows, and
-    each iteration linearises (in blocks when ``linearize_block`` is
-    smaller than the batch) and launches the fused update once; the LM
+    ``_inkernel_ok`` holds.  Otherwise the out-of-kernel row loop
+    (``_row_loop``, one launch of the fused update per iteration)."""
+    n_pix, p = x_forecast.shape
+    numel = (n_pix * p) if norm_denominator is None else norm_denominator
+    if _inkernel_ok(linearize, operator_params, min_iterations,
+                    max_iterations, state_bounds, p, inkernel_linearize):
+        y, w, mask_f, xf_rows, pf_rows, cor = _gn_rows_inputs(
+            obs, x_forecast, p_inv_forecast, corrupt)
+        return _gn_rows_result(fused_gn_rows(
+            linearize.__self__.kernel_linearize_rows, y, w, mask_f,
+            xf_rows, pf_rows, tol, min_iterations, max_iterations,
+            relaxation, _kernel_bounds_rows(state_bounds, p), numel,
+            corrupt=cor, device=x_forecast.device,
+        ))
+    return run_row_loops([_row_loop(
+        linearize, obs, x_forecast, p_inv_forecast, operator_params, tol,
+        min_iterations, max_iterations, relaxation, state_bounds,
+        norm_denominator, linearize_block, corrupt)])[0]
+
+
+#: argument positions of ``fused_update_rows`` that stay the same
+#: tensors for a problem's whole loop (y, w, mask, x_f and P_f^-1 rows).
+_LOOP_CONSTANT_ARGS = (2, 3, 4, 6, 7)
+
+
+def run_row_loops(loops):
+    """Run row-loop generators (``_row_loop``) in lockstep and return
+    their results: each round, ONE ``fused_update_rows`` launch over
+    every problem still iterating, their pixel axes concatenated (the
+    kernel is per pixel, so each problem's pixels get the bits a launch
+    of its own would give).  A finished problem drops out and keeps its
+    bytes; everything else each problem computes on its own slice."""
+    results = [None] * len(loops)
+    pending = {}
+
+    def advance(k, sent):
+        try:
+            pending[k] = loops[k].send(sent)
+        except StopIteration as stop:
+            results[k] = stop.value
+
+    for k in range(len(loops)):
+        advance(k, None)
+    joined, joined_for = {}, None
+    while pending:
+        keys = sorted(pending)
+        if keys != joined_for:  # a member finished: rejoin the rest
+            joined, joined_for = {}, keys
+        args = [pending.pop(k) for k in keys]
+        if len(args) == 1:
+            outs = [fused_update_rows(*args[0])]
+        else:
+            widths = [a[5].shape[1] for a in args]
+            cat = []
+            for i in range(len(args[0])):
+                if i in _LOOP_CONSTANT_ARGS:
+                    if i not in joined:
+                        joined[i] = torch.cat([a[i] for a in args], -1)
+                    cat.append(joined[i])
+                else:
+                    cat.append(torch.cat([a[i] for a in args], dim=-1))
+            raw = fused_update_rows(*cat)
+            parts = [torch.split(t, widths, dim=-1) for t in raw]
+            outs = [tuple(part[m].contiguous() for part in parts)
+                    for m in range(len(args))]
+        for k, out in zip(keys, outs):
+            advance(k, out)
+    return results
+
+
+def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
+              tol, min_iterations, max_iterations, relaxation, state_bounds,
+              norm_denominator, linearize_block=None, corrupt=None):
+    """The out-of-kernel row loop of one problem, as a generator driven
+    by ``run_row_loops``: P_f^-1 is packed to (tri(p), n) rows once, the
+    iterate is carried as (p, n) rows, and each iteration linearises (in
+    blocks when ``linearize_block`` is smaller than the batch), YIELDS
+    the fused update's arguments and receives its outputs; the LM
     retreat, damped relaxation and bounds projection run around it, and
-    the loop keeps the while loop's post-increment cap."""
+    the loop keeps the while loop's post-increment cap.  Returns the
+    row path's result tuple."""
     f32 = torch.float32
     n_pix, p = x_forecast.shape
     n_bands = obs.y.shape[0]
     dev = x_forecast.device
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
-    xf_rows = x_forecast.T.to(f32).contiguous()
-    pf_rows = pack_rows(p_inv_forecast)
-    y = obs.y.to(f32).contiguous()
-    w = obs.r_inv.to(f32).contiguous()
-    mask_f = obs.mask.to(f32).contiguous()
-    owner = getattr(linearize, "__self__", None)
-    kernel_bounds = _kernel_bounds_rows(state_bounds, p)
-    if (
-        inkernel_linearize
-        and owner is not None
-        and getattr(owner, "inkernel_linearize", False)
-        and _params_empty(operator_params)
-        and isinstance(min_iterations, int)
-        and isinstance(max_iterations, int)
-        and kernel_bounds is not False
-    ):
-        cor = None if corrupt is None else corrupt.to(f32).contiguous()
-        x_rows, a_rows, fwd, inn, n_done, norm, verd, nonfin, clip_sat = \
-            fused_gn_rows(
-                owner.kernel_linearize_rows, y, w, mask_f, xf_rows, pf_rows,
-                tol, min_iterations, max_iterations, relaxation,
-                kernel_bounds, numel, corrupt=cor, device=dev,
-            )
-        return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done, norm,
-                (verd, nonfin, clip_sat))
-
+    y, w, mask_f, xf_rows, pf_rows, _ = _gn_rows_inputs(
+        obs, x_forecast, p_inv_forecast, None)
     use_block = linearize_block is not None \
         and 0 < int(linearize_block) < n_pix
     lo = hi = None
@@ -287,43 +371,6 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
     tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
     numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
     relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
-
-    def body_step(x_rows, esc):
-        x_cols = x_rows.T
-        if use_block:
-            lin = _blocked_linearize(linearize, operator_params, x_cols,
-                                     int(linearize_block))
-        else:
-            lin = _call_linearize(linearize, operator_params, x_cols)
-        h0 = lin.h0.to(f32)
-        if corrupt is not None:
-            h0 = solver_health.corrupt_h0(h0, corrupt)
-        h0 = h0.contiguous()
-        jac_rows = jac_to_rows(lin.jac.to(f32))
-        del lin
-        x_raw, a_rows, inn, hb = fused_update_rows(
-            jac_rows, h0, y, w, mask_f, x_rows, xf_rows, pf_rows,
-            esc[None, :].contiguous())
-        step_bad = hb[0] > 0
-        # LM retreat: bad pixels hold position, escalated pixels take
-        # shrunk-relaxation steps; healthy arithmetic is unchanged.
-        esc_now = torch.maximum(esc, step_bad.to(f32))
-        x_tgt = solver_health.retreat(x_raw, x_rows, step_bad[None, :])
-        relax_eff = solver_health.damped_relaxation(relax_t, esc_now)[None, :]
-        x_new = x_rows + relax_eff * (x_tgt - x_rows)
-        at_bound = None
-        if lo is not None:
-            x_new = torch.minimum(torch.maximum(x_new, lo), hi)
-            at_bound = (x_new <= lo) | (x_new >= hi)
-        # fwd = J (x - x_f) + H0 at the damped, projected iterate.
-        fwd = []
-        for b in range(n_bands):
-            s = jac_rows[b * p] * (x_new[0] - xf_rows[0])
-            for k in range(1, p):
-                s = s + jac_rows[b * p + k] * (x_new[k] - xf_rows[k])
-            fwd.append(s + h0[b])
-        return (x_new.contiguous(), a_rows, torch.stack(fwd), inn, esc_now,
-                step_bad, hb[1] > 0, at_bound)
 
     x_rows = xf_rows
     a_rows = torch.zeros((tri_rows(p), n_pix), dtype=f32, device=dev)
@@ -341,13 +388,43 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
         converged = bool(norm < tol_t) and n_done >= min_iterations
         if converged or n_done > max_iterations:
             break
-        x_new, a_rows, fwd, inn, esc, step_bad, x_nonfin, at_bound = \
-            body_step(x_rows, esc)
-        if at_bound is not None:
-            clip = clip * at_bound.to(f32)
+        x_cols = x_rows.T
+        if use_block:
+            lin = _blocked_linearize(linearize, operator_params, x_cols,
+                                     int(linearize_block))
+        else:
+            lin = _call_linearize(linearize, operator_params, x_cols)
+        h0 = lin.h0.to(f32)
+        if corrupt is not None:
+            h0 = solver_health.corrupt_h0(h0, corrupt)
+        h0 = h0.contiguous()
+        jac_rows = jac_to_rows(lin.jac.to(f32))
+        del lin
+        x_raw, a_rows, inn, hb = yield (
+            jac_rows, h0, y, w, mask_f, x_rows, xf_rows, pf_rows,
+            esc[None, :].contiguous())
+        step_bad = hb[0] > 0
+        # LM retreat: bad pixels hold position, escalated pixels take
+        # shrunk-relaxation steps; healthy arithmetic is unchanged.
+        esc = torch.maximum(esc, step_bad.to(f32))
+        x_tgt = solver_health.retreat(x_raw, x_rows, step_bad[None, :])
+        relax_eff = solver_health.damped_relaxation(relax_t, esc)[None, :]
+        x_new = x_rows + relax_eff * (x_tgt - x_rows)
+        if lo is not None:
+            x_new = torch.minimum(torch.maximum(x_new, lo), hi)
+            clip = clip * ((x_new <= lo) | (x_new >= hi)).to(f32)
+        # fwd = J (x - x_f) + H0 at the damped, projected iterate.
+        fwd = []
+        for b in range(n_bands):
+            s = jac_rows[b * p] * (x_new[0] - xf_rows[0])
+            for k in range(1, p):
+                s = s + jac_rows[b * p + k] * (x_new[k] - xf_rows[k])
+            fwd.append(s + h0[b])
+        fwd = torch.stack(fwd)
+        x_new = x_new.contiguous()
         step = x_new - x_rows
         norm = torch.linalg.vector_norm(step) / numel_t
-        nonfin = torch.maximum(nonfin, x_nonfin.to(f32))
+        nonfin = torch.maximum(nonfin, (hb[1] > 0).to(f32))
         bad_now = step_bad.to(f32)
         ssq = (step * step).sum(dim=0)
         x_rows = x_new
@@ -813,6 +890,329 @@ def assimilate_date(linearize: LinearizeFn, obs: BandBatch, x_forecast,
         else torch.as_tensor(corrupt, dtype=f32, device=dev),
         **opts,
     )
+
+
+def structural_options(solver_options) -> tuple:
+    """The structural-option fingerprint of an option dict (normalised,
+    in ``_split_structural_options`` order) — the piece of a serve shape
+    bucket key that comes from solver options.  Does not mutate the
+    input."""
+    return _split_structural_options(dict(solver_options or {}))
+
+
+def _stack_leaves(values):
+    """One stacked leaf from K members' values: tensors and arrays stack,
+    Python numbers become a float64 / int64 tensor (exact for every
+    float32 and Python float), tuples and lists stack element-wise."""
+    first = values[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_leaves(list(col)) for col in zip(*values))
+    if isinstance(first, torch.Tensor):
+        return torch.stack([torch.as_tensor(v, device=first.device)
+                            for v in values])
+    if isinstance(first, np.ndarray) and first.ndim:
+        return torch.as_tensor(np.stack(values))
+    if isinstance(first, (bool, int, np.integer)) \
+            and not isinstance(first, (float, np.floating)):
+        return torch.tensor([int(v) for v in values], dtype=torch.int64)
+    return torch.tensor([float(v) for v in values], dtype=torch.float64)
+
+
+def _unstack_leaf(value, k: int):
+    """Member ``k`` of a stacked leaf: Python numbers come back as the
+    Python numbers they were, tensors as member ``k``'s slice."""
+    if isinstance(value, (tuple, list)):
+        return type(value)(_unstack_leaf(v, k) for v in value)
+    leaf = value[k]
+    if leaf.ndim == 0 and leaf.dtype in (torch.float64, torch.int64):
+        return leaf.item()
+    return leaf
+
+
+def stack_solver_options(options_list):
+    """Merge per-member solver-option dicts into ONE batched dict for
+    ``assimilate_date_batch``: structural options must agree across
+    members and pass through as plain values; every numeric leaf gains
+    a leading member axis (``_stack_leaves``), so each member sees
+    exactly its own value.
+
+    Raises ``ValueError`` when members disagree structurally or carry
+    different option keys — such requests belong to different shape
+    buckets and must not share a launch."""
+    dicts = [dict(o or {}) for o in options_list]
+    statics = [_split_structural_options(d) for d in dicts]
+    if any(s != statics[0] for s in statics[1:]):
+        raise ValueError(
+            "batch members disagree on structural solver options: "
+            f"{[s for s in statics]}"
+        )
+    keys = sorted(dicts[0])
+    if any(sorted(d) != keys for d in dicts[1:]):
+        raise ValueError(
+            "batch members carry different solver-option keys: "
+            f"{[sorted(d) for d in dicts]}"
+        )
+    out = {k: _stack_leaves([d[k] for d in dicts]) for k in keys}
+    for key, value in zip(STRUCTURAL_OPTION_KEYS, statics[0]):
+        if value is not None:
+            out[key] = value
+    return out
+
+
+def _member_numeric(value) -> tuple:
+    """A hashable, exact fingerprint of one option value (a group of
+    folded members must share every scalar the kernel takes)."""
+    if value is None:
+        return (None,)
+    if isinstance(value, (tuple, list)):
+        return tuple(_member_numeric(v) for v in value)
+    if isinstance(value, torch.Tensor):
+        a = value.detach().cpu().numpy()
+        return (a.shape, str(a.dtype), a.tobytes())
+    return (type(value).__name__, value)
+
+
+def _fused_gn_fold(linearize, members, tol, min_iterations, max_iterations,
+                   relaxation, state_bounds, numels):
+    """One ``fused_gn`` launch over members that share every scalar the
+    kernel takes: their pixel axes concatenated, each member's
+    convergence groups pinned to its solo size (``_block(n, 2048)``:
+    the fold's own gcd could be larger and merge groups across
+    members) and each group's share of the convergence test taken from
+    the member's own ``n`` and norm denominator.  Returns each
+    member's row-path result, summarised on its own slice with the solo
+    code."""
+    from . import fused_gn as fg
+
+    n = members[0][1].shape[0]
+    p = members[0][1].shape[1]
+    block = fg._block(n, 2048)
+    inputs = [_gn_rows_inputs(obs, x_f, p_inv_f, cor)
+              for obs, x_f, p_inv_f, cor in members]
+    cors = [inp[5] for inp in inputs]
+    cor = None
+    if any(c is not None for c in cors):
+        cor = torch.cat([
+            torch.zeros(n, dtype=torch.float32, device=members[0][1].device)
+            if c is None else c.reshape(n) for c in cors])
+    cat = [torch.cat([inp[i] for inp in inputs], dim=-1) for i in range(5)]
+    raw = fg.fused_gn_raw(
+        linearize.__self__.kernel_linearize_rows, *cat, tol,
+        min_iterations, max_iterations, relaxation,
+        _kernel_bounds_rows(state_bounds, p), numels[0], block, cor,
+        scalar_n=n,
+    )
+    return [
+        _gn_rows_result(fg.summarise(
+            tuple(t[:, m * n:(m + 1) * n].contiguous() for t in raw), n,
+            block, numels[m]))
+        for m in range(len(members))
+    ]
+
+
+def assimilate_date_batch(linearize: LinearizeFn, obs: BandBatch,
+                          x_forecast, p_inv_forecast,
+                          operator_params: Any = None,
+                          solver_options: Any = None,
+                          hessian_forward: Any = None, corrupt: Any = None,
+                          device=None):
+    """Coalesced-serving twin of :func:`assimilate_date` (the JAX
+    ``assimilate_date_batch_jit``): K compatible members stacked on a
+    leading axis ride one round.
+
+    Every argument carries a leading member axis K: ``obs`` fields
+    (K, n_bands, n_pad), states (K, n_pad, p), information matrices
+    (K, n_pad, p, p), ``operator_params`` leaves stacked leaf-wise (or
+    None), ``solver_options`` a batched dict from
+    :func:`stack_solver_options` and ``corrupt`` a (K, n_pad) mask or
+    None (a row of zeros leaves its member untouched).
+
+    Each member keeps its own convergence norm, its own iteration count
+    and its own ``norm_denominator``, and its output slice is
+    bit-identical to a solo ``assimilate_date`` on the same inputs:
+
+    - the in-kernel ``fused_gn`` path: ONE launch over ``K * n_pad``
+      pixels (``_fused_gn_fold``; members whose kernel scalars differ
+      take one launch per distinct set);
+    - the out-of-kernel row loop: one ``fused_update_rows`` launch per
+      iteration over every member still iterating (``run_row_loops``;
+      a finished member drops out with its bytes);
+    - the plain loop (``use_pallas: False``), per-pixel convergence and
+      the dense p > 16 path: member after member inside the round, the
+      solo code on each (nothing is launched there that members could
+      share).
+
+    Returns ``(x (K, n, p), p_inv (K, n, p, p), diagnostics)`` with every
+    diagnostics field stacked on the member axis (None stays None;
+    :func:`diagnostics_at` takes one member's back)."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    f32 = torch.float32
+    y = torch.as_tensor(obs.y, dtype=f32, device=dev)
+    r_inv = torch.as_tensor(obs.r_inv, dtype=f32, device=dev)
+    mask = torch.as_tensor(obs.mask, device=dev).bool()
+    x_forecast = torch.as_tensor(x_forecast, dtype=f32, device=dev)
+    p_inv_forecast = torch.as_tensor(p_inv_forecast, dtype=f32, device=dev)
+    k_members, n_pix, p = x_forecast.shape
+    n_bands = y.shape[1]
+    opts = dict(solver_options or {})
+    block, use_pallas, per_pixel, inkernel, min_it, max_it = \
+        _split_structural_options(opts)
+    member_opts = []
+    for m in range(k_members):
+        o = {k: _unstack_leaf(v, m) for k, v in opts.items()}
+        if min_it is not None:
+            o["min_iterations"] = min_it
+        if max_it is not None:
+            o["max_iterations"] = max_it
+        member_opts.append(o)
+    members = []
+    for m in range(k_members):
+        cor = None if corrupt is None else torch.as_tensor(
+            corrupt[m], dtype=f32, device=dev)
+        members.append((
+            BandBatch(y=y[m], r_inv=r_inv[m], mask=mask[m]),
+            x_forecast[m], p_inv_forecast[m], cor))
+    params = [_aux_at(operator_params, m) for m in range(k_members)]
+    packed = p <= UNROLL_MAX_P and n_bands <= 32
+    rows_path = packed and not per_pixel \
+        and (use_pallas is None or use_pallas)
+
+    def solve_kwargs(m):
+        o = dict(member_opts[m])
+        return dict(
+            tol=o.pop("tol", CONVERGENCE_TOL),
+            min_iterations=o.pop("min_iterations", MIN_ITERATIONS),
+            max_iterations=o.pop("max_iterations", MAX_ITERATIONS),
+            relaxation=o.pop("relaxation", 1.0),
+            state_bounds=o.pop("state_bounds", None),
+            norm_denominator=o.pop("norm_denominator", None), **o)
+
+    kw = [solve_kwargs(m) for m in range(k_members)]
+    extra = set(kw[0]) - {"tol", "min_iterations", "max_iterations",
+                          "relaxation", "state_bounds", "norm_denominator"}
+    results = [None] * k_members
+    if rows_path and not extra:
+        numels = [(n_pix * p) if k["norm_denominator"] is None
+                  else k["norm_denominator"] for k in kw]
+        inkernel_ok = [
+            _inkernel_ok(linearize, params[m], kw[m]["min_iterations"],
+                         kw[m]["max_iterations"], kw[m]["state_bounds"], p,
+                         inkernel)
+            for m in range(k_members)]
+        if all(inkernel_ok):
+            groups = {}
+            for m in range(k_members):
+                key = tuple(_member_numeric(kw[m][f]) for f in (
+                    "tol", "min_iterations", "max_iterations", "relaxation",
+                    "state_bounds")) + (_member_numeric(numels[m]),)
+                groups.setdefault(key, []).append(m)
+            for ms in groups.values():
+                k0 = kw[ms[0]]
+                outs = _fused_gn_fold(
+                    linearize, [members[m] for m in ms], k0["tol"],
+                    k0["min_iterations"], k0["max_iterations"],
+                    k0["relaxation"], k0["state_bounds"],
+                    [numels[m] for m in ms])
+                for m, out in zip(ms, outs):
+                    results[m] = out
+        elif not any(inkernel_ok):
+            loops = [
+                _row_loop(linearize, members[m][0], members[m][1],
+                          members[m][2], params[m], kw[m]["tol"],
+                          kw[m]["min_iterations"], kw[m]["max_iterations"],
+                          kw[m]["relaxation"], kw[m]["state_bounds"],
+                          kw[m]["norm_denominator"], block,
+                          members[m][3])
+                for m in range(k_members)]
+            results = run_row_loops(loops)
+    out = []
+    for m in range(k_members):
+        obs_m, x_m, p_inv_m, cor = members[m]
+        if results[m] is None:
+            # Not a shared-launch path: the solo solve of this member.
+            out.append(iterated_solve(
+                linearize, obs_m, x_m, p_inv_m, params[m],
+                hessian_forward=hessian_forward, linearize_block=block,
+                use_pallas=use_pallas, per_pixel_convergence=per_pixel,
+                inkernel_linearize=inkernel, corrupt=cor, **member_opts[m]))
+            continue
+        x, a, fwd, innovations, n_done, norm, health = results[m]
+        out.append(_finish_solve(
+            x, a, fwd, innovations, n_done, norm, obs_m,
+            kw[m]["state_bounds"], health, hessian_forward=hessian_forward,
+            operator_params=params[m]))
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]),
+            _stack_diagnostics([o[2] for o in out]))
+
+
+def lower_date_program(linearize: LinearizeFn, obs: BandBatch, x_forecast,
+                       p_inv_forecast, operator_params: Any = None,
+                       solver_options: Any = None,
+                       hessian_forward: Any = None, batch_size: Any = None,
+                       device=None):
+    """Warm one date program ahead of the first request (the counterpart
+    of the JAX ``lower_date_program``, which lowers and compiles it).
+    Nothing is compiled per shape here: on CUDA this builds the kernel
+    sources (``core/_build.py``, one ``nvcc`` each, in parallel) and
+    runs the program once — solo, or ``assimilate_date_batch`` when
+    ``batch_size`` is given (arguments then carry the member axis) — on
+    zeros of the arguments' shapes.  Returns ``{"batch_size",
+    "wall_ms"}``."""
+    import time
+
+    from .. import resolve_device
+    from . import _build
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        _build.build_all(_build.KERNEL_SOURCES)
+        for name in _build.KERNEL_SOURCES:
+            _build.load(name)
+    f32 = torch.float32
+
+    def zeros(t, dtype=f32):
+        return torch.zeros(tuple(t.shape), dtype=dtype, device=dev)
+
+    z_obs = BandBatch(y=zeros(obs.y), r_inv=zeros(obs.r_inv),
+                      mask=zeros(obs.mask, torch.bool))
+    z_params = None if operator_params is None else _aux_rebuild(
+        operator_params, iter(
+            zeros(leaf) if isinstance(leaf, torch.Tensor) else leaf
+            for leaf in _aux_leaves(operator_params)))
+    if batch_size is None:
+        assimilate_date(linearize, z_obs, zeros(x_forecast),
+                        zeros(p_inv_forecast), z_params, solver_options,
+                        hessian_forward, device=dev)
+    else:
+        assimilate_date_batch(linearize, z_obs, zeros(x_forecast),
+                              zeros(p_inv_forecast), z_params,
+                              solver_options, hessian_forward, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"batch_size": batch_size,
+            "wall_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _stack_diagnostics(diags):
+    """Member-stacked ``SolveDiagnostics`` (None fields stay None)."""
+    fields = {}
+    for name in SolveDiagnostics._fields:
+        vals = [getattr(d, name) for d in diags]
+        fields[name] = None if vals[0] is None else torch.stack(
+            [torch.as_tensor(v) for v in vals])
+    return SolveDiagnostics(**fields)
+
+
+def diagnostics_at(diags, k: int):
+    """Member ``k``'s ``SolveDiagnostics`` of a member-stacked one."""
+    return SolveDiagnostics(**{
+        name: None if getattr(diags, name) is None
+        else getattr(diags, name)[k]
+        for name in SolveDiagnostics._fields})
 
 
 class ScanWindowStats(NamedTuple):

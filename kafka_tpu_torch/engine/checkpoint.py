@@ -133,12 +133,14 @@ def _savez_compressed(f, **arrays) -> None:
 
 
 def unpack_tril(packed: np.ndarray, p: int) -> np.ndarray:
-    """Packed lower triangle -> full symmetric ``(..., p, p)``."""
+    """Packed lower triangle -> full symmetric ``(..., p, p)``: one
+    gather of each entry's packed position (an order of magnitude
+    faster than scattering the two triangles on a tile's state)."""
     i, j = np.tril_indices(p)
-    out = np.zeros(packed.shape[:-1] + (p, p), packed.dtype)
-    out[..., i, j] = packed
-    out[..., j, i] = packed
-    return out
+    pos = np.empty((p, p), np.intp)
+    pos[i, j] = pos[j, i] = np.arange(len(i))
+    return np.take(packed, pos.reshape(-1), axis=-1).reshape(
+        packed.shape[:-1] + (p, p))
 
 
 class Checkpointer:

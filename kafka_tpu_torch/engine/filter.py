@@ -35,9 +35,19 @@ As in the JAX engine:
 - ``per_pixel_convergence`` adds the frozen fraction to the date's one
   packed read (``kafka_engine_converged_frac``).
 
-Not ported: mesh sharding (raises ``NotImplementedError`` when set).
-The telemetry quality ledger, the performance gauges and the
-``obs.bias`` site come with the telemetry slice.
+- every window lands in the quality ledger (``telemetry.quality``:
+  ``record_window`` from the same host record, adding
+  ``quality_verdict`` and ``quality_drift`` to it; ``record_missing``
+  for a degraded date), and the ``obs.bias`` chaos site biases the
+  fetched observations of armed fetch-order dates;
+- ``date_dispatcher`` (None by default) replaces the per-date
+  ``assimilate_date`` call of the unfused joint-band path with the same
+  signature and result: the serving layer's batch executor points it
+  at its rendezvous (``serve.batch``).
+
+Not ported: mesh sharding (raises ``NotImplementedError`` when set) and
+the performance gauges (``perf.record_window``), which come with the
+device-plane slice.
 """
 
 from __future__ import annotations
@@ -59,7 +69,7 @@ from ..core.time_grid import iterate_time_grid
 from ..core.types import BandBatch
 from ..resilience import (DEFAULT_READ_POLICY, TRANSIENT, DegradedDateError,
                           RetryPolicy, classify_failure, faults)
-from ..telemetry import get_registry, span, tracing
+from ..telemetry import get_registry, quality, span, tracing
 from .prefetch import ObservationPrefetcher
 from .protocols import DateObservation, ObservationSource, OutputWriter, Prior
 from .state import make_pixel_gather
@@ -140,6 +150,15 @@ class KalmanFilter:
         # saves); fused blocks count as their window span.
         self.checkpoint_every_n = max(1, int(checkpoint_every_n))
         self._windows_since_ckpt = 0
+        # Per-date dispatch hook: the serving layer's batch executor
+        # points this at its rendezvous so compatible concurrent serves
+        # coalesce into one launch (serve.batch).  None dispatches
+        # ``assimilate_date`` directly — same signature, same result.
+        # Only the unfused joint-band path honours it; fused blocks and
+        # band-sequential keep their own launches.
+        self.date_dispatcher = None
+        # Fetch-order date number (the obs.bias address); reset per run.
+        self._obs_date_no = 0
         self.diagnostics = diagnostics
         self.diagnostics_log: list = []
         self.set_trajectory_model()
@@ -195,9 +214,14 @@ class KalmanFilter:
         if date in self._degraded_pending:
             self._degraded_pending.discard(date)
             return None
+        # One number per date, in fetch order (pending replays above
+        # were numbered when first fetched) — the obs.bias address.
+        self._obs_date_no += 1
+        date_no = self._obs_date_no
         if self._prefetcher is not None:
             try:
-                return self._prefetcher.get(date)
+                return self._apply_obs_bias(self._prefetcher.get(date),
+                                            date_no)
             except DegradedDateError as exc:
                 self._note_degraded(date, exc.cause)
                 return None
@@ -207,12 +231,31 @@ class KalmanFilter:
             return self.observations.get_observations(date, self.gather)
 
         try:
-            return self._read_policy.call(read, site="prefetch.read_date")
+            obs = self._read_policy.call(read, site="prefetch.read_date")
         except BaseException as exc:
             if classify_failure(exc) != TRANSIENT:
                 raise
             self._note_degraded(date, exc)
             return None
+        return self._apply_obs_bias(obs, date_no)
+
+    def _apply_obs_bias(self, obs: DateObservation,
+                        date_no: int) -> DateObservation:
+        """The ``obs.bias`` chaos site: when an armed fault spec matches
+        this fetch-order date number, add the scripted bias to the
+        date's VALID observations (masked entries stay untouched);
+        disarmed, nothing is touched at all."""
+        bias = quality.observation_bias(date_no)
+        if bias is None:
+            return obs
+        bands = obs.bands
+        y = torch.as_tensor(bands.y)
+        mask = torch.as_tensor(bands.mask, device=y.device)
+        y = torch.where(mask, y + torch.tensor(bias, dtype=y.dtype,
+                                               device=y.device), y)
+        return obs._replace(bands=BandBatch(
+            y=y, r_inv=bands.r_inv, mask=bands.mask,
+        ))
 
     def _note_degraded(self, date, exc: BaseException) -> None:
         """Record one degraded date (counter + event + budget check)."""
@@ -232,6 +275,13 @@ class KalmanFilter:
             "observation read for %s degraded after retries (%r); "
             "treating as a missing observation (%d of %s budget)",
             date, exc, self._degraded_count, self.max_degraded_dates,
+        )
+        # The quality ledger keeps the hole visible: a thinned series
+        # is itself a quality signal.
+        ctx = tracing.current_context()
+        quality.get_ledger(reg).record_missing(
+            date, reason="degraded_read",
+            prefix=None if ctx is None else ctx.chunk_id,
         )
         if self.max_degraded_dates is not None and \
                 self._degraded_count > self.max_degraded_dates:
@@ -281,6 +331,12 @@ class KalmanFilter:
             if self.band_sequential:
                 x_a, p_inv_a, diags = self._assimilate_band_sequential(
                     obs, x_a, p_inv_a, opts)
+            elif self.date_dispatcher is not None:
+                x_a, p_inv_a, diags = self.date_dispatcher(
+                    obs.operator.linearize, obs.bands, x_a, p_inv_a,
+                    obs.aux, opts or None,
+                    self._hessian_forward(obs.operator),
+                )
             else:
                 x_a, p_inv_a, diags = assimilate_date(
                     obs.operator.linearize, obs.bands, x_a, p_inv_a,
@@ -490,6 +546,28 @@ class KalmanFilter:
             ).set(rec["converged_frac"])
         if "quarantined" in rec:
             self._record_solver_health(reg, rec)
+        # Quality ledger: the window's consistency record, built from
+        # the same host-side scalars (the packed read already paid) —
+        # zero added device transfers.  The verdict is folded back into
+        # the record so serve responses can report it.
+        ctx = tracing.current_context()
+        entry = quality.get_ledger(reg).record_window(
+            date=rec["date"],
+            chi2_per_band=rec["chi2_per_band"],
+            n_valid=self.gather.n_valid,
+            solver_health=(
+                {
+                    "quarantined": rec["quarantined"],
+                    "cap_bailouts": rec["cap_bailouts"],
+                    "damped_recovered": rec["damped_recovered"],
+                    "nonfinite": rec["nonfinite"],
+                } if "quarantined" in rec else None
+            ),
+            prefix=None if ctx is None else ctx.chunk_id,
+            fused=rec.get("fused"),
+        )
+        rec["quality_verdict"] = entry["verdict"]
+        rec["quality_drift"] = entry["drift"]["active"]
         reg.emit("solve", **{k: (str(v) if k == "date" else v)
                              for k, v in rec.items()})
 
@@ -837,6 +915,7 @@ class KalmanFilter:
         self._pending_obs = {}
         self._degraded_pending = set()
         self._degraded_count = 0
+        self._obs_date_no = 0
         self._windows_since_ckpt = 0
         idx = 0
         while idx < len(windows):

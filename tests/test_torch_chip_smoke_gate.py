@@ -561,3 +561,67 @@ def test_phase_hessian_rehearsal(counted_gn_plain):
 def test_phase_hessian_fails_without_kernel_launch():
     with pytest.raises(AssertionError, match="launches"):
         cs.phase_hessian(torch.device("cpu"), ny=48, nx=48)
+
+
+# --- reanalysis and serving ------------------------------------------------
+
+def test_phase_smooth_rehearsal(tmp_path, counted_gn_plain):
+    """phase_cli at 96 x 96, then phase_smooth over the chain it leaves:
+    one product set per chain date, the newest date the analysis, the
+    float64 sample within budget, no kernel launch in the smoother."""
+    dev = torch.device("cpu")
+    cs.phase_cli(dev, str(tmp_path), ny=96, nx=96)
+    rec = cs.phase_smooth(dev, str(tmp_path), ny=96, nx=96)
+    assert rec["outputs_written"] == 15 * len(rec["chain_dates"])
+    assert rec["kernel_launches"]["fused_gn"] == 0
+    assert rec["sample"]["pixels"] == rec["n_valid"]
+    assert rec["sample"]["beyond_budget"] == {"x": 0, "diag": 0}
+    assert rec["clamped_px_per_date"][-1] == 0
+    assert rec["chain_load_s"] > 0 and rec["sweep_blocks"] == 1
+
+
+def test_phase_serve_rehearsal(tmp_path, counted_gn_plain):
+    """phase_serve at 48 x 48: every served_from outcome from the inbox,
+    warm equal to a fresh cold serve, smoothed equal to kafka_smooth."""
+    rec = cs.phase_serve(torch.device("cpu"), str(tmp_path), ny=48, nx=48)
+    assert set(rec["wall_ms_by_served_from"]) == {
+        "cold", "cache", "warm_noop", "warm", "cold_replay",
+        "smoothed_chain"}
+    assert rec["warm_equals_fresh_cold"]
+    assert rec["smoothed_equals_kafka_smooth"]
+    assert rec["kernel_launches"]["fused_gn"] > 0
+
+
+def test_phase_serve_fails_without_kernel_launches(tmp_path):
+    with pytest.raises(AssertionError, match="no fused_gn launch"):
+        cs.phase_serve(torch.device("cpu"), str(tmp_path), ny=48, nx=48)
+
+
+def test_phase_serve_batch_rehearsal(tmp_path, counted_gn_plain,
+                                     counted_plain):
+    """phase_serve_batch at 48 x 48: both operators' ladders coalesce,
+    every member equals its one-at-a-time baseline, one fused_gn launch
+    per two-stream round and one (2, 2) launch per identity iteration;
+    the kept fused-update launch held to the plain version."""
+    dev = torch.device("cpu")
+    rec, kept = cs.phase_serve_batch(dev, str(tmp_path), ny=48, nx=48)
+    for op, kernel in (("twostream", "fused_gn"),
+                       ("identity", "fused_update")):
+        run = rec["runs"][op]
+        assert run["differing_from_baseline"] == []
+        assert run["coalesced_rounds"] == 4 and run["solo_rounds"] == 2
+        assert run["launches"][kernel] > sum(
+            run["launches_per_coalesced_round"])
+    assert rec["runs"]["twostream"]["launches_per_coalesced_round"] == \
+        [1, 1, 1, 1]
+    assert kept["gn"]["xf_rows"].shape[1] == 2 * rec["n_pad"]
+    from kafka_tpu_torch.core.fused_gn import _block
+
+    assert kept["gn"]["block"] == _block(rec["n_pad"], 2048)
+    assert kept["rows"]["xf_rows"].shape[1] == 2 * rec["n_pad"]
+
+
+def test_phase_serve_batch_fails_without_kernel_launches(tmp_path):
+    with pytest.raises(AssertionError, match="launches per coalesced"):
+        cs.phase_serve_batch(torch.device("cpu"), str(tmp_path), ny=48,
+                             nx=48)

@@ -56,7 +56,15 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.cli.run_joint, kafka_tpu_torch.cli.mosaic, "
         "kafka_tpu_torch.cli.import_emulators, kafka_tpu_torch.core.hessian, "
         "kafka_tpu_torch.obsops.kernels, kafka_tpu_torch.io.mod09, "
-        "kafka_tpu_torch.cli.run_mod09\n"
+        "kafka_tpu_torch.cli.run_mod09, kafka_tpu_torch.smoother, "
+        "kafka_tpu_torch.smoother.rts_pass, kafka_tpu_torch.serve, "
+        "kafka_tpu_torch.serve.admission, kafka_tpu_torch.serve.batch, "
+        "kafka_tpu_torch.serve.daemon, kafka_tpu_torch.serve.journal, "
+        "kafka_tpu_torch.serve.request, kafka_tpu_torch.serve.service, "
+        "kafka_tpu_torch.serve.session, kafka_tpu_torch.serve.synthetic, "
+        "kafka_tpu_torch.telemetry.quality, kafka_tpu_torch.telemetry.live, "
+        "kafka_tpu_torch.telemetry.request_log, "
+        "kafka_tpu_torch.cli.kafka_smooth, kafka_tpu_torch.cli.kafka_serve\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"
@@ -136,6 +144,10 @@ def _entry_points():
                                     S1Observations, Sentinel2Observations,
                                     SynergyKernels)
     from kafka_tpu_torch.obsops import KernelsOperator
+    from kafka_tpu_torch.cli import kafka_serve, kafka_smooth
+    from kafka_tpu_torch.core.solvers import assimilate_date_batch
+    from kafka_tpu_torch.serve import make_synthetic_tile
+    from kafka_tpu_torch.smoother import smooth_chain
 
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
@@ -190,6 +202,15 @@ def _entry_points():
         "joint_observations": lambda: joint_observations([], [], None, 35.0),
         "fit_gp": lambda: fit_gp(np.zeros((4, 2)), np.zeros(4)),
         "fit_mlp": lambda: fit_mlp(lambda a: a, np.zeros((4, 2)), steps=1),
+        "smooth_chain": lambda: smooth_chain([]),
+        "kafka_smooth.main": lambda: kafka_smooth.main(
+            ["--ckpt-dir", os.devnull]),
+        "make_synthetic_tile": lambda: make_synthetic_tile("t", os.devnull),
+        "kafka_serve.main": lambda: kafka_serve.main(
+            ["--root", os.devnull]),
+        "assimilate_date_batch": lambda: assimilate_date_batch(
+            op.linearize, BandBatch(z[None], z[None], z[None] > 0),
+            np.zeros((1, 4, 7)), np.zeros((1, 4, 7, 7))),
     }
 
 
@@ -204,7 +225,9 @@ def _entry_points():
      "run_joint.main", "run_config", "RunConfig.make_prior",
      "Sentinel2Observations", "BHRObservations", "SynergyKernels",
      "S1Observations", "run_mod09.main", "MOD09Observations",
-     "kernels_prior", "RunConfig.make_initial_prior kernels"]))
+     "kernels_prior", "RunConfig.make_initial_prior kernels",
+     "smooth_chain", "kafka_smooth.main", "make_synthetic_tile",
+     "kafka_serve.main", "assimilate_date_batch"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

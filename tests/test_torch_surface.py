@@ -34,6 +34,28 @@ def test_root_and_core_reexport_the_jax_names():
     assert all(name in doc for name in missing)
 
 
+@pytest.mark.parametrize("package", ["serve", "smoother", "telemetry"])
+def test_slice_packages_export_the_jax_names(package):
+    """``serve``, ``smoother`` and ``telemetry`` export the JAX package's
+    names; each one left out (the router's, the device plane's) is named
+    in the port package's docstring."""
+    import importlib
+
+    jax_mod = importlib.import_module(f"kafka_tpu.{package}")
+    port = importlib.import_module(f"kafka_tpu_torch.{package}")
+    missing = set(jax_mod.__all__) - set(port.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
+    assert all(name in port.__doc__ for name in missing), missing
+    expected = {
+        "serve": {"HashRing", "RoutePolicy", "TileRouter", "stable_hash"},
+        "smoother": set(),
+        "telemetry": {"devprof", "fetch_scalars", "flight_recorder",
+                      "install_compile_listeners", "perf",
+                      "record_memory_watermark", "slo"},
+    }[package]
+    assert missing == expected, missing
+
+
 def test_layout_helpers_match_jax():
     rng = np.random.default_rng(0)
     flat = rng.normal(size=12).astype(np.float32)

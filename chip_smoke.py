@@ -186,7 +186,29 @@ one JSON line:
    (2, 2) fused-update launch per iteration): every member equal to its
    one-at-a-time baseline bit for bit, at least 3 coalesced rounds, the
    launches per round, and the kept coalesced launches held to their
-   plain versions.
+   plain versions;
+25. mesh (right after main_s2) — phase main's tile and phase main_s2's
+   sub-tile again on a pixel mesh of MESH_SHARDS shards on the one card
+   (``KalmanFilter(mesh=...)``, one thread per shard, the convergence
+   norm the one collective), each held date by date to its unsharded
+   run: x within 2e-4, the final P^-1 within rtol 2e-4 / atol 2e-2
+   (the JAX mesh tests' budgets), QA equal; fused_gn launches = shards x
+   dates, (10, 10) launches = shards x iterations; per-date walls beside
+   the unsharded ones, peak device bytes, and whether the sharded run is
+   the same bits;
+26. distributed (inside phase cli_modis's directory, after it) —
+   ``run_modis_distributed`` over the MCD43 tile in 1200 x 1200 chunks,
+   once in this process, then as two gloo ranks in child processes on
+   the one card: each rank ran 2 of the 4 chunks, each rank's
+   all_reduce of the counts equals the one-process run's, every .done
+   marker, every raster bit-identical; each rank's peak device bytes;
+27. queue (after distributed) — ``run_synthetic --chunk-size 1200`` over
+   the tile static in this process, then ``--queue --num-workers 2`` in
+   a child process with one worker SIGKILLed while it holds a lease: the
+   survivor reclaims it, queue_status ends all done with no lease, the
+   rasters equal the static run's bit for bit; then one chunk through
+   the chunk_worker subprocess, rc 0 and its rasters equal phase
+   distributed's.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -403,6 +425,19 @@ SERVE_WINDOW_DATES = {1: 0, 2: 2, 3: 4, 4: 6}
 #: phase serve_batch: the JAX test's micro-window
 #: (tests/test_serve_batch.py:353).
 SERVE_BATCH_WINDOW_MS = 1500.0
+#: phase mesh: the shards of the pixel mesh (all on the one card) and the
+#: JAX package's mesh budgets: x (tests/test_engine_mesh.py:49-54) and
+#: P^-1 (tests/test_shard.py:58-62).
+MESH_SHARDS = 2
+MESH_X_ATOL = 2e-4
+MESH_P_RTOL, MESH_P_ATOL = 2e-4, 2e-2
+#: phases distributed and queue: chunks of CHUNK_PX x CHUNK_PX (4 of the
+#: tile), the queue run's --days (2 of the driver's 4 default windows),
+#: its lease TTL and every child process's time limit.
+CHUNK_PX = 1200
+QUEUE_DAYS = 8
+QUEUE_TTL_S = 5.0
+CHILD_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -834,10 +869,12 @@ def land_mask(ny: int, nx: int, seed: int, land_frac: float = 0.8):
     return fine > np.quantile(fine, 1.0 - land_frac)
 
 
-def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
+def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0,
+               keep_run=None):
     """KalmanFilter.run over a full MODIS tile through the kernel
     (``tip_tile_run``: 4 windows, 6 dates).  Returns the phase record and
-    the kernel's inputs on date KEEP_DATE."""
+    the kernel's inputs on date KEEP_DATE; ``keep_run`` (a dict) receives
+    the run's filter, outputs and final state for phase mesh."""
     import torch
 
     from kafka_tpu_torch.core import solvers
@@ -861,7 +898,8 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     try:
         fused_gn_rows.launches = 0
         t0 = time.perf_counter()
-        kf, out, run_s = tip_tile_run(device, ny, nx, seed)
+        kf, out, run_s, final = tip_tile_run(device, ny, nx, seed,
+                                             final=True)
         setup_s = time.perf_counter() - t0 - run_s
         launches = fused_gn_rows.launches
     finally:
@@ -887,6 +925,8 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
         raise AssertionError("non-finite output raster")
     if not kept:
         raise AssertionError(f"no kernel call on date {KEEP_DATE}")
+    if keep_run is not None:
+        keep_run.update(kf=kf, out=out, final=final)
     return rec, kept
 
 
@@ -1096,12 +1136,13 @@ def s2_truth(ny: int, nx: int, seed: int):
 
 
 def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
-                  seed: int = 0):
+                  seed: int = 0, keep_run=None):
     """KalmanFilter.run over one S2 sub-tile through the row loop (its
     one-acquisition windows run as fused blocks where the engine's
     guards let them).  Returns the record, the fused update's inputs of
-    the first iteration of date KEEP_DATE, and that date's
-    ``iterated_solve`` arguments."""
+    the first iteration of date KEEP_DATE and that date's
+    ``iterated_solve`` arguments; ``keep_run`` (a dict) receives the
+    run's filter, outputs and final state for phase mesh."""
     import torch
 
     from kafka_tpu_torch.core import fused_update as fu_mod
@@ -1109,29 +1150,11 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
     from kafka_tpu_torch.core.solve_rows import solve_rows
-    from kafka_tpu_torch.engine import (PROSAIL_PARAMETER_LIST,
-                                        KalmanFilter, sail_prior)
-    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
-                                                   s2_observations)
-
-    def day(i):
-        return datetime.datetime(2017, 7, 3) + datetime.timedelta(days=i)
 
     t_setup = time.perf_counter()
-    mask = np.ones((ny, nx), bool)
-    truth = s2_truth(ny, nx, seed)
-    grid_days = (0, 2, 4, 6, 8)
-    obs_days = (1, 3, 5, 7)
-    obs = s2_observations([day(i) for i in obs_days], lambda date: truth,
-                          angles=(30.5, 5.0, -50.0), sigma=0.005,
-                          mask_prob=0.1, seed=seed, device=device)
-    out = MemoryOutput()
-    prior = sail_prior(device)
-    kf = KalmanFilter(obs, out, mask, PROSAIL_PARAMETER_LIST,
-                      state_propagation=None, prior=prior,
-                      solver_options={"relaxation": 0.7}, device=device)
-    kf.set_trajectory_uncertainty(np.zeros(10))
-    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    kf, out, x0, p_inv0, grid, obs_days = s2_tile_filter(device, ny, nx,
+                                                         seed)
+    mask = kf.gather.mask
     setup_s = time.perf_counter() - t_setup
 
     # Keep the fused update's inputs on the first iteration of date
@@ -1169,7 +1192,7 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
         fused_gn_rows.launches = fused_update_rows.launches = \
             solve_rows.launches = 0
         t0 = time.perf_counter()
-        kf.run([day(i) for i in grid_days], x0, None, p_inv0)
+        x_a, _, p_inv_a = kf.run(grid, x0, None, p_inv0)
         _sync(device)
         run_s = time.perf_counter() - t0
         launches = {"fused_gn": fused_gn_rows.launches,
@@ -1184,7 +1207,7 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
     iterations = sum(r["n_iterations"] for r in dates)
     rec = {
         "phase": "main_s2", "tile": [ny, nx], "n_valid": kf.gather.n_valid,
-        "n_pad": kf.gather.n_pad, "windows": len(grid_days) - 1,
+        "n_pad": kf.gather.n_pad, "windows": len(grid) - 1,
         "dates_assimilated": len(dates), "kernel_launches": launches,
         "iterations": iterations, "outputs_finite": finite,
         "setup_s": setup_s, "run_s": run_s, "kept_date": KEEP_DATE,
@@ -1200,7 +1223,40 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
         raise AssertionError("non-finite output raster")
     if not kept or not kept_date_args:
         raise AssertionError(f"no fused update on date {KEEP_DATE}")
+    if keep_run is not None:
+        keep_run.update(kf=kf, out=out, final=(x_a, p_inv_a))
     return rec, kept, kept_date_args
+
+
+def s2_tile_filter(device, ny: int, nx: int, seed: int, **filter_kwargs):
+    """Phase main_s2's sub-tile configuration (PROSAIL, sail_prior, no
+    propagation with Q = 0, relaxation 0.7, the Barrax grid, one
+    acquisition per step) as a KalmanFilter with ``filter_kwargs``:
+    ``(kf, out, x0, p_inv0, grid, obs_days)``."""
+    from kafka_tpu_torch.engine import (PROSAIL_PARAMETER_LIST,
+                                        KalmanFilter, sail_prior)
+    from kafka_tpu_torch.testing.synthetic import (MemoryOutput,
+                                                   s2_observations)
+
+    def day(i):
+        return datetime.datetime(2017, 7, 3) + datetime.timedelta(days=i)
+
+    mask = np.ones((ny, nx), bool)
+    truth = s2_truth(ny, nx, seed)
+    grid_days = (0, 2, 4, 6, 8)
+    obs_days = (1, 3, 5, 7)
+    obs = s2_observations([day(i) for i in obs_days], lambda date: truth,
+                          angles=(30.5, 5.0, -50.0), sigma=0.005,
+                          mask_prob=0.1, seed=seed, device=device)
+    out = MemoryOutput()
+    prior = sail_prior(device)
+    kf = KalmanFilter(obs, out, mask, PROSAIL_PARAMETER_LIST,
+                      state_propagation=None, prior=prior,
+                      solver_options={"relaxation": 0.7}, device=device,
+                      **filter_kwargs)
+    kf.set_trajectory_uncertainty(np.zeros(10))
+    x0, p_inv0 = prior.process_prior(None, kf.gather)
+    return kf, out, x0, p_inv0, [day(i) for i in grid_days], obs_days
 
 
 def prosail_update_rows(n_pix: int, device, seed: int = 11) -> dict:
@@ -2808,12 +2864,13 @@ def read_rasters(paths) -> list:
 
 def tip_tile_run(device, ny: int, nx: int, seed: int, solver_options=None,
                  grid_days=TIP_GRID_DAYS, obs_days=TIP_OBS_DAYS,
-                 **filter_kwargs):
+                 final: bool = False, **filter_kwargs):
     """The MODIS tile configuration of phase main and the phases after
     it (the seeded land mask, the truth around the TIP prior, jrc_prior,
     prior-only advance, sigma 0.005 with 10 % masked) run by KalmanFilter
     with ``solver_options`` and ``filter_kwargs``.  Returns the filter,
-    its MemoryOutput and the run's seconds (set-up excluded)."""
+    its MemoryOutput and the run's seconds (set-up excluded), and with
+    ``final`` the run's final (x, P^-1) too."""
     from kafka_tpu_torch.core.propagators import tip_prior_arrays
     from kafka_tpu_torch.engine import (TIP_PARAMETER_LIST, KalmanFilter,
                                         jrc_prior)
@@ -2839,9 +2896,12 @@ def tip_tile_run(device, ny: int, nx: int, seed: int, solver_options=None,
                       **filter_kwargs)
     x0, p_inv0 = prior.process_prior(None, kf.gather)
     t0 = time.perf_counter()
-    kf.run([day(i) for i in grid_days], x0, None, p_inv0)
+    x_a, _, p_inv_a = kf.run([day(i) for i in grid_days], x0, None, p_inv0)
     _sync(device)
-    return kf, out, time.perf_counter() - t0
+    run_s = time.perf_counter() - t0
+    if final:
+        return kf, out, run_s, (x_a, p_inv_a)
+    return kf, out, run_s
 
 
 def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
@@ -4138,6 +4198,455 @@ def serve_batch_kernels(device, rec: dict, kept: dict):
     return gn_rec, upd_rec
 
 
+def mesh_compare(base: dict, run: dict) -> dict:
+    """A sharded run against its unsharded one (both ``{"out":
+    MemoryOutput, "final": (x, P^-1)}``): the largest state-raster
+    difference over every window, the largest relative sigma difference,
+    the QA bands equal, the final x difference and the final P^-1 entries
+    beyond the MESH_P budget, and whether all of it is the same bits."""
+    import torch
+
+    out_b, out_m = base["out"].output, run["out"].output
+    x_err = unc_rel = 0.0
+    qa_equal = sorted(out_b) == sorted(out_m)
+    same = qa_equal
+    for ts in out_b:
+        for key, ref in out_b[ts].items():
+            got = out_m[ts][key]
+            same = same and got.tobytes() == ref.tobytes()
+            if key == "solver_qa":
+                qa_equal = qa_equal and bool(np.array_equal(got, ref))
+            elif key.endswith("_unc"):
+                unc_rel = max(unc_rel, float(np.max(
+                    np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30))))
+            else:
+                x_err = max(x_err, float(np.abs(got - ref).max()))
+    x_b, p_b = base["final"]
+    x_m, p_m = (t.full(x_b.device) for t in run["final"])
+    beyond = int(((p_m - p_b).abs()
+                  > MESH_P_ATOL + MESH_P_RTOL * p_b.abs()).sum())
+    same = same and bool(torch.equal(x_m, x_b)) and \
+        bool(torch.equal(p_m, p_b))
+    return {"x_max_abs_err": x_err, "sigma_max_rel_err": unc_rel,
+            "solver_qa_equal": qa_equal,
+            "final_x_max_abs_err": float((x_m - x_b).abs().max()),
+            "final_p_inv_entries_beyond_budget": beyond,
+            "bit_identical": same}
+
+
+def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
+               nx: int = TILE, s2_ny: int = S2_TILE, s2_nx: int = S2_TILE,
+               seed: int = 0):
+    """Phase main's MODIS tile and phase main_s2's S2 sub-tile again,
+    through KalmanFilter.run on a pixel mesh of MESH_SHARDS shards on the
+    one card, each held date by date to the unsharded run of its phase:
+    x within MESH_X_ATOL, the final P^-1 within the MESH_P budgets, QA
+    bands equal; fused_gn launches = shards x dates on the tile, (10, 10)
+    fused-update launches = shards x iterations on the sub-tile.  The
+    per-date walls beside the unsharded run's and the peak device
+    bytes."""
+    import torch
+
+    from kafka_tpu_torch.core import fused_gn
+    from kafka_tpu_torch.shard import make_pixel_mesh
+
+    mesh = make_pixel_mesh([device] * MESH_SHARDS)
+    cuda = device.type == "cuda"
+    failures = []
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(device) if cuda else None
+
+    peak_reset()
+    reset_launches()
+    kf, out, run_s, final = tip_tile_run(device, ny, nx, seed, final=True,
+                                         mesh=mesh)
+    launches = launch_counts()
+    dates, base_dates = kf.diagnostics_log, main_run["kf"].diagnostics_log
+    n_pad = kf.gather.n_pad
+    tip = {"tile": [ny, nx], "n_pad": n_pad, "shard_px": n_pad // mesh.size,
+           "group_px": fused_gn._block(n_pad, 2048),
+           "kernel_launches": launches, "run_s": run_s,
+           "n_iterations": [r["n_iterations"] for r in dates],
+           "unsharded_n_iterations": [r["n_iterations"]
+                                      for r in base_dates],
+           "date_wall_s": [r["wall_s"] for r in dates],
+           "unsharded_date_wall_s": [r["wall_s"] for r in base_dates],
+           "peak_device_bytes": peak(),
+           **mesh_compare(main_run, {"out": out, "final": final})}
+    del kf, out, final
+    if len(dates) != len(base_dates) or \
+            launches["fused_gn"] != mesh.size * len(dates):
+        failures.append(f"tile: {launches['fused_gn']} fused_gn launches "
+                        f"for {len(dates)} dates on {mesh.size} shards")
+    if launches["fused_update"] or launches["solve_rows"]:
+        failures.append(f"tile: launches {launches}")
+
+    peak_reset()
+    reset_launches()
+    kf, out, x0, p_inv0, grid, obs_days = s2_tile_filter(
+        device, s2_ny, s2_nx, seed, mesh=mesh)
+    t0 = time.perf_counter()
+    x_a, _, p_inv_a = kf.run(grid, x0, None, p_inv0)
+    _sync(device)
+    s2_run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    dates, base_dates = kf.diagnostics_log, s2_run["kf"].diagnostics_log
+    iterations = sum(r["n_iterations"] for r in dates)
+    s2 = {"tile": [s2_ny, s2_nx], "n_pad": kf.gather.n_pad,
+          "shard_px": kf.gather.n_pad // mesh.size,
+          "kernel_launches": launches, "run_s": s2_run_s,
+          "iterations": iterations,
+          "n_iterations": [r["n_iterations"] for r in dates],
+          "unsharded_n_iterations": [r["n_iterations"]
+                                     for r in base_dates],
+          "fused": [r.get("fused") for r in dates],
+          "date_wall_s": [r["wall_s"] for r in dates],
+          "unsharded_date_wall_s": [r["wall_s"] for r in base_dates],
+          "peak_device_bytes": peak(),
+          **mesh_compare(s2_run, {"out": out, "final": (x_a, p_inv_a)})}
+    del kf, out, x_a, p_inv_a
+    upd = launches["fused_update_by_instance"].get("10x10", 0)
+    if len(dates) != len(base_dates) or iterations == 0 or \
+            upd != mesh.size * iterations or launches["fused_gn"]:
+        failures.append(f"s2: {launches} for {iterations} iterations on "
+                        f"{mesh.size} shards")
+    for label, r in (("tile", tip), ("s2", s2)):
+        if r["x_max_abs_err"] > MESH_X_ATOL or \
+                r["final_x_max_abs_err"] > MESH_X_ATOL:
+            failures.append(f"{label}: x off by {r['x_max_abs_err']} / "
+                            f"{r['final_x_max_abs_err']}")
+        if r["final_p_inv_entries_beyond_budget"]:
+            failures.append(f"{label}: "
+                            f"{r['final_p_inv_entries_beyond_budget']} P^-1 "
+                            "entries beyond the budget")
+        if not r["solver_qa_equal"]:
+            failures.append(f"{label}: QA verdicts differ")
+    rec = {"phase": "mesh", "mesh": [str(d) for d in mesh.devices],
+           "tip_tile": tip, "s2_subtile": s2, "failures": failures}
+    emit(rec)
+    if failures:
+        raise AssertionError("mesh: " + "; ".join(failures))
+    return rec
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _child_env() -> dict:
+    """The environment of a child process of the port: the checkout
+    first on its path."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _wait_all(procs, timeout_s: float) -> list:
+    """Each process's exit code; any still running at ``timeout_s`` is
+    killed (and waited for) and the phase fails."""
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        stuck = [p for p in procs if p.poll() is None]
+        for p in stuck:
+            p.kill()
+            p.wait(timeout=60)
+    if stuck:
+        raise AssertionError(f"{len(stuck)} child process(es) outlived "
+                             f"{timeout_s} s and were killed")
+    return [p.returncode for p in procs]
+
+
+def tif_names(folder: str) -> list:
+    return sorted(f for f in os.listdir(folder) if f.endswith(".tif"))
+
+
+def rasters_equal(dir_a: str, dir_b: str, names=None) -> dict:
+    """Every GeoTIFF of ``dir_a`` (or ``names``) against ``dir_b``'s bit
+    for bit: ``{"compared", "differing", "missing"}``."""
+    names = tif_names(dir_a) if names is None else names
+    present = set(tif_names(dir_b))
+    missing = [n for n in names if n not in present]
+    have = [n for n in names if n in present]
+    a = read_rasters([os.path.join(dir_a, n) for n in have])
+    b = read_rasters([os.path.join(dir_b, n) for n in have])
+    differing = [n for n, u, v in zip(have, a, b)
+                 if u.shape != v.shape or u.tobytes() != v.tobytes()]
+    return {"compared": len(have), "differing": differing[:8],
+            "n_differing": len(differing), "missing": missing[:8]}
+
+
+def phase_distributed(device, workdir: str, ny: int = TILE, nx: int = TILE,
+                      chunk: int = CHUNK_PX):
+    """``run_modis_distributed`` over phase cli_modis's MCD43 tile and
+    windows (its files in ``workdir``) in CHUNK_PX chunks: once in this
+    process (every chunk), then as two ranks of ``python -m
+    kafka_tpu_torch.cli.run_modis_distributed --num-processes 2
+    --process-index i`` that meet at a gloo rendezvous on localhost and
+    share the card.  Gates: each rank ran its round-robin half of the
+    chunks, each rank's all_reduce of the counts equals the one-process
+    run's, every .done marker, and every raster bit-identical to the
+    one-process run.  Each rank's peak device bytes are printed."""
+    import torch
+
+    from kafka_tpu_torch.cli import run_modis_distributed as dist
+    from kafka_tpu_torch.io import get_chunks
+
+    t_phase = time.perf_counter()
+    cfg = dist.default_config()
+    cfg.end = CLI_MODIS_END
+    cfg.extra["period"] = 1
+    cfg.chunk_size = (chunk, chunk)
+    cfg.data_folder = os.path.join(workdir, "mcd43")
+    cfg.state_mask = os.path.join(workdir, "mask.tif")
+    cfg_path = os.path.join(workdir, "distributed.json")
+    cfg.save(cfg_path)
+    n_chunks = len(list(get_chunks(nx, ny, cfg.chunk_size)))
+    one, two = (os.path.join(workdir, d) for d in ("dist_one", "dist_two"))
+    argv = ["--config", cfg_path, "--device", str(device)]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    stats, printed, one_s = run_driver(dist.main, argv + ["--outdir", one])
+    launches = launch_counts()
+    failures = []
+    if printed != stats or stats["run"] != n_chunks:
+        failures.append(f"one process: {stats}")
+    if launches["fused_gn"] != stats["dates_assimilated"] or \
+            stats["dates_assimilated"] == 0:
+        failures.append(f"one process: {launches} for "
+                        f"{stats['dates_assimilated']} chunk-dates")
+
+    port = _free_port()
+    logs = [os.path.join(workdir, f"rank_{i}.log") for i in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    for i in range(2):
+        with open(logs[i], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "kafka_tpu_torch.cli.run_modis_distributed", *argv,
+                 "--outdir", two, "--num-processes", "2",
+                 "--process-index", str(i),
+                 "--coordinator", f"localhost:{port}"],
+                env=_child_env(), stdout=log, stderr=subprocess.STDOUT))
+    rcs = _wait_all(procs, CHILD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for i, (rc, path) in enumerate(zip(rcs, logs)):
+        text = open(path, errors="replace").read()
+        if rc != 0:
+            failures.append(f"rank {i} rc={rc}: {text[-1500:]}")
+            ranks.append(None)
+            continue
+        ranks.append(json.loads(text.strip().splitlines()[-1]))
+    summed = ("run", "pixels", "dates_assimilated", "chunks_with_pixels")
+    for i, r in enumerate(ranks):
+        if r is None:
+            continue
+        if r["run"] != n_chunks // 2:
+            failures.append(f"rank {i} ran {r['run']} chunks")
+        if {k: r["all_ranks"][k] for k in summed} != \
+                {k: stats[k] for k in summed}:
+            failures.append(f"rank {i} all_reduce {r['all_ranks']} != the "
+                            f"one-process run's counts")
+    markers = sorted(f for f in os.listdir(two) if f.endswith(".done"))
+    if len(markers) != n_chunks:
+        failures.append(f"{len(markers)} .done markers of {n_chunks}")
+    t0 = time.perf_counter()
+    same = rasters_equal(one, two)
+    if same["n_differing"] or same["missing"] or not same["compared"] or \
+            tif_names(two) != tif_names(one):
+        failures.append(f"rasters: {same}")
+    rec = {
+        "phase": "distributed", "tile": [ny, nx], "chunk": [chunk, chunk],
+        "chunks": n_chunks, "windows": len(cfg.time_grid()) - 1,
+        "one_process": {"stats": stats, "wall_s": one_s,
+                        "kernel_launches": launches,
+                        "peak_device_bytes": (
+                            torch.cuda.max_memory_allocated(device)
+                            if cuda else None)},
+        "ranks": [None if r is None else {
+            k: r.get(k) for k in ("run", "assigned", "skipped", "wall_s",
+                                  "all_ranks", "peak_device_bytes")}
+            for r in ranks],
+        "ranks_wall_s": ranks_s, "rasters": same,
+        "seconds": {"compare": time.perf_counter() - t0,
+                    "phase": time.perf_counter() - t_phase},
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("distributed: " + "; ".join(failures))
+    return rec
+
+
+def _lease_holder(folder: str, skip_pid: int):
+    """(prefix, pid) of a lease in ``folder`` held by another process than
+    ``skip_pid``, or None."""
+    for name in sorted(os.listdir(folder)) if os.path.isdir(folder) else ():
+        if not name.endswith(".lease"):
+            continue
+        try:
+            with open(os.path.join(folder, name)) as f:
+                lease = json.load(f)
+        except (OSError, ValueError):
+            continue
+        pid = lease.get("pid")
+        if isinstance(pid, int) and pid != skip_pid:
+            return lease.get("prefix"), pid
+    return None
+
+
+def _reclaims(tel_dir: str) -> int:
+    """``kafka_scheduler_reclaims_total`` of a worker's metrics.json (0
+    when it has none)."""
+    path = os.path.join(tel_dir, "metrics.json")
+    if not os.path.exists(path):
+        return 0
+    series = json.load(open(path)).get(
+        "kafka_scheduler_reclaims_total", {}).get("series", [])
+    return int(sum(s["value"] for s in series))
+
+
+def phase_queue(device, workdir: str, ny: int = TILE, nx: int = TILE,
+                chunk: int = CHUNK_PX):
+    """``run_synthetic --operator twostream --ny 2400 --nx 2400
+    --chunk-size 1200 --days QUEUE_DAYS``, first static in this process,
+    then as the queue's local fleet (``--queue --num-workers 2`` with a
+    QUEUE_TTL_S lease) in a child process: as soon as a worker holds a
+    lease (the lease file names its pid) it is SIGKILLed.  Gates: the
+    fleet reports the victim's -9 and the survivor's 0; the survivor
+    reclaimed at least one lease; queue_status ends with every chunk done
+    and no lease; every raster bit-identical to the static run.  Then
+    one chunk of phase distributed's config through the chunk_worker
+    subprocess (``drivers._run_chunk_subprocess``): rc 0 and its rasters
+    equal to phase distributed's one-process run's."""
+    import re
+    import signal
+
+    from kafka_tpu_torch.cli import drivers, run_synthetic
+    from kafka_tpu_torch.engine.config import RunConfig
+    from kafka_tpu_torch.io import get_chunks
+    from kafka_tpu_torch.shard.queue import queue_status
+
+    t_phase = time.perf_counter()
+    base = ["--operator", "twostream", "--ny", str(ny), "--nx", str(nx),
+            "--days", str(QUEUE_DAYS), "--step", "4", "--chunk-size",
+            str(chunk), "--device", str(device)]
+    static, fleet, tel = (os.path.join(workdir, d) for d in
+                          ("queue_static", "queue_fleet", "queue_tel"))
+    reset_launches()
+    stats, printed, static_s = run_driver(run_synthetic.main,
+                                          base + ["--outdir", static])
+    launches = launch_counts()
+    failures = []
+    n_chunks = len(list(get_chunks(nx, ny, (chunk, chunk))))
+    if printed != stats or stats["chunks_run"] != n_chunks or \
+            stats["failed"] or launches["fused_gn"] == 0:
+        failures.append(f"static run: {stats}, launches {launches}")
+
+    log_path = os.path.join(workdir, "queue_fleet.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        parent = subprocess.Popen(
+            [sys.executable, "-m", "kafka_tpu_torch.cli.run_synthetic",
+             *base, "--queue", "--num-workers", "2", "--lease-ttl-s",
+             str(QUEUE_TTL_S), "--outdir", fleet, "--telemetry-dir", tel],
+            env=_child_env(), stdout=log, stderr=subprocess.STDOUT)
+    victim = None
+    try:
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while victim is None and parent.poll() is None and \
+                time.monotonic() < deadline:
+            victim = _lease_holder(fleet, parent.pid)
+            if victim is None:
+                time.sleep(0.02)
+        if victim is not None:
+            os.kill(victim[1], signal.SIGKILL)
+            kill_s = time.perf_counter() - t0
+    finally:
+        rc = _wait_all([parent], CHILD_TIMEOUT_S)[0]
+    fleet_s = time.perf_counter() - t0
+    text = open(log_path, errors="replace").read()
+    found = re.search(r"all: \[(-?\d+), (-?\d+)\]", text)
+    worker_rcs = None if found is None else \
+        [int(found.group(1)), int(found.group(2))]
+    if victim is None:
+        failures.append(f"no worker lease seen (fleet rc={rc}): "
+                        f"{text[-1500:]}")
+    elif rc == 0 or worker_rcs is None or sorted(worker_rcs) != [-9, 0]:
+        failures.append(f"fleet rc={rc}, worker rcs {worker_rcs}: "
+                        f"{text[-1500:]}")
+    reclaims = {w: _reclaims(os.path.join(tel, w))
+                for w in ("worker_0", "worker_1")}
+    if sum(reclaims.values()) < 1:
+        failures.append(f"no reclaimed lease: {reclaims}")
+    status = queue_status(fleet)
+    counts = status["counts"]
+    if (counts["done"], counts["leased"], counts["lease_expired"],
+            counts["pending"], counts["failed"]) != (n_chunks, 0, 0, 0, 0):
+        failures.append(f"queue_status {counts}")
+    same = rasters_equal(static, fleet)
+    if same["n_differing"] or same["missing"] or not same["compared"] or \
+            tif_names(fleet) != tif_names(static):
+        failures.append(f"fleet rasters: {same}")
+
+    cfg = RunConfig.load(os.path.join(workdir, "distributed.json"))
+    cfg.output_folder = os.path.join(workdir, "worker_out")
+    os.makedirs(cfg.output_folder)
+    first = list(get_chunks(nx, ny, cfg.chunk_size))[0]
+    prefix = f"{first.chunk_no:04x}"
+    t0 = time.perf_counter()
+    w_rc, w_summary = drivers._run_chunk_subprocess(cfg, first, prefix,
+                                                    device=str(device))
+    worker_s = time.perf_counter() - t0
+    ref_dir = os.path.join(workdir, "dist_one")
+    mine = [n for n in tif_names(ref_dir) if chunk_prefix(n) == prefix]
+    w_same = rasters_equal(ref_dir, cfg.output_folder, mine)
+    if w_rc != 0 or not mine or w_same["n_differing"] or \
+            w_same["missing"] or tif_names(cfg.output_folder) != mine:
+        failures.append(f"chunk_worker rc={w_rc}, rasters {w_same}")
+    rec = {
+        "phase": "queue", "tile": [ny, nx], "chunk": [chunk, chunk],
+        "chunks": n_chunks,
+        "reduced": {"windows": f"2 of the driver's default 4 (--days "
+                               f"{QUEUE_DAYS}, --step 4: windows ending "
+                               "day 4 and day 8)"},
+        "static": {"summary": stats, "wall_s": static_s,
+                   "kernel_launches": launches},
+        "fleet": {"rc": rc, "worker_rcs": worker_rcs,
+                  "victim": None if victim is None else
+                  {"prefix": victim[0], "killed_after_s": kill_s},
+                  "reclaims": reclaims, "lease_ttl_s": QUEUE_TTL_S,
+                  "wall_s": fleet_s, "queue_status": counts,
+                  "rasters": same},
+        "chunk_worker": {"rc": w_rc, "summary": w_summary,
+                         "wall_s": worker_s, "rasters": w_same},
+        "seconds": {"phase": time.perf_counter() - t_phase},
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("queue: " + "; ".join(failures))
+    return rec
+
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -4184,7 +4693,8 @@ def main() -> int:
     })
     phase_reference(device)
     ref_s2 = phase_reference_s2(device)
-    main_rec, kept = phase_main(device)
+    main_run, s2_run = {}, {}
+    main_rec, kept = phase_main(device, keep_run=main_run)
     tile = phase_kernel(device, "main_path_date", kept)
     small = phase_kernel(device, "2^19", problem_rows(2 ** 19, device),
                          plain_reps=3)
@@ -4194,7 +4704,9 @@ def main() -> int:
     phase_faults(device, kept)
     tip_rows = tip_update_rows(kept)
     del kept
-    s2_rec, kept_s2, s2_date_args = phase_main_s2(device)
+    s2_rec, kept_s2, s2_date_args = phase_main_s2(device, keep_run=s2_run)
+    mesh_rec = phase_mesh(device, main_run, s2_run)
+    del main_run, s2_run
     upd = phase_kernel_update(device, "main_s2_date", kept_s2)
     upd_small = phase_kernel_update(device, "2^19",
                                     prosail_update_rows(2 ** 19, device))
@@ -4264,6 +4776,8 @@ def main() -> int:
     os.makedirs(workdir)
     try:
         modis_rec, modis_kept = phase_cli_modis(device, workdir)
+        dist_rec = phase_distributed(device, workdir)
+        queue_rec = phase_queue(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     modis_kernel = phase_kernel(device, "cli_modis_date", modis_kept)
@@ -4364,6 +4878,12 @@ def main() -> int:
             trips_per_group=tile["trips_per_group"],
             geometry=tile["geometry"], **{"at_2^19": at(small)},
             paths={"main": main_rec["kernel_launches"],
+                   "mesh": mesh_rec["tip_tile"]["kernel_launches"]
+                   ["fused_gn"],
+                   "distributed": dist_rec["one_process"]
+                   ["kernel_launches"]["fused_gn"],
+                   "queue": queue_rec["static"]["kernel_launches"]
+                   ["fused_gn"],
                    "cli": cli_rec["fused_gn_launches"],
                    "cli_modis": modis_rec["kernel_launches"]["fused_gn"],
                    "hessian": hess_rec["kernel_launches"]["fused_gn"],
@@ -4400,6 +4920,8 @@ def main() -> int:
             max_abs_err_vs_f64=upd["kernel_vs_f64"]["x"]["max"],
             **{"at_2^19": at(upd_small)},
             paths={"main_s2": s2_rec["kernel_launches"]["fused_update"],
+                   "mesh_s2": mesh_rec["s2_subtile"]["kernel_launches"]
+                   ["fused_update"],
                    "main_joint": joint_rec["kernel_launches"]
                    ["fused_update"],
                    "cli_wcm": wcm_rec["kernel_launches"]["fused_update"],

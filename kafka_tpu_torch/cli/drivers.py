@@ -8,17 +8,26 @@ come from ``shard.run_chunks``.  Output names, chunk prefixes, restart
 markers and the OOM split's quarter prefixes are the JAX package's, so
 either package can resume, mosaic or check the other's run.
 
-Differences from the JAX module:
+As in the JAX module:
 
-- the run's device is an argument (``run_config(..., device=None)``,
-  None means CUDA); ``device_mesh="auto"`` and ``"none"`` run each chunk
-  on that one device, ``"local"`` raises (ROADMAP slice 5);
-- a device OOM (``torch.cuda.OutOfMemoryError``) leaves the process
-  usable, so the chunk is split into quarters in-process (the JAX path
-  moves to subprocess workers, because a TPU OOM poisons its process);
-- ``num_processes > 1`` and ``queue=True`` raise (ROADMAP slice 5); the
-  flight recorder, live publisher, SLO engine, compile listeners and
-  compilation cache of ``run_config`` come with ROADMAP slice 7.
+- ``RunConfig.device_mesh`` splits each chunk's pixels over a mesh of the
+  local devices (``"auto"``: every local CUDA device when there are at
+  least two, so one H100 gives none; ``"local"``: all of them; ``"none"``);
+- chunks round-robin over the processes of ``torch.distributed``
+  (``num_processes`` / ``process_index`` override), or — ``queue=True`` —
+  every process is one worker of the lease-based queue in
+  ``output_folder``;
+- after a device OOM the process is treated as poisoned (a CUDA sticky
+  error ruins its context as a TPU OOM does): the chunk and every chunk
+  after it run in fresh ``cli.chunk_worker`` subprocesses, a chunk that
+  OOMs there too splits into quarters, and a worker past
+  ``extra["chunk_worker_timeout"]`` is killed (rc 124, a transient
+  failure for the retry policy).
+
+The run's device is an argument (``run_config(..., device=None)``, None
+means CUDA).  The flight recorder, live publisher, SLO engine, compile
+listeners and compilation cache of the JAX ``run_config`` come with the
+device-plane slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -41,9 +50,6 @@ from ..io.tiling import Chunk, chunk_geotransform, chunk_mask, get_chunks
 from ..shard.scheduler import run_chunks
 
 LOG = logging.getLogger(__name__)
-
-_SLICE_5 = ("is not ported to kafka_tpu_torch yet; it comes with ROADMAP "
-            "slice 5 (distribution)")
 
 
 def load_state_mask(cfg: RunConfig):
@@ -77,18 +83,24 @@ def prosail_aux_builder(metadata, gather):
     )
 
 
-def make_run_mesh(cfg: RunConfig):
-    """The chunk-level pixel mesh per ``RunConfig.device_mesh``: always
-    None in the port ("auto" and "none" run on the run's one device);
-    "local" raises."""
+def make_run_mesh(cfg: RunConfig, device=None):
+    """The chunk-level pixel mesh per ``RunConfig.device_mesh``: every
+    LOCAL device of the run's device type (``shard.mesh.local_devices``),
+    or None ("none"; "auto" with fewer than two).  Chunks stay the
+    process axis via the scheduler."""
     mode = getattr(cfg, "device_mesh", "auto")
     if mode not in ("auto", "local", "none"):
         raise ValueError(
             f"device_mesh={mode!r}: expected 'auto', 'local' or 'none'"
         )
-    if mode == "local":
-        raise NotImplementedError(f"device_mesh='local' {_SLICE_5}")
-    return None
+    if mode == "none":
+        return None
+    from ..shard.mesh import local_devices, make_pixel_mesh
+
+    devices = local_devices(resolve_device(device).type)
+    if mode == "auto" and len(devices) < 2:
+        return None
+    return make_pixel_mesh(devices)
 
 
 def run_one_chunk(
@@ -112,6 +124,9 @@ def run_one_chunk(
     sub_mask = chunk_mask(full_mask, chunk)
     if not sub_mask.any():
         return None
+    mesh = make_run_mesh(cfg, dev)
+    if mesh is not None:
+        dev = mesh.devices[0]
     if operator is None:
         operator = cfg.make_operator()
     gt = chunk_geotransform(geo.geotransform, chunk)
@@ -144,7 +159,7 @@ def run_one_chunk(
             prefetch_depth=cfg.prefetch_depth,
             prefetch_workers=cfg.prefetch_workers,
             scan_window=cfg.scan_window,
-            mesh=make_run_mesh(cfg),
+            mesh=mesh,
             checkpoint_every_n=cfg.checkpoint_every_n,
             band_sequential=cfg.band_sequential,
             device=dev,
@@ -203,6 +218,11 @@ def run_one_chunk(
 
 def _is_oom(exc: BaseException) -> bool:
     return isinstance(exc, torch.cuda.OutOfMemoryError)
+
+
+#: set once this process has met a device OOM: from then on every chunk
+#: runs in a fresh subprocess (see ``run_one_chunk_resilient``).
+_DEVICE_POISONED = False
 
 
 def split_chunk(chunk) -> list:
@@ -291,6 +311,85 @@ def _remove_outputs(cfg, patterns) -> None:
             os.unlink(stale)
 
 
+def _package_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
+def _run_chunk_subprocess(cfg: RunConfig, chunk, prefix: str, device=None):
+    """Run one chunk in a fresh interpreter (a fresh CUDA context):
+    ``python -m kafka_tpu_torch.cli.chunk_worker``.  Returns
+    ``(exit_code, summary_or_None)``; 124 when the worker outlived its
+    hang guard and was killed."""
+    import subprocess
+    import sys
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(
+        "w", suffix=".json", delete=False
+    ) as f:
+        f.write(cfg.to_json())
+        cfg_path = f.name
+    # Generous hang guard: a wedged device context must surface as a
+    # failed worker, not block the scheduler forever; overridable per
+    # run via extra["chunk_worker_timeout"].
+    timeout_s = float(
+        (getattr(cfg, "extra", None) or {}).get(
+            "chunk_worker_timeout", 4 * 3600
+        )
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_package_root(), env.get("PYTHONPATH")) if p)
+    # Hand the run id down so the worker's spans correlate with this
+    # scheduler's trace (telemetry.tracing).
+    from ..telemetry import tracing
+
+    ctx = tracing.current_context()
+    if ctx is not None:
+        env["KAFKA_TPU_RUN_ID"] = ctx.run_id
+    cmd = [sys.executable, "-m", "kafka_tpu_torch.cli.chunk_worker",
+           cfg_path, str(chunk.x0), str(chunk.y0),
+           str(chunk.nx_valid), str(chunk.ny_valid),
+           str(chunk.chunk_no), prefix]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout_s, env=env)
+    except subprocess.TimeoutExpired:
+        LOG.error(
+            "chunk worker %s exceeded %.0f s and was killed",
+            prefix, timeout_s,
+        )
+        return 124, None
+    finally:
+        os.unlink(cfg_path)
+    summary = None
+    if proc.returncode == 0:
+        parsed = False
+        for line in reversed(proc.stdout.strip().splitlines() or [""]):
+            try:
+                summary = json.loads(line)
+                parsed = True
+                break
+            except json.JSONDecodeError:
+                continue
+        if not parsed:
+            # rc 0 contractually prints one JSON line; a silent None here
+            # would undercount run stats while the outputs exist on disk.
+            LOG.error(
+                "chunk worker %s exited 0 without a summary JSON line "
+                "(stdout: %r)", prefix, proc.stdout[-300:],
+            )
+    else:
+        LOG.warning(
+            "chunk worker %s rc=%d: %s", prefix, proc.returncode,
+            proc.stderr.strip()[-500:],
+        )
+    return proc.returncode, summary
+
+
 def run_one_chunk_resilient(
     cfg: RunConfig,
     chunk,
@@ -302,44 +401,74 @@ def run_one_chunk_resilient(
     max_splits: int = 2,
     device=None,
 ) -> Optional[dict]:
-    """``run_one_chunk`` with device-OOM recovery.
+    """``run_one_chunk`` with device-OOM recovery, routed as the JAX
+    package routes it.
 
-    A chunk whose working set exceeds device memory is split into four
-    quarter chunks (recursively, up to ``max_splits`` levels), each with
-    the JAX package's suffixed prefix (``<prefix>-a`` .. ``-d``), in this
-    process: a ``torch.cuda.OutOfMemoryError`` leaves the CUDA context
-    usable once the failed attempt's tensors are freed.  Stale outputs
-    are removed as in the JAX package: the whole chunk's before a split,
-    its quarters' after a whole-chunk success.  Non-OOM errors propagate.
-    """
-    try:
-        result = run_one_chunk(
-            cfg, chunk, prefix, full_mask, geo, aux_builder,
-            operator=operator, device=device,
+    A device OOM marks this process poisoned (``_DEVICE_POISONED``): a
+    CUDA sticky error ruins the context as a TPU OOM does, so recovery
+    is process-based.  The failed chunk and every chunk after it run in
+    fresh ``cli.chunk_worker`` subprocesses; a chunk that OOMs there too
+    (``OOM_EXIT_CODE``) is split into four quarter chunks (recursively,
+    up to ``max_splits`` levels), each with the JAX package's suffixed
+    prefix (``<prefix>-a`` .. ``-d``).  Stale outputs are removed as in
+    the JAX package: the whole chunk's before a split, its quarters'
+    after a whole-chunk success.  A worker killed by its hang guard
+    raises ``TimeoutError`` (transient: a retry policy re-attempts it);
+    any other failure propagates.  The subprocess path needs the aux
+    builder reconstructible by name (``resolve_aux_builder``)."""
+    global _DEVICE_POISONED
+    from .chunk_worker import OOM_EXIT_CODE
+
+    if not _DEVICE_POISONED:
+        try:
+            result = run_one_chunk(
+                cfg, chunk, prefix, full_mask, geo, aux_builder,
+                operator=operator, device=device,
+            )
+            # A full-chunk success removes quarter outputs left by an
+            # earlier split of the same chunk, or mosaics would
+            # double-read them.
+            _remove_outputs(cfg, [f"*_{prefix}-[abcd]*.tif"])
+            return result
+        except Exception as exc:  # noqa: BLE001 — filtered to OOM below
+            if not _is_oom(exc):
+                raise
+            _DEVICE_POISONED = True
+            LOG.warning(
+                "chunk %s (%dx%d px) exhausted device memory; running "
+                "the remaining work in fresh subprocesses",
+                prefix, chunk.nx_valid, chunk.ny_valid,
+            )
+    if aux_builder is not None and \
+            aux_builder is not resolve_aux_builder(cfg, device):
+        raise RuntimeError(
+            "device OOM recovery needs a subprocess, but the injected "
+            "aux_builder cannot be reconstructed there; re-run with "
+            "smaller chunk_size"
         )
-    except Exception as exc:  # noqa: BLE001 — filtered to OOM below
-        if not _is_oom(exc):
-            raise
-        if max_splits <= 0 or min(chunk.nx_valid, chunk.ny_valid) < 2:
-            raise RuntimeError(
-                f"chunk {prefix} exceeds device memory even at "
-                f"{chunk.nx_valid}x{chunk.ny_valid} px (split limit "
-                "reached)"
-            ) from exc
-        LOG.warning(
-            "chunk %s (%dx%d px) exceeds device memory; splitting 2x2",
-            prefix, chunk.nx_valid, chunk.ny_valid,
-        )
-    else:
-        # A full-chunk success removes quarter outputs left by an earlier
-        # split of the same chunk, or mosaics would double-read them.
+    rc, summary = _run_chunk_subprocess(cfg, chunk, prefix, device)
+    if rc == 0:
         _remove_outputs(cfg, [f"*_{prefix}-[abcd]*.tif"])
-        return result
-    # Outside the handler: the failed attempt's frames (and the tensors
-    # they hold) are released before the quarters run.
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
-    # The failed attempt may have flushed partial rasters under this
+        return summary
+    if rc == 124:
+        raise TimeoutError(
+            f"chunk worker for {prefix} exceeded its wall-clock "
+            "timeout and was killed"
+        )
+    if rc != OOM_EXIT_CODE:
+        raise RuntimeError(
+            f"chunk worker for {prefix} failed (rc={rc})"
+        )
+    if max_splits <= 0 or min(chunk.nx_valid, chunk.ny_valid) < 2:
+        raise RuntimeError(
+            f"chunk {prefix} exceeds device memory even at "
+            f"{chunk.nx_valid}x{chunk.ny_valid} px (split limit reached)"
+        )
+    LOG.warning(
+        "chunk %s (%dx%d px) exceeds device memory; splitting 2x2",
+        prefix, chunk.nx_valid, chunk.ny_valid,
+    )
+    # The failed attempts may have flushed partial rasters under this
     # prefix; remove them so the quarter outputs are the only files for
     # these pixels.
     _remove_outputs(cfg, [f"*_{prefix}.tif", f"*_{prefix}_unc.tif"])
@@ -372,30 +501,37 @@ def run_config(
     num_processes: Optional[int] = None,
     process_index: Optional[int] = None,
     queue: bool = False,
+    lease_ttl_s: Optional[float] = None,
     device=None,
 ) -> dict:
     """Chunked run over the whole state mask on ``device`` (None means
-    CUDA; raises without a card): every pending chunk in turn, restart
-    markers beside the outputs.  Returns the JAX package's stats:
-    ``assigned``, ``run``, ``skipped``, ``failed``, ``wall_s``,
-    ``chunks_with_pixels``, ``pixels`` and ``dates_assimilated``.
+    CUDA; raises without a card), restart markers beside the outputs.
+    Returns the JAX package's stats: ``assigned``, ``run``, ``skipped``,
+    ``failed``, ``wall_s``, ``chunks_with_pixels``, ``pixels`` and
+    ``dates_assimilated`` (the queue's own stats with ``queue=True``).
 
-    ``num_processes > 1`` and ``queue=True`` raise: several processes
-    over one chunk set come with ROADMAP slice 5."""
+    This process runs its round-robin share of the chunks over the
+    ``torch.distributed`` ranks (``num_processes`` / ``process_index``
+    override them).  ``queue=True`` replaces the static assignment with
+    the lease-based chunk queue (``shard.run_queue``): this process
+    becomes one worker claiming from the shared ``output_folder``, a
+    dying worker's chunks are reclaimed by the survivors after
+    ``lease_ttl_s``, and ``num_processes`` / ``process_index`` are
+    irrelevant."""
     from ..resilience import RetryPolicy, faults
     from ..telemetry import configure, get_registry, tracing
 
-    if queue:
-        raise NotImplementedError(f"the lease-based chunk queue {_SLICE_5}")
     dev = resolve_device(device)
     if cfg.telemetry_dir:
         configure(cfg.telemetry_dir)
     # Chaos-run hook: KAFKA_TPU_FAULTS scripts deterministic failures at
-    # the registered fault points.
+    # the fault points.
     faults.install_from_env()
     full_mask, geo = load_state_mask(cfg)
     ny, nx = full_mask.shape
     chunks = list(get_chunks(nx, ny, tuple(cfg.chunk_size)))
+    # Keyed by prefix, not appended: queue-mode at-least-once execution
+    # (commit retries, reclaims) may run a chunk twice.
     summaries = {}
     # One operator for ALL chunks.
     operator = cfg.make_operator()
@@ -422,19 +558,31 @@ def run_config(
         jitter=float(ft.get("jitter", 0.1)),
     ) if attempts > 1 else None
     deadline_s = ft.get("chunk_deadline_s")
+    deadline_s = float(deadline_s) if deadline_s is not None else None
     # One trace context for the whole run: chunk/window ids are pushed
     # below it.
     with tracing.push(run_id=tracing.new_run_id()):
-        stats = run_chunks(
-            chunks, run_one, cfg.output_folder,
-            num_processes=num_processes,
-            process_index=process_index,
-            retry_policy=retry_policy,
-            quarantine=bool(ft.get("quarantine", False)),
-            chunk_deadline_s=(
-                float(deadline_s) if deadline_s is not None else None
-            ),
-        )
+        if queue:
+            from ..shard.queue import DEFAULT_LEASE_TTL_S, run_queue
+
+            stats = run_queue(
+                chunks, run_one, cfg.output_folder,
+                lease_ttl_s=(lease_ttl_s if lease_ttl_s
+                             else DEFAULT_LEASE_TTL_S),
+                retry_policy=retry_policy,
+                quarantine=bool(ft.get("quarantine", True)),
+                chunk_deadline_s=deadline_s,
+                max_requeues=ft.get("max_requeues"),
+            )
+        else:
+            stats = run_chunks(
+                chunks, run_one, cfg.output_folder,
+                num_processes=num_processes,
+                process_index=process_index,
+                retry_policy=retry_policy,
+                quarantine=bool(ft.get("quarantine", False)),
+                chunk_deadline_s=deadline_s,
+            )
     stats["chunks_with_pixels"] = len(summaries)
     stats["pixels"] = int(
         sum(s["n_pixels"] for s in summaries.values())
@@ -448,4 +596,3 @@ def run_config(
     # telemetry_dir).
     reg.dump()
     return stats
-

@@ -17,10 +17,24 @@ Usage:
 cpu`` runs on the CPU.  ``--scan-window`` sets the engine's temporal
 fusion (default 8, the engine default; 1 runs every window unfused).
 ``--operator wcm`` runs the SAR-only Water-Cloud state (2 parameters,
-VV and VH at a 23 degree incidence angle).  Not ported yet, and refused
-with a message naming the slice that brings them: chunked, queue and
-fleet modes (``--chunk-size``, ``--queue``, ``--num-workers``), the live
-HTTP endpoint (``--http-port``) and profiler capture
+VV and VH at a 23 degree incidence angle).
+
+``--chunk-size N`` routes the run through the restart-safe chunk
+scheduler (``shard.run_chunks``) with quarantine on — one KalmanFilter
+per NxN chunk, prefixed outputs, per-chunk retry — the chaos harness of
+the fault-tolerance layer: script failures with ``KAFKA_TPU_FAULTS`` and
+the run completes with exit code 75 (partial success) when chunks were
+quarantined, while unaffected chunks produce bit-identical outputs.
+``--queue`` makes chunked mode the self-healing lease-based queue
+(``shard.run_queue``): workers claim chunks through heartbeat leases and
+reclaim a dead worker's expired leases.  ``--num-workers N`` makes a
+local N-process fleet of this one command (SIGKILL a worker and the
+survivors finish its chunks; SIGTERM drains a worker).  The summary
+lines are the JAX driver's (``mode`` "chunked", "queue" or
+"queue-fleet").
+
+Not ported yet, and refused with a message naming the slice that brings
+them: the live HTTP endpoint (``--http-port``) and profiler capture
 (``--profile-windows``).
 """
 
@@ -51,12 +65,6 @@ from . import add_device_arg, add_telemetry_arg, make_console
 #: flags of the JAX driver this port does not run yet, with the ROADMAP
 #: slice that brings each: (flag, is it set?, slice).
 UNPORTED = (
-    ("--chunk-size", lambda a: a.chunk_size > 0,
-     "slice 5 (distribution: chunked, queue and fleet modes)"),
-    ("--queue", lambda a: a.queue,
-     "slice 5 (distribution: chunked, queue and fleet modes)"),
-    ("--num-workers", lambda a: a.num_workers > 1,
-     "slice 5 (distribution: chunked, queue and fleet modes)"),
     ("--http-port", lambda a: a.http_port > 0,
      "slice 7 (device plane and telemetry)"),
     ("--profile-windows", lambda a: a.profile_windows > 0,
@@ -144,17 +152,26 @@ def parse_args(argv=None):
                     help="observation cadence in days")
     ap.add_argument("--checkpoint", action="store_true")
     ap.add_argument("--chunk-size", type=int, default=0,
-                    help="(not ported yet) NxN chunked runs")
+                    help="run as NxN chunks through the restart-safe "
+                         "scheduler with quarantine on (0 = one run)")
     ap.add_argument("--queue", action="store_true",
-                    help="(not ported yet) the lease-based chunk queue")
+                    help="claim chunks from the self-healing lease-based "
+                         "queue (shard.run_queue) instead of static "
+                         "assignment; requires --chunk-size")
     ap.add_argument("--lease-ttl-s", type=float, default=None,
-                    help="queue-mode lease TTL (queue mode only)")
+                    help="queue-mode heartbeat-lease TTL; a worker "
+                         "silent this long is presumed dead and its "
+                         "chunk is reclaimed")
     ap.add_argument("--num-workers", type=int, default=1,
-                    help="(not ported yet) queue-mode local fleet size")
+                    help="queue-mode local fleet size: N>1 spawns N "
+                         "single-worker subprocesses of this command "
+                         "over one shared queue and waits")
     ap.add_argument("--chunk-attempts", type=int, default=2,
-                    help="attempts per chunk (chunked mode only)")
+                    help="attempts per chunk under the scheduler retry "
+                         "policy (chunked mode)")
     ap.add_argument("--chunk-deadline-s", type=float, default=None,
-                    help="per-chunk deadline (chunked mode only)")
+                    help="per-chunk wall-clock deadline; over-budget "
+                         "chunks are quarantined (chunked mode)")
     ap.add_argument("--read-attempts", type=int, default=3,
                     help="attempts per observation read before the date "
                          "degrades to predict-only")
@@ -179,6 +196,8 @@ def parse_args(argv=None):
         if is_set(args):
             ap.error(f"{flag} is not ported to kafka_tpu_torch yet; "
                      f"it comes with {where} (ROADMAP.md)")
+    if args.queue and args.chunk_size <= 0:
+        ap.error("--queue requires --chunk-size")
     return args
 
 
@@ -186,10 +205,16 @@ def main(argv=None):
     from ..resilience import RetryPolicy, faults
     from ..telemetry import configure, get_registry, tracing
 
-    args = parse_args(argv)
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(raw_argv)
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING)
     device = resolve_device(args.device)
+    if args.queue and args.num_workers > 1:
+        # Local fleet: the parent only spawns, waits and summarises; the
+        # children are single-worker copies of this command over the one
+        # shared filesystem queue.
+        return _run_fleet(args, raw_argv)
     if args.telemetry_dir:
         configure(args.telemetry_dir)
     # Fault injection: KAFKA_TPU_FAULTS scripts failures at the fault
@@ -220,10 +245,10 @@ def main(argv=None):
         truth_val, mask.shape + (len(truth_val),)).astype(np.float32)
 
     t0 = time.time()
+    run = _run_chunked if args.chunk_size > 0 else _run_single
     with tracing.push(run_id=tracing.new_run_id()):
-        summary = _run_single(args, mask, geo, op, params, prior, truth,
-                              aux_fn, sigma, obs_dates, time_grid,
-                              read_policy, device)
+        summary = run(args, mask, geo, op, params, prior, truth, aux_fn,
+                      sigma, obs_dates, time_grid, read_policy, device)
     wall = time.time() - t0
 
     summary["operator"] = args.operator
@@ -286,6 +311,158 @@ def _run_single(args, mask, geo, op, params, prior, truth, aux_fn, sigma,
         "mean_iterations": round(float(np.mean(
             [d["n_iterations"] for d in kf.diagnostics_log] or [0])), 2),
     }
+
+
+def _run_chunked(args, mask, geo, op, params, prior, truth, aux_fn, sigma,
+                 obs_dates, time_grid, read_policy, device) -> dict:
+    """The chunk-scheduler path: one filter per NxN chunk with prefixed
+    outputs, per-chunk retry and quarantine (exit code 75 when chunks end
+    up quarantined), statically assigned or — ``--queue`` — claimed from
+    the lease-based queue."""
+    from ..io.tiling import chunk_geotransform, chunk_mask, get_chunks
+    from ..resilience import RetryPolicy
+    from ..shard.scheduler import run_chunks
+
+    ny, nx = mask.shape
+    chunks = list(get_chunks(nx, ny, (args.chunk_size, args.chunk_size)))
+    # Keyed by prefix, not appended: at-least-once execution (queue-mode
+    # commit retries, reclaimed chunks) may run a chunk twice.
+    summaries = {}
+
+    def run_one(chunk, prefix):
+        sub_mask = chunk_mask(mask, chunk)
+        if not sub_mask.any():
+            return
+        sub_truth = np.ascontiguousarray(
+            truth[chunk.y0:chunk.y0 + chunk.ny_valid,
+                  chunk.x0:chunk.x0 + chunk.nx_valid])
+        obs = SyntheticObservations(
+            dates=obs_dates, operator=op,
+            truth_fn=lambda date: sub_truth, sigma=sigma, aux_fn=aux_fn,
+            mask_prob=0.1, device=device,
+        )
+        output = GeoTIFFOutput(
+            params, chunk_geotransform(geo.geotransform, chunk),
+            geo.projection, args.outdir, prefix=prefix, epsg=geo.epsg,
+            async_writes=True,
+        )
+        try:
+            kf = _make_filter(args, sub_mask, output, op, params, obs,
+                              read_policy, device)
+            x0, p_inv0 = prior.process_prior(None, kf.gather)
+            ck = Checkpointer(os.path.join(args.outdir, "ckpt"),
+                              prefix=f"{prefix}_") \
+                if args.checkpoint else None
+            kf.run(time_grid, x0, None, p_inv0, checkpointer=ck)
+        finally:
+            # A failed attempt must not leak the async writer thread into
+            # the retry.
+            output.close()
+        summaries[prefix] = {"prefix": prefix,
+                             "n_pixels": int(kf.gather.n_valid)}
+
+    policy = RetryPolicy(
+        max_attempts=max(1, args.chunk_attempts),
+        base_delay=args.retry_delay_s, multiplier=2.0, jitter=0.0,
+    ) if args.chunk_attempts > 1 else None
+    if args.queue:
+        from ..shard.queue import DEFAULT_LEASE_TTL_S, run_queue
+
+        stats = run_queue(
+            chunks, run_one, args.outdir,
+            lease_ttl_s=(args.lease_ttl_s if args.lease_ttl_s
+                         else DEFAULT_LEASE_TTL_S),
+            retry_policy=policy, quarantine=True,
+            chunk_deadline_s=args.chunk_deadline_s,
+        )
+        return {
+            "mode": "queue", "worker": stats["worker"],
+            "chunks_total": stats["total"], "chunks_run": stats["run"],
+            "reclaimed": stats["reclaimed"], "skipped": stats["skipped"],
+            "failed": stats["failed"], "drained": stats["drained"],
+            "pending": stats["pending_at_exit"],
+            "n_pixels": _pixels(summaries),
+        }
+    stats = run_chunks(
+        chunks, run_one, args.outdir, num_processes=1, process_index=0,
+        retry_policy=policy, quarantine=True,
+        chunk_deadline_s=args.chunk_deadline_s,
+    )
+    return {
+        "mode": "chunked", "chunks_assigned": stats["assigned"],
+        "chunks_run": stats["run"], "skipped": stats["skipped"],
+        "failed": stats["failed"], "n_pixels": _pixels(summaries),
+    }
+
+
+def _pixels(summaries: dict) -> int:
+    return int(sum(s["n_pixels"] for s in summaries.values()))
+
+
+def _strip_flag(argv, name, has_value=True):
+    """Remove ``name <v>`` / ``name=<v>`` occurrences from an argv list."""
+    out, skip = [], False
+    for tok in argv:
+        if skip:
+            skip = False
+            continue
+        if tok == name:
+            skip = has_value
+            continue
+        if tok.startswith(name + "="):
+            continue
+        out.append(tok)
+    return out
+
+
+def _run_fleet(args, raw_argv) -> dict:
+    """``--queue --num-workers N``: the one-command local fleet.  Spawns
+    N single-worker copies of this command over the shared queue in
+    ``--outdir``, waits, and summarises the queue's final state (SIGKILL
+    a worker mid-run and the survivors reclaim its chunks).  A worker's
+    hard failure (an exit code other than 0 or 75) raises."""
+    import subprocess
+
+    from ..shard.queue import queue_status
+
+    child_argv = raw_argv
+    for flag in ("--num-workers", "--telemetry-dir"):
+        child_argv = _strip_flag(child_argv, flag)
+    from .drivers import _package_root
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_package_root(), env.get("PYTHONPATH")) if p)
+    # One run id for the whole fleet: every worker's spans and events
+    # join one trace (tracing.new_run_id reads this).
+    env.setdefault("KAFKA_TPU_RUN_ID", os.urandom(6).hex())
+    procs = []
+    for i in range(args.num_workers):
+        cmd = [sys.executable, "-m", "kafka_tpu_torch.cli.run_synthetic",
+               *child_argv, "--num-workers", "1"]
+        if args.telemetry_dir:
+            cmd += ["--telemetry-dir",
+                    os.path.join(args.telemetry_dir, f"worker_{i}")]
+        procs.append(subprocess.Popen(cmd, env=env,
+                                      stdout=subprocess.DEVNULL))
+    rcs = [p.wait() for p in procs]
+    hard = [rc for rc in rcs if rc not in (0, 75)]
+    if hard:
+        raise RuntimeError(
+            f"queue worker hard-failed (rc={hard[0]}; all: {rcs})")
+    status = queue_status(args.outdir)
+    summary = {
+        "mode": "queue-fleet",
+        "num_workers": args.num_workers,
+        "chunks_total": status["n_chunks"],
+        "done": status["counts"]["done"],
+        "failed": status["counts"]["failed"],
+        "pending": status["counts"]["pending"],
+        "worker_rcs": rcs,
+        "outdir": args.outdir,
+    }
+    print(json.dumps(summary))
+    return summary
 
 
 console = make_console(main)

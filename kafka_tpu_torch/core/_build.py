@@ -12,12 +12,13 @@ with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import concurrent.futures
-import threading
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -44,6 +45,9 @@ SOURCE_FLAGS = {
 
 _LOADED: dict = {}
 _LOAD_LOCK = threading.Lock()
+#: guards the wrappers' launch counts: shards of a pixel mesh launch
+#: from one thread each (``shard.step``).
+_COUNT_LOCK = threading.Lock()
 #: every kernel source of the package (``csrc/<name>.cu``).
 KERNEL_SOURCES = ("fused_gn", "fused_update", "solve_rows")
 #: name -> {"path", "seconds", "log", "cached"} of the builds made or
@@ -138,6 +142,31 @@ def check_rows(name, t, rows, n, dev) -> None:
                          f"{(rows, n)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+@contextlib.contextmanager
+def on_device(dev):
+    """Make ``dev`` (the device of a launch's inputs) the calling
+    thread's current CUDA device for the launch and yield the handle of
+    its current stream.  A kernel then runs where its tensors lie,
+    whatever device the caller had current: a mesh shard on ``cuda:1``
+    launched from a thread with ``cuda:0`` current would otherwise fail
+    or run on the wrong card."""
+    import torch
+
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def count_launch(wrapper, key=None, by: str = "launches_by_instance"
+                 ) -> None:
+    """Add one to ``wrapper.launches`` (and to ``getattr(wrapper,
+    by)[key]`` when ``key`` is given), under a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if key is not None:
+            by_key = getattr(wrapper, by)
+            by_key[key] = by_key.get(key, 0) + 1
 
 
 def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:

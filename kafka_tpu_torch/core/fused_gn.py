@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from . import solver_health
+from . import collective, solver_health
 from .linalg import cholesky_packed, solve_chol_vectors, tri_rows
 
 
@@ -143,7 +143,8 @@ def fused_gn_raw_plain(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
            else corrupt.reshape(n) > 0)
 
     def gn_step(x, esc, clip):
-        h0, jac = lin_rows(tuple(x))
+        with collective.transforms():
+            h0, jac = lin_rows(tuple(x))
         h0 = [solver_health.corrupt_h0(h0[b], cor) for b in range(n_bands)]
         y_t = []
         for b in range(n_bands):
@@ -275,7 +276,8 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                  min_iterations, max_iterations, relaxation,
                  state_bounds_rows, norm_denominator, block, corrupt,
                  scalar_n=None):
-    """Launch ``csrc/fused_gn.cu`` on the current stream (no sync)."""
+    """Launch ``csrc/fused_gn.cu`` on the current stream of the inputs'
+    device (no sync)."""
     from . import _build
 
     owner = getattr(lin_rows, "__self__", None)
@@ -320,16 +322,16 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     fn.argtypes = ([ctypes.c_void_p] * 12
                    + [ctypes.c_longlong] + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(y.data_ptr(), r_inv.data_ptr(), mask_f.data_ptr(),
-            xf_rows.data_ptr(), pf_rows.data_ptr(), cor_ptr,
-            x.data_ptr(), a.data_ptr(), fwd.data_ptr(), inn.data_ptr(),
-            st.data_ptr(), hl.data_ptr(), n, block, int(min_iterations),
-            int(max_iterations), int(has_bounds), float(relax),
-            float(thresh_sq), float(moving_sq),
-            bnd_host.ctypes.data, stream)
+    with _build.on_device(dev) as stream:
+        rc = fn(y.data_ptr(), r_inv.data_ptr(), mask_f.data_ptr(),
+                xf_rows.data_ptr(), pf_rows.data_ptr(), cor_ptr,
+                x.data_ptr(), a.data_ptr(), fwd.data_ptr(), inn.data_ptr(),
+                st.data_ptr(), hl.data_ptr(), n, block, int(min_iterations),
+                int(max_iterations), int(has_bounds), float(relax),
+                float(thresh_sq), float(moving_sq),
+                bnd_host.ctypes.data, stream)
     _build.raise_on_error(lib, rc, "fused_gn")
-    fused_gn_rows.launches += 1
+    _build.count_launch(fused_gn_rows)
     return x, a, fwd, inn, st, hl
 
 
@@ -382,17 +384,19 @@ def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
 def summarise(raw, n: int, block: int, norm_denominator):
     """``(x, a, fwd, inn, n_done, norm, verdicts, nonfinite_count,
     clip_saturated)`` from raw outputs, as the JAX driver assembles them:
-    ``n_done`` the max over groups, ``norm`` the global final step norm."""
+    ``n_done`` the max over groups, ``norm`` the global final step norm
+    (over every shard's groups on a mesh shard, ``core.collective``)."""
     x, a, fwd, inn, st, hl = raw
     block = _block(n, block)
     # A fresh contiguous copy: the sums below then see the same layout
     # whether ``raw`` is one launch's output or one member's slice of a
     # folded launch (serve.batch), and give the same bits.
     per_block = st[:, ::block].contiguous()
-    n_done = per_block[0].max().to(torch.int32)
+    n_done = collective.all_reduce(per_block[0].max(), "max") \
+        .to(torch.int32)
     numel = torch.tensor(float(norm_denominator), dtype=torch.float32,
                          device=st.device)
-    norm = torch.sqrt(per_block[1].sum()) / numel
+    norm = torch.sqrt(collective.all_reduce(per_block[1].sum())) / numel
     verdicts = hl[0].to(torch.int32)
     nonfinite_count = (hl[1] > 0).sum().to(torch.int32)
     clip_saturated = (hl[2:] > 0).sum(dim=1).to(torch.int32)

@@ -125,7 +125,8 @@ def fused_update_raw_plain(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows,
 
 
 def _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows, esc_row):
-    """Launch ``csrc/fused_update.cu`` on the current stream (no sync)."""
+    """Launch ``csrc/fused_update.cu`` on the current stream of the
+    inputs' device (no sync)."""
     from . import _build
 
     p, n = xf_rows.shape
@@ -151,16 +152,14 @@ def _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows, esc_row):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
                    + [ctypes.c_longlong, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(p, n_bands, jac_rows.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            w.data_ptr(), m.data_ptr(), xl_rows.data_ptr(),
-            xf_rows.data_ptr(), pf_rows.data_ptr(), esc_row.data_ptr(),
-            x.data_ptr(), a.data_ptr(), inn.data_ptr(), hb.data_ptr(), n,
-            stream)
+    with _build.on_device(dev) as stream:
+        rc = fn(p, n_bands, jac_rows.data_ptr(), h0.data_ptr(),
+                y.data_ptr(), w.data_ptr(), m.data_ptr(), xl_rows.data_ptr(),
+                xf_rows.data_ptr(), pf_rows.data_ptr(), esc_row.data_ptr(),
+                x.data_ptr(), a.data_ptr(), inn.data_ptr(), hb.data_ptr(), n,
+                stream)
     _build.raise_on_error(lib, rc, "fused_update")
-    fused_update_rows.launches += 1
-    by_instance = fused_update_rows.launches_by_instance
-    by_instance[(p, n_bands)] = by_instance.get((p, n_bands), 0) + 1
+    _build.count_launch(fused_update_rows, (p, n_bands))
     return x, a, inn, hb
 
 

@@ -96,7 +96,8 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _launch_cuda(a_rows, b_rows):
-    """Launch ``csrc/solve_rows.cu`` on the current stream (no sync)."""
+    """Launch ``csrc/solve_rows.cu`` on the current stream of the
+    inputs' device (no sync)."""
     from . import _build
 
     p, n = b_rows.shape
@@ -112,12 +113,11 @@ def _launch_cuda(a_rows, b_rows):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    rc = fn(p, a_rows.data_ptr(), b_rows.data_ptr(), x.data_ptr(), n,
-            int(plan["route"] == "tma"), plan["grid"],
-            torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(dev) as stream:
+        rc = fn(p, a_rows.data_ptr(), b_rows.data_ptr(), x.data_ptr(), n,
+                int(plan["route"] == "tma"), plan["grid"], stream)
     _build.raise_on_error(lib, rc, "solve_rows")
-    solve_rows.launches += 1
-    solve_rows.route_launches[plan["route"]] += 1
+    _build.count_launch(solve_rows, plan["route"], by="route_launches")
     return x
 
 

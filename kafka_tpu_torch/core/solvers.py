@@ -46,7 +46,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from . import solver_health
+from . import collective, solver_health
 from .fused_gn import fused_gn_rows
 from .fused_update import fused_update, fused_update_rows, jac_to_rows
 from .linalg import (
@@ -279,16 +279,36 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
     (``_row_loop``, one launch of the fused update per iteration)."""
     n_pix, p = x_forecast.shape
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
-    if _inkernel_ok(linearize, operator_params, min_iterations,
-                    max_iterations, state_bounds, p, inkernel_linearize):
+    inkernel = _inkernel_ok(linearize, operator_params, min_iterations,
+                            max_iterations, state_bounds, p,
+                            inkernel_linearize)
+    shard = collective.current()
+    if inkernel and shard is not None:
+        from .fused_gn import _block
+
+        # The kernel's convergence groups are the unsharded batch's: a
+        # mesh shard runs it only when it holds whole groups.  Otherwise
+        # a group would straddle shards, and the shard takes the row
+        # loop, whose convergence norm is global (the collective).
+        inkernel = n_pix % _block(shard.n_total, 2048) == 0
+    if inkernel:
         y, w, mask_f, xf_rows, pf_rows, cor = _gn_rows_inputs(
             obs, x_forecast, p_inv_forecast, corrupt)
-        return _gn_rows_result(fused_gn_rows(
-            linearize.__self__.kernel_linearize_rows, y, w, mask_f,
-            xf_rows, pf_rows, tol, min_iterations, max_iterations,
-            relaxation, _kernel_bounds_rows(state_bounds, p), numel,
-            corrupt=cor, device=x_forecast.device,
-        ))
+        args = (linearize.__self__.kernel_linearize_rows, y, w, mask_f,
+                xf_rows, pf_rows, tol, min_iterations, max_iterations,
+                relaxation, _kernel_bounds_rows(state_bounds, p), numel)
+        if shard is None:
+            return _gn_rows_result(fused_gn_rows(
+                *args, corrupt=cor, device=x_forecast.device))
+        # A mesh shard: the unsharded run's groups and their share of
+        # the convergence test, so each group takes the trips it takes
+        # without a mesh; the trip count and norm summarised are the
+        # whole batch's.
+        from . import fused_gn as fg
+
+        block = fg._block(shard.n_total, 2048)
+        raw = fg.fused_gn_raw(*args, block, cor, scalar_n=shard.n_total)
+        return _gn_rows_result(fg.summarise(raw, n_pix, block, numel))
     return run_row_loops([_row_loop(
         linearize, obs, x_forecast, p_inv_forecast, operator_params, tol,
         min_iterations, max_iterations, relaxation, state_bounds,
@@ -423,7 +443,7 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
         fwd = torch.stack(fwd)
         x_new = x_new.contiguous()
         step = x_new - x_rows
-        norm = torch.linalg.vector_norm(step) / numel_t
+        norm = collective.step_norm(step, numel_t)
         nonfin = torch.maximum(nonfin, (hb[1] > 0).to(f32))
         bad_now = step_bad.to(f32)
         ssq = (step * step).sum(dim=0)
@@ -502,7 +522,7 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
             x = torch.minimum(torch.maximum(x, lo), hi)
             clip = clip * ((x <= lo) | (x >= hi)).to(f32)
         step = x - x_prev
-        norm = torch.linalg.vector_norm(step) / numel_t
+        norm = collective.step_norm(step, numel_t)
         a = unpack_symmetric(a_packed)
         h0, jac = lin.h0, lin.jac
         nonfin = torch.maximum(nonfin, x_nonfin.to(f32))
@@ -579,7 +599,7 @@ def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
     while True:
         # One host sync per iteration: the while loop's condition.
         if per_pixel_convergence:
-            done = bool(frozen.all()) and n_done >= min_iterations
+            done = collective.all_true(frozen) and n_done >= min_iterations
         else:
             done = bool(norm < tol_t) and n_done >= min_iterations
         if done or n_done > max_iterations:
@@ -598,13 +618,14 @@ def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
             small_now = pix_norm < tol_t
             newly = small_now & small if n_done + 1 >= min_iterations \
                 else torch.zeros_like(small_now)
-            norm = torch.sqrt((torch.where(frozen[:, None], 0.0, step) ** 2)
-                              .sum()) / numel_t
+            norm = torch.sqrt(collective.all_reduce(
+                (torch.where(frozen[:, None], 0.0, step) ** 2).sum())) \
+                / numel_t
             frozen = frozen | newly
             small = small_now
         else:
             x = x_new
-            norm = torch.linalg.vector_norm(step) / numel_t
+            norm = collective.step_norm(step, numel_t)
         h0, jac = lin.h0.to(f32), lin.jac.to(f32)
         n_done += 1
     # Diagnostics of the reference: fwd = J (x_a - x_f) + H0, innovations
@@ -740,8 +761,10 @@ def _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
         # A ``(params, x_pixel)`` forward is closed over the date's params.
         fwd_pixel = functools.partial(_call_linearize, hessian_forward,
                                       operator_params)
-        a = eigenvalue_floor(a - hessian_correction(
-            fwd_pixel, x, obs.r_inv, innovations, obs.mask))
+        with collective.transforms():
+            correction = hessian_correction(fwd_pixel, x, obs.r_inv,
+                                            innovations, obs.mask)
+        a = eigenvalue_floor(a - correction)
     chi2, clipped, nodata = _window_telemetry_scalars(
         x, innovations, obs, state_bounds
     )
@@ -767,9 +790,10 @@ def _call_linearize(linearize, operator_params, x):
         n_args = len(inspect.signature(linearize).parameters)
     except (ValueError, TypeError):
         n_args = 2
-    if n_args >= 2:
-        return linearize(operator_params, x)
-    return linearize(x)
+    with collective.transforms():
+        if n_args >= 2:
+            return linearize(operator_params, x)
+        return linearize(x)
 
 
 def _aux_leaves(tree):
@@ -873,6 +897,20 @@ def assimilate_date(linearize: LinearizeFn, obs: BandBatch, x_forecast,
     )
     x_forecast = torch.as_tensor(x_forecast, dtype=f32, device=dev)
     p_inv_forecast = torch.as_tensor(p_inv_forecast, dtype=f32, device=dev)
+    corrupt = solver_health.corruption_mask(x_forecast.shape[0])
+    return iterated_solve(
+        linearize, obs, x_forecast, p_inv_forecast, operator_params,
+        hessian_forward=hessian_forward,
+        corrupt=None if corrupt is None
+        else torch.as_tensor(corrupt, dtype=f32, device=dev),
+        **date_solve_kwargs(solver_options),
+    )
+
+
+def date_solve_kwargs(solver_options) -> dict:
+    """``iterated_solve``'s keywords from a solver-option dict, as
+    ``assimilate_date`` passes them (the structural options normalised,
+    the rest as given)."""
     opts = dict(solver_options or {})
     block, use_pallas, per_pixel, inkernel, min_it, max_it = \
         _split_structural_options(opts)
@@ -880,16 +918,9 @@ def assimilate_date(linearize: LinearizeFn, obs: BandBatch, x_forecast,
         opts["min_iterations"] = min_it
     if max_it is not None:
         opts["max_iterations"] = max_it
-    corrupt = solver_health.corruption_mask(x_forecast.shape[0])
-    return iterated_solve(
-        linearize, obs, x_forecast, p_inv_forecast, operator_params,
-        hessian_forward=hessian_forward, linearize_block=block,
-        use_pallas=use_pallas, per_pixel_convergence=per_pixel,
-        inkernel_linearize=inkernel,
-        corrupt=None if corrupt is None
-        else torch.as_tensor(corrupt, dtype=f32, device=dev),
-        **opts,
-    )
+    return dict(opts, linearize_block=block, use_pallas=use_pallas,
+                per_pixel_convergence=per_pixel,
+                inkernel_linearize=inkernel)
 
 
 def structural_options(solver_options) -> tuple:
@@ -1274,6 +1305,24 @@ def assimilate_windows_scan(linearize: LinearizeFn, obs_stacked: BandBatch,
     Returns ``(x_final, p_inv_final, xs (K, n, p), p_inv_diags (K, n, p),
     n_iterations (K,), convergence_norms (K,), converged_masks ((K, n)
     bool under ``per_pixel_convergence``, else None), window_stats)``."""
+    # The solver.pixel fault mask: one for the whole block (the armed
+    # pixel set is positional, not temporal).
+    corrupt = solver_health.corruption_mask(x_analysis0.shape[0])
+    if corrupt is not None:
+        corrupt = torch.as_tensor(corrupt, dtype=torch.float32,
+                                  device=x_analysis0.device)
+    return _windows_scan(linearize, obs_stacked, x_analysis0,
+                         p_inv_analysis0, aux_stacked, m_matrix, q_diag,
+                         prior_mean, prior_inv, state_propagator,
+                         solver_options, hessian_forward, corrupt)
+
+
+def _windows_scan(linearize, obs_stacked, x_analysis0, p_inv_analysis0,
+                  aux_stacked, m_matrix, q_diag, prior_mean, prior_inv,
+                  state_propagator, solver_options, hessian_forward,
+                  corrupt):
+    """``assimilate_windows_scan`` with the fault mask given (a mesh
+    shard passes its slice of the batch's)."""
     from .linalg import batched_diagonal, spd_inverse_batched
     from .propagators import advance as advance_fn
 
@@ -1290,11 +1339,6 @@ def assimilate_windows_scan(linearize: LinearizeFn, obs_stacked: BandBatch,
         m_matrix = torch.eye(p, dtype=torch.float32, device=dev)
     if q_diag is None:
         q_diag = torch.zeros(p, dtype=torch.float32, device=dev)
-    # The solver.pixel fault mask: one for the whole block (the armed
-    # pixel set is positional, not temporal).
-    corrupt = solver_health.corruption_mask(x_analysis0.shape[0])
-    if corrupt is not None:
-        corrupt = torch.as_tensor(corrupt, dtype=torch.float32, device=dev)
     x_a, p_inv_a = x_analysis0, p_inv_analysis0
     steps = []
     for k in range(obs_stacked.y.shape[0]):

@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -713,12 +715,29 @@ cudaLaunchConfig_t launch_config(const Geometry& g, cudaStream_t stream,
   return cfg;
 }
 
+// Allows the kernel the dynamic shared memory of its largest CTA (a
+// full kMaxThreads CTA's columns), once per device: the attribute
+// belongs to the current device, and a mesh may launch on several.
+template <class Op>
+cudaError_t allow_smem() {
+  static std::mutex lock;
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      fused_gn_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kMaxThreads * Column<Op>::kRows * sizeof(float)));
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 template <class Op>
 cudaError_t prepare(long long n, int blk, Geometry* g) {
   if (!geometry<Op>(n, blk, g)) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(fused_gn_kernel<Op>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)g->smem);
+  return allow_smem<Op>();
 }
 
 }  // namespace

@@ -123,9 +123,8 @@ def _named_prior(name: Optional[str], cfg: Optional["RunConfig"] = None,
 @dataclasses.dataclass
 class RunConfig:
     """One assimilation run, declaratively.  The fields, their defaults
-    and their meaning are those of the JAX ``RunConfig``; the port reads
-    them the same way, except ``device_mesh="local"`` (a pixel mesh),
-    which is not ported and raises where it is used."""
+    and their meaning are those of the JAX ``RunConfig``, and the port
+    reads them the same way."""
 
     parameter_list: Sequence[str]
     start: datetime.datetime
@@ -143,8 +142,9 @@ class RunConfig:
     state_mask: Optional[str] = None
     observations: str = "synthetic"
     pad_multiple: int = 256
-    #: "auto" and "none" run each chunk on the one device of the run;
-    #: "local" (a pixel mesh over several devices) is not ported
+    #: each chunk's pixel mesh (``cli.drivers.make_run_mesh``): "local"
+    #: spans every local device of the run's type, "auto" does so from
+    #: two of them (one H100 gives none), "none" never
     device_mesh: str = "auto"
     hessian_correction: bool = False
     #: observation prefetch depth; 0 = synchronous reads

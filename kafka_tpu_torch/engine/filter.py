@@ -45,14 +45,24 @@ As in the JAX engine:
   signature and result: the serving layer's batch executor points it
   at its rendezvous (``serve.batch``).
 
-Not ported: mesh sharding (raises ``NotImplementedError`` when set) and
-the performance gauges (``perf.record_window``), which come with the
-device-plane slice.
+- ``mesh`` (a ``shard.mesh.PixelMesh``) splits every pixel-batched
+  array over the mesh's devices (``pad_multiple`` becomes a multiple of
+  the mesh size times ``mesh_lane``): the state stays split from date to
+  date, observations are split as they are fetched (on the prefetch
+  thread), per-pixel aux leaves by the operator's ``aux_in_axes``, and
+  each date (or fused block) runs shard by shard through ``shard.step``
+  with the convergence norm the one collective.  Outputs, checkpoints
+  and the diagnostic records see the whole batch, gathered on the
+  mesh's first device; ``run`` returns ``PixelShards``.
+
+Not ported: the performance gauges (``perf.record_window``), which come
+with the device-plane slice.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import logging
 import time
 from typing import Callable, Optional, Sequence
@@ -104,15 +114,26 @@ class KalmanFilter:
         prefetch_workers: int = 1,
         scan_window: int = 8,
         mesh=None,
+        mesh_lane: int = 128,
         checkpoint_every_n: int = 1,
         band_sequential: bool = False,
         read_retry_policy: Optional[RetryPolicy] = None,
         max_degraded_dates: int = 8,
         device=None,
     ):
+        # Pixel sharding: every shard a multiple of ``mesh_lane`` pixels
+        # (tests use small lanes); the mesh's first device holds what the
+        # shards share and what is gathered for the outputs.
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported yet (ROADMAP.md, Queue 1)")
+            home = mesh.devices[0]
+            if device is not None and torch.device(device) != home:
+                raise ValueError(
+                    f"device={device!r} is not the mesh's first device "
+                    f"{home}")
+            device = home
+            pad_multiple = int(np.lcm(int(pad_multiple),
+                                      mesh.size * int(mesh_lane)))
         self.device = resolve_device(device)
         self.observations = observations
         self.output = output
@@ -187,9 +208,57 @@ class KalmanFilter:
     # the time loop
     # ------------------------------------------------------------------
 
+    # ------------------------------------------------------------------
+    # mesh sharding
+    # ------------------------------------------------------------------
+
+    def _put_pixel(self, arr):
+        """A pixel-leading array split over the mesh (as it is without
+        one)."""
+        if self.mesh is None or arr is None:
+            return arr
+        from ..shard.step import as_shards
+
+        return as_shards(self.mesh, arr, 0)
+
+    def _full(self, arr):
+        """The whole array of a mesh-split one, on the filter's device."""
+        from ..shard.mesh import PixelShards
+
+        return arr.full(self.device) if isinstance(arr, PixelShards) \
+            else arr
+
+    def _shard_obs(self, obs: DateObservation) -> DateObservation:
+        """A fetched observation split over the mesh: band batches on
+        their pixel axis, the aux into one tree per shard
+        (``shard.step.ShardAux``) by the operator's ``aux_in_axes``."""
+        from ..shard.step import ShardAux, as_shards, shard_aux
+
+        bands = BandBatch(*(as_shards(self.mesh, torch.as_tensor(f), 1)
+                            for f in obs.bands))
+        aux = None if obs.aux is None else ShardAux(shard_aux(
+            self.mesh, obs.operator, obs.aux, self.gather.n_pad))
+        return obs._replace(bands=bands, aux=aux)
+
+    def _date_solve(self, linearize, bands, x, p_inv, aux, opts, hessian,
+                    operator):
+        """One date's solve: ``assimilate_date``, or shard by shard over
+        the mesh with the diagnostics gathered on the filter's device."""
+        if self.mesh is None:
+            return assimilate_date(linearize, bands, x, p_inv, aux,
+                                   opts or None, hessian,
+                                   device=self.device)
+        from ..shard.step import gather_diagnostics, sharded_solve
+
+        x, p_inv, diags = sharded_solve(
+            self.mesh, linearize, bands, x, p_inv, aux, opts or None,
+            hessian, operator=operator)
+        return x, p_inv, gather_diagnostics(diags, self.device)
+
     def _prior_arrays(self, date):
         prior_mean, prior_inv = self.prior.process_prior(date, self.gather)
-        return prior_mean.to(self.device), prior_inv.to(self.device)
+        return (self._put_pixel(prior_mean.to(self.device)),
+                self._put_pixel(prior_inv.to(self.device)))
 
     def advance(self, x_analysis, p_analysis, p_analysis_inverse,
                 date: datetime.datetime):
@@ -197,6 +266,14 @@ class KalmanFilter:
         prior_mean = prior_inv = None
         if self.prior is not None:
             prior_mean, prior_inv = self._prior_arrays(date)
+        if self.mesh is not None:
+            from ..shard.step import sharded_advance
+
+            return sharded_advance(
+                self.mesh, x_analysis, p_analysis, p_analysis_inverse,
+                self.trajectory_model, self.trajectory_uncertainty,
+                prior_mean=prior_mean, prior_cov_inverse=prior_inv,
+                state_propagator=self._state_propagator)
         return prop.advance(
             x_analysis, p_analysis, p_analysis_inverse,
             self.trajectory_model, self.trajectory_uncertainty,
@@ -237,6 +314,8 @@ class KalmanFilter:
                 raise
             self._note_degraded(date, exc)
             return None
+        if self.mesh is not None:
+            obs = self._shard_obs(obs)
         return self._apply_obs_bias(obs, date_no)
 
     def _apply_obs_bias(self, obs: DateObservation,
@@ -248,11 +327,20 @@ class KalmanFilter:
         bias = quality.observation_bias(date_no)
         if bias is None:
             return obs
+        from ..shard.mesh import PixelShards
+
+        def biased(y, mask):
+            y = torch.as_tensor(y)
+            mask = torch.as_tensor(mask, device=y.device)
+            return torch.where(mask, y + torch.tensor(
+                bias, dtype=y.dtype, device=y.device), y)
+
         bands = obs.bands
-        y = torch.as_tensor(bands.y)
-        mask = torch.as_tensor(bands.mask, device=y.device)
-        y = torch.where(mask, y + torch.tensor(bias, dtype=y.dtype,
-                                               device=y.device), y)
+        if isinstance(bands.y, PixelShards):
+            y = PixelShards([biased(a, m) for a, m in zip(
+                bands.y.shards, bands.mask.shards)], bands.y.axis)
+        else:
+            y = biased(bands.y, bands.mask)
         return obs._replace(bands=BandBatch(
             y=y, r_inv=bands.r_inv, mask=bands.mask,
         ))
@@ -317,7 +405,8 @@ class KalmanFilter:
         posterior becoming the next forecast."""
         x_a, p_a, p_inv_a = x_forecast, p_forecast, p_forecast_inverse
         if p_inv_a is None and p_a is not None:
-            p_inv_a = spd_inverse_batched(p_a.float())
+            p_inv_a = _per_shard(p_a, lambda t: spd_inverse_batched(
+                t.float()))
         self._window_verdicts = None
         for date in dates:
             obs = self._fetch(date)
@@ -332,18 +421,19 @@ class KalmanFilter:
                 x_a, p_inv_a, diags = self._assimilate_band_sequential(
                     obs, x_a, p_inv_a, opts)
             elif self.date_dispatcher is not None:
+                if self.mesh is not None:
+                    raise ValueError("a date_dispatcher coalesces whole "
+                                     "batches; it does not take a mesh")
                 x_a, p_inv_a, diags = self.date_dispatcher(
                     obs.operator.linearize, obs.bands, x_a, p_inv_a,
                     obs.aux, opts or None,
                     self._hessian_forward(obs.operator),
                 )
             else:
-                x_a, p_inv_a, diags = assimilate_date(
+                x_a, p_inv_a, diags = self._date_solve(
                     obs.operator.linearize, obs.bands, x_a, p_inv_a,
-                    obs.aux, opts or None,
-                    self._hessian_forward(obs.operator),
-                    device=self.device,
-                )
+                    obs.aux, opts, self._hessian_forward(obs.operator),
+                    obs.operator)
             p_a = None
             if diags.health_verdicts is not None:
                 self._window_verdicts = (
@@ -398,15 +488,12 @@ class KalmanFilter:
         nodata_total = None
         last = None
         for b in range(n_bands):
-            band_obs = BandBatch(y=obs.bands.y[b:b + 1],
-                                 r_inv=obs.bands.r_inv[b:b + 1],
-                                 mask=obs.bands.mask[b:b + 1])
+            band_obs = BandBatch(*(_per_shard(f, lambda t: t[b:b + 1])
+                                   for f in obs.bands))
             view = self._band_view(obs.operator, b)
-            x_a, p_inv_a, last = assimilate_date(
-                view.linearize, band_obs, x_a, p_inv_a, obs.aux,
-                opts or None, self._hessian_forward(view),
-                device=self.device,
-            )
+            x_a, p_inv_a, last = self._date_solve(
+                view.linearize, band_obs, x_a, p_inv_a, obs.aux, opts,
+                self._hessian_forward(view), view)
             iters_total = iters_total + last.n_iterations
             norms.append(last.convergence_norm)
             innovations.append(last.innovations)
@@ -630,7 +717,7 @@ class KalmanFilter:
 
         def on_device(a):
             return None if a is None else torch.as_tensor(
-                a, dtype=f32, device=self.device)
+                self._full(a), dtype=f32, device=self.device)
 
         x_forecast = on_device(x_forecast).reshape(-1, self.n_params)
         p_forecast = on_device(p_forecast)
@@ -640,6 +727,9 @@ class KalmanFilter:
             # same n_valid real pixels in its leading rows: re-pad it.
             x_forecast, p_forecast, p_forecast_inverse = self._repad(
                 x_forecast, p_forecast, p_forecast_inverse)
+        x_forecast = self._put_pixel(x_forecast)
+        p_forecast = self._put_pixel(p_forecast)
+        p_forecast_inverse = self._put_pixel(p_forecast_inverse)
         # Snapshot the grid windowing ONCE: the loop and the prefetch
         # plan must see the identical date sequence.
         windows = list(iterate_time_grid(time_grid, self.observations.dates))
@@ -656,6 +746,9 @@ class KalmanFilter:
                     self.observations, self.gather, plan, depth=depth,
                     workers=self.prefetch_workers,
                     retry_policy=self._read_policy,
+                    # The mesh split runs on the prefetch thread too.
+                    transform=(self._shard_obs if self.mesh is not None
+                               else None),
                 )
         try:
             with tracing.push():
@@ -782,16 +875,19 @@ class KalmanFilter:
             flush()
         p_inv_ck = p_inv
         if p_inv_ck is None and p_analysis is not None:
-            p_inv_ck = spd_inverse_batched(p_analysis.float())
+            p_inv_ck = _per_shard(p_analysis, lambda t: spd_inverse_batched(
+                t.float()))
         x_f = p_f_inv = None
         if forecast is not None and adjacent:
             x_f, p_f, p_f_inv = forecast
             if p_f_inv is None and p_f is not None:
-                p_f_inv = spd_inverse_batched(p_f.float())
+                p_f_inv = _per_shard(p_f, lambda t: spd_inverse_batched(
+                    t.float()))
             if x_f is None or p_f_inv is None:
                 x_f = p_f_inv = None
-        checkpointer.save(timestep, x, p_inv_ck, x_forecast=x_f,
-                          p_forecast_inverse=p_f_inv)
+        checkpointer.save(timestep, self._full(x), self._full(p_inv_ck),
+                          x_forecast=self._full(x_f),
+                          p_forecast_inverse=self._full(p_f_inv))
 
     def _run_fused_block(self, block, x_analysis, p_analysis,
                          p_analysis_inverse, checkpointer,
@@ -802,7 +898,8 @@ class KalmanFilter:
 
         p_inv = p_analysis_inverse
         if p_inv is None and p_analysis is not None:
-            p_inv = spd_inverse_batched(p_analysis.float())
+            p_inv = _per_shard(p_analysis, lambda t: spd_inverse_batched(
+                t.float()))
         prior_mean = prior_inv = None
         if self.prior is not None:
             prior_mean, prior_inv = self._prior_arrays(block[0][0])
@@ -810,14 +907,18 @@ class KalmanFilter:
         opts = self.date_solver_options(first.operator)
         faults.fault_point("device.oom", date=str(block[0][0]))
         t0 = time.perf_counter()
-        bands = BandBatch(
-            y=torch.stack([o.bands.y for _, o in block]),
-            r_inv=torch.stack([o.bands.r_inv for _, o in block]),
-            mask=torch.stack([o.bands.mask for _, o in block]),
-        )
+        bands = BandBatch(*(_stack_block([getattr(o.bands, f)
+                                          for _, o in block])
+                            for f in BandBatch._fields))
         aux_stacked = stack_aux([o.aux for _, o in block])
+        scan = assimilate_windows_scan
+        if self.mesh is not None:
+            from ..shard.step import sharded_windows_scan
+
+            scan = functools.partial(sharded_windows_scan, self.mesh,
+                                     operator=first.operator)
         x_fin, p_inv_fin, xs, diag_s, iters, norms, converged, wstats = (
-            assimilate_windows_scan(
+            scan(
                 first.operator.linearize, bands, x_analysis, p_inv,
                 aux_stacked, self.trajectory_model,
                 self.trajectory_uncertainty, prior_mean, prior_inv,
@@ -825,6 +926,11 @@ class KalmanFilter:
                 self._hessian_forward(first.operator),
             )
         )
+        xs, diag_s, converged = (self._full(t) for t in (xs, diag_s,
+                                                         converged))
+        if wstats.health_verdicts is not None:
+            wstats = wstats._replace(
+                health_verdicts=self._full(wstats.health_verdicts))
         timesteps = [ts for ts, _ in block]
         with span("dump"):
             dump_block = getattr(self.output, "dump_block", None)
@@ -1006,11 +1112,11 @@ class KalmanFilter:
                 x_analysis, p_analysis, p_analysis_inverse = \
                     self.assimilate_dates(locate_times, x_forecast,
                                           p_forecast, p_forecast_inverse)
-        p_inv_diag = self._information_diagonal(p_analysis,
-                                                p_analysis_inverse)
+        p_inv_diag = self._window_diagonal(p_analysis, p_analysis_inverse)
         with span("dump"):
-            self.output.dump_data(timestep, x_analysis, p_inv_diag,
-                                  self.gather, self.parameter_list)
+            self.output.dump_data(timestep, self._full(x_analysis),
+                                  p_inv_diag, self.gather,
+                                  self.parameter_list)
             if self._window_verdicts is not None:
                 dump_qa = getattr(self.output, "dump_qa", None)
                 if dump_qa is not None:
@@ -1022,6 +1128,24 @@ class KalmanFilter:
         )
         return x_analysis, p_analysis, p_analysis_inverse
 
+    def _window_diagonal(self, p_analysis, p_analysis_inverse):
+        """The sigma outputs' information diagonal, whole, on the
+        filter's device (taken shard by shard on a mesh)."""
+        from ..shard.mesh import PixelShards
+
+        if not isinstance(p_analysis, PixelShards) and \
+                not isinstance(p_analysis_inverse, PixelShards):
+            return self._information_diagonal(p_analysis,
+                                              p_analysis_inverse)
+
+        def shard(a, k):
+            return None if a is None else a.shards[k]
+
+        return PixelShards([
+            self._information_diagonal(shard(p_analysis, k),
+                                       shard(p_analysis_inverse, k))
+            for k in range(self.mesh.size)], 0).full(self.device)
+
     @staticmethod
     def _information_diagonal(p_analysis, p_analysis_inverse):
         """Per-pixel information diagonal for the sigma outputs."""
@@ -1031,3 +1155,28 @@ class KalmanFilter:
             return 1.0 / torch.diagonal(p_analysis, dim1=-2,
                                         dim2=-1).clamp(min=1e-30)
         return None
+
+
+def _per_shard(arr, fn):
+    """``fn`` of a tensor, or of each shard of a ``PixelShards`` (pixel
+    axis kept); None stays None."""
+    from ..shard.mesh import PixelShards
+
+    if arr is None:
+        return None
+    if isinstance(arr, PixelShards):
+        return arr.map(fn)
+    return fn(arr)
+
+
+def _stack_block(values):
+    """A fused block's per-window arrays stacked on a new leading axis:
+    shard by shard for ``PixelShards`` (the pixel axis moves one up)."""
+    from ..shard.mesh import PixelShards
+
+    if isinstance(values[0], PixelShards):
+        return PixelShards(
+            [torch.stack(col) for col in zip(*(v.shards for v in values))],
+            values[0].axis + 1)
+    return torch.stack(values)
+

@@ -1,7 +1,14 @@
-"""Chunk scheduler of one process (port of the single-process part of
-``kafka_tpu/shard/scheduler.py``).
+"""Chunk scheduler (port of ``kafka_tpu/shard/scheduler.py``).
 
-``run_chunks`` runs every pending chunk of a chunked run in turn:
+``run_chunks`` runs this process's pending chunks of a chunked run in
+turn:
+
+- **across processes**: a deterministic round-robin of the chunks over
+  the ranks of ``torch.distributed`` (``shard.mesh.process_count`` /
+  ``process_index``; one process when none is initialised) — every
+  process computes the same assignment, with no coordinator and no
+  message passing; ``num_processes`` / ``process_index`` override them
+  for external launchers;
 
 - **restartability**: a per-chunk ``.chunk_<prefix>.done`` marker next to
   the outputs, written atomically (unique tmp + ``os.replace``), so a
@@ -14,12 +21,10 @@
   converting an exhausted or poison chunk into a ``.chunk_<prefix>.failed``
   marker so the run continues;
 - **telemetry**: completion counters, per-chunk wall-time histograms,
-  straggler flags and a ``chunk`` span per chunk in the trace.
-
-The JAX module's multi-host parts are not ported: its round-robin over
-``jax.process_index()`` becomes the ``process_index`` argument (default
-0), and ``num_processes > 1`` raises, as does the lease-based queue
-(``run_queue``); both come with ROADMAP slice 5 (distribution).
+  straggler flags and a ``chunk`` span per chunk in the trace;
+- **self-healing** (``run_queue``, ``shard.queue``): lease-based claiming
+  instead of the static assignment, so a dead worker's chunks are
+  reclaimed by the survivors.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..resilience import (
     faults,
 )
 from ..telemetry import get_registry, stopwatch, tracing
+from .mesh import process_count, process_index as _process_index
 
 LOG = logging.getLogger(__name__)
 
@@ -65,23 +71,13 @@ class ChunkAssignment:
 def assign_chunks(chunks: Sequence[Chunk],
                   num_processes: Optional[int] = None,
                   ) -> List[ChunkAssignment]:
-    """Deterministic round-robin over ``num_processes`` (default 1)
-    owners; identical on every process."""
-    n = num_processes if num_processes is not None else 1
+    """Deterministic round-robin over the processes (default: the
+    process group's size); identical on every process."""
+    n = num_processes if num_processes is not None else process_count()
     return [
         ChunkAssignment(chunk=c, owner=i % n, prefix=f"{c.chunk_no:04x}")
         for i, c in enumerate(chunks)
     ]
-
-
-def check_single_process(num_processes: Optional[int]) -> None:
-    """Raise unless the run is one process: the multi-process chunk
-    assignment comes with ROADMAP slice 5 (distribution)."""
-    if num_processes is not None and num_processes > 1:
-        raise NotImplementedError(
-            f"num_processes={num_processes}: runs over several processes "
-            "are not ported to kafka_tpu_torch yet; they come with ROADMAP "
-            "slice 5 (distribution)")
 
 
 def marker_path(outdir: str, prefix: str) -> str:
@@ -176,7 +172,8 @@ def pending_chunks(assignments: Iterable[ChunkAssignment], outdir: str,
     """This process's still-to-run chunks (restart-safe; quarantined
     chunks — ``.failed`` marker — are skipped too, so a restarted run
     doesn't immediately re-wedge on a known-bad chunk)."""
-    me = process_index if process_index is not None else 0
+    me = process_index if process_index is not None \
+        else _process_index()
     return [
         a for a in assignments
         if a.owner == me
@@ -188,7 +185,7 @@ def pending_chunks(assignments: Iterable[ChunkAssignment], outdir: str,
 def chunk_metrics(reg) -> dict:
     """The chunk-level metric vocabulary, registered at its ONE literal
     site (the metric-name lint requires exactly one registration site per
-    name)."""
+    name; ``run_chunks`` and ``queue.run_queue`` share these handles)."""
     return {
         "done": reg.counter(
             "kafka_shard_chunks_completed_total",
@@ -238,13 +235,11 @@ def run_chunks(
     non-FATAL failure that survives retries into a
     ``.chunk_<prefix>.failed`` marker + ``failed`` count instead of
     aborting the run.  Defaults preserve the
-    historical fail-fast semantics exactly.  ``num_processes > 1`` raises
-    ``NotImplementedError``: several processes over one chunk set come
-    with ROADMAP slice 5."""
-    check_single_process(num_processes)
+    historical fail-fast semantics exactly."""
     os.makedirs(outdir, exist_ok=True)
     sweep_stale_tmp(outdir)
-    me = process_index if process_index is not None else 0
+    me = process_index if process_index is not None \
+        else _process_index()
     assignments = assign_chunks(chunks, num_processes)
     todo = pending_chunks(assignments, outdir, me)
     stats = {"assigned": len([a for a in assignments if a.owner == me]),
@@ -335,3 +330,14 @@ def run_chunks(
         )
     stats["wall_s"] = time.time() - t0
     return stats
+
+
+def run_queue(chunks: Sequence[Chunk], run_one: Callable[[Chunk, str], None],
+              outdir: str, **kwargs) -> dict:
+    """Self-healing execution: lease-based claiming over a shared
+    filesystem queue instead of static assignment (delegates to
+    :func:`kafka_tpu_torch.shard.queue.run_queue`, imported lazily — the
+    queue module builds on this one)."""
+    from .queue import run_queue as _run_queue
+
+    return _run_queue(chunks, run_one, outdir, **kwargs)

@@ -305,12 +305,14 @@ def plant_solver_faults(y, r_inv, mask_f, xf_rows, pf_rows,
 def run_tip_engine(obs_days: Sequence[int] = (1, 3, 5, 7),
                    grid_days: Sequence[int] = (0, 2, 4, 6, 8),
                    ny: int = 12, nx: int = 14, pad_multiple: int = 128,
-                   solver_options=None, scan_window: int = 1, device=None):
+                   solver_options=None, scan_window: int = 1, device=None,
+                   mesh=None, mesh_lane: int = 8):
     """A complete (tiny) TIP assimilation through ``KalmanFilter.run``
-    with prior-only advance — the port of the JAX ``run_tip_engine`` (no
-    mesh); ``scan_window`` is the engine's temporal fusion, 1 by default
-    as in the JAX helper (fused and unfused give the same bits in the
-    port).  ``solver_options`` defaults to the JAX
+    with prior-only advance — the port of the JAX ``run_tip_engine``;
+    ``scan_window`` is the engine's temporal fusion, 1 by default as in
+    the JAX helper (fused and unfused give the same bits in the port),
+    and ``mesh`` / ``mesh_lane`` the engine's pixel sharding (the device
+    is then the mesh's first).  ``solver_options`` defaults to the JAX
     run's ``{"relaxation": 0.7, "max_iterations": 40}``.
 
     Returns ``(kf, out, x_analysis, p_inv_analysis)``."""
@@ -319,7 +321,7 @@ def run_tip_engine(obs_days: Sequence[int] = (1, 3, 5, 7),
     from ..engine.priors import TIP_PARAMETER_LIST, FixedGaussianPrior
     from ..obsops.twostream import TwoStreamOperator
 
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.devices[0] if mesh is not None else device)
 
     def day(i):
         return datetime.datetime(2021, 3, 1) + datetime.timedelta(days=i)
@@ -355,6 +357,7 @@ def run_tip_engine(obs_days: Sequence[int] = (1, 3, 5, 7),
         obs, out, mask, TIP_PARAMETER_LIST, state_propagation=None,
         prior=prior, pad_multiple=pad_multiple,
         solver_options=solver_options, scan_window=scan_window, device=dev,
+        mesh=mesh, mesh_lane=mesh_lane,
     )
     kf.set_trajectory_uncertainty(np.zeros(7))
     x0, p_inv0 = prior.process_prior(None, kf.gather)

@@ -5,6 +5,8 @@ counts), the same files, the rasters within the JAX package's fusion
 budgets (state rasters atol 2e-3, sigma rasters rtol 1e-2 / atol 2e-3)
 and the QA bands equal; the port's fused run equal to its unfused run
 to the bit; and the flags that are not ported refused with a message.
+The chunked, queue and fleet modes are held to the JAX driver in
+tests/test_torch_distributed_drivers.py.
 
 The two-stream case runs the driver with one acquisition every 4 days
 over 12 days (three dates, two of them in a fused block) so every solve
@@ -121,10 +123,6 @@ def test_checkpoint_flag_writes_resumable_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--operator", "wcm", "--chunk-size", "24"], "slice 5"),
-    (["--chunk-size", "24"], "slice 5"),
-    (["--chunk-size", "24", "--queue"], "slice 5"),
-    (["--num-workers", "2"], "slice 5"),
     (["--http-port", "9100"], "slice 7"),
     (["--profile-windows", "2"], "slice 7"),
 ])

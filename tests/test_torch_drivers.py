@@ -314,11 +314,13 @@ def test_modis_driver_matches_jax(modis):
 
 def test_oom_splits_the_chunk_into_the_jax_quarters(modis, monkeypatch,
                                                     tmp_path):
-    """A CUDA OOM on the whole tile splits it into quarters in-process:
-    the JAX quarter prefixes and files (its subprocess worker replaced by
-    an in-process JAX run of the same quarter), the whole chunk's stale
-    rasters removed, a neighbouring chunk's files kept, the quarters
-    within the budgets of the JAX quarters."""
+    """A CUDA OOM on the whole tile routes the chunk to fresh worker
+    processes as the JAX package routes it, where it OOMs again and
+    splits into quarters: the JAX quarter prefixes and files (each
+    package's subprocess worker replaced by an in-process run of the same
+    chunk on its side), the whole chunk's stale rasters removed, a
+    neighbouring chunk's files kept, the quarters within the budgets of
+    the JAX quarters."""
     from kafka_tpu.cli import drivers as jd
     from kafka_tpu.cli.chunk_worker import OOM_EXIT_CODE
     from kafka_tpu.engine.config import RunConfig as JaxConfig
@@ -338,21 +340,30 @@ def test_oom_splits_the_chunk_into_the_jax_quarters(modis, monkeypatch,
             open(os.path.join(cfg.output_folder, name), "w").close()
         return cfg
 
+    from kafka_tpu_torch.cli.chunk_worker import OOM_EXIT_CODE as T_OOM
+
     tried = []
     real = drivers.run_one_chunk
 
-    def oom_over_20(cfg, chunk, prefix, *a, **k):
-        tried.append((prefix, chunk.nx_valid, chunk.ny_valid))
-        if chunk.nx_valid > 20:
-            raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
-        return real(cfg, chunk, prefix, *a, **k)
+    def oom(cfg, chunk, prefix, *a, **k):
+        tried.append(("in-process", prefix))
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
 
-    monkeypatch.setattr(drivers, "run_one_chunk", oom_over_20)
+    def worker(cfg, chunk, prefix, device=None):
+        tried.append(("worker", prefix, chunk.nx_valid, chunk.ny_valid))
+        if chunk.nx_valid > 20:
+            return T_OOM, None
+        return 0, real(cfg, chunk, prefix, mask, GEO, device=device)
+
+    monkeypatch.setattr(drivers, "run_one_chunk", oom)
+    monkeypatch.setattr(drivers, "_DEVICE_POISONED", False)
+    monkeypatch.setattr(drivers, "_run_chunk_subprocess", worker)
     tcfg = cfg_for(RunConfig, "torch")
     s = drivers.run_one_chunk_resilient(
         tcfg, Chunk(0, 0, 40, 40, 1), "0001", mask, GEO, device="cpu")
-    assert tried == [("0001", 40, 40)] + [
-        (f"0001-{t}", 20, 20) for t in "abcd"]
+    assert tried == [("in-process", "0001"), ("worker", "0001", 40, 40)] \
+        + [("worker", f"0001-{t}", 20, 20) for t in "abcd"]
+    assert drivers._DEVICE_POISONED
     assert s["oom_split"] and s["n_pixels"] == int(mask.sum())
     assert s["n_dates_assimilated"] == 4
 
@@ -393,6 +404,7 @@ def test_oom_splits_the_chunk_into_the_jax_quarters(modis, monkeypatch,
 
 
 def test_oom_split_limit_and_other_errors(monkeypatch):
+    from kafka_tpu_torch.cli.chunk_worker import OOM_EXIT_CODE
     from kafka_tpu_torch.io.tiling import Chunk
 
     calls = []
@@ -401,11 +413,18 @@ def test_oom_split_limit_and_other_errors(monkeypatch):
         calls.append(prefix)
         raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
 
+    def oom_worker(cfg, chunk, prefix, device=None):
+        calls.append(f"worker {prefix}")
+        return OOM_EXIT_CODE, None
+
     monkeypatch.setattr(drivers, "run_one_chunk", always_oom)
+    monkeypatch.setattr(drivers, "_run_chunk_subprocess", oom_worker)
+    monkeypatch.setattr(drivers, "_DEVICE_POISONED", False)
     with pytest.raises(RuntimeError, match="split limit"):
         drivers.run_one_chunk_resilient(None, Chunk(0, 0, 8, 8, 1), "0001",
                                         None, None, max_splits=1)
-    assert calls == ["0001", "0001-a"]
+    assert calls == ["0001", "worker 0001", "worker 0001-a"]
+    monkeypatch.setattr(drivers, "_DEVICE_POISONED", False)
 
     def broken(*a, **k):
         raise ValueError("broken reader")
@@ -560,7 +579,7 @@ def mod09(tmp_path_factory):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(device_mesh="local"), "slice 5"),
+    (dict(device_mesh="local"), "mesh"),
     (dict(operator="kernels"), "13b"),
     (dict(prior="kernels", initial_prior=None), "13b"),
     (dict(observations="mod09"), "13b"),
@@ -568,12 +587,14 @@ def mod09(tmp_path_factory):
     (dict(hessian_correction=True), "hessian_correction"),
 ])
 def test_unported_options_raise(modis, mod09, tmp_path, change, match):
-    """Of these options only ``device_mesh="local"`` is still refused
-    (ROADMAP slice 5).  The others run, each through both packages'
-    ``run_config`` on the same tree and held to the JAX driver by the
-    budgets of ``same_outputs``: the kernel-weight ones (``match``
-    "13b") over the MOD09 tree with the MOD09 driver's config, the
-    engine modes over the MCD43 tile with the MODIS driver's."""
+    """None of these options is refused any more: each runs through both
+    packages' ``run_config`` on the same tree and is held to the JAX
+    driver by the budgets of ``same_outputs``: the kernel-weight ones
+    (``match`` "13b") over the MOD09 tree with the MOD09 driver's
+    config, the engine modes over the MCD43 tile with the MODIS
+    driver's.  ``device_mesh="local"`` runs the port on a mesh of every
+    local CPU device (one) and the JAX package on its eight forced host
+    devices."""
     from kafka_tpu.cli import drivers as jdrivers
     from kafka_tpu.engine.config import RunConfig as JRunConfig
 
@@ -585,10 +606,6 @@ def test_unported_options_raise(modis, mod09, tmp_path, change, match):
     cfg.output_folder = str(tmp_path / "torch")
     for k, v in change.items():
         setattr(cfg, k, v)
-    if match == "slice 5":
-        with pytest.raises(NotImplementedError, match=match):
-            drivers.run_config(cfg, device="cpu")
-        return
     st = drivers.run_config(cfg, device="cpu")
     jcfg = JRunConfig.from_json(cfg.to_json())
     jcfg.output_folder = str(tmp_path / "jax")
@@ -626,11 +643,24 @@ def test_synergy_driver_matches_jax(modis, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(num_processes=2), dict(queue=True)])
 def test_multi_process_runs_raise(modis, tmp_path, kw):
+    """Runs over several processes no longer raise: with two processes
+    this process (rank 0) runs its round-robin share, the one chunk of
+    the tile, and rank 1 finds nothing left; as a queue worker it claims
+    and runs the chunk.  Either way the tile's 4 dates are assimilated
+    and the restart marker is the JAX package's."""
     cfg = RunConfig.load(str(modis["root"] / "cfg.json"))
+    cfg.data_folder = str(modis["root"] / "mcd43")
     cfg.state_mask = str(modis["root"] / "mask.tif")
     cfg.output_folder = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        drivers.run_config(cfg, device="cpu", **kw)
+    stats = drivers.run_config(cfg, device="cpu", **kw)
+    assert stats["run"] == 1 and stats["dates_assimilated"] == 4
+    assert markers(tmp_path) == [".chunk_0001.done"]
+    if "num_processes" in kw:
+        other = drivers.run_config(cfg, device="cpu", process_index=1,
+                                   **kw)
+        assert (other["assigned"], other["run"]) == (0, 0)
+    else:
+        assert stats["reclaimed"] == 0 and stats["pending_at_exit"] == 0
 
 
 def test_s2_driver_runs_through_converted_emulators(tmp_path):

@@ -64,7 +64,12 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.serve.session, kafka_tpu_torch.serve.synthetic, "
         "kafka_tpu_torch.telemetry.quality, kafka_tpu_torch.telemetry.live, "
         "kafka_tpu_torch.telemetry.request_log, "
-        "kafka_tpu_torch.cli.kafka_smooth, kafka_tpu_torch.cli.kafka_serve\n"
+        "kafka_tpu_torch.cli.kafka_smooth, kafka_tpu_torch.cli.kafka_serve, "
+        "kafka_tpu_torch.core.collective, kafka_tpu_torch.shard.mesh, "
+        "kafka_tpu_torch.shard.step, kafka_tpu_torch.shard.queue, "
+        "kafka_tpu_torch.cli.chunk_worker, "
+        "kafka_tpu_torch.cli.run_modis_distributed, "
+        "kafka_tpu_torch.testing.multiprocess_worker\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"
@@ -148,6 +153,8 @@ def _entry_points():
     from kafka_tpu_torch.core.solvers import assimilate_date_batch
     from kafka_tpu_torch.serve import make_synthetic_tile
     from kafka_tpu_torch.smoother import smooth_chain
+    from kafka_tpu_torch.cli import chunk_worker, run_modis_distributed
+    from kafka_tpu_torch.shard import make_pixel_mesh
 
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
@@ -208,6 +215,14 @@ def _entry_points():
         "make_synthetic_tile": lambda: make_synthetic_tile("t", os.devnull),
         "kafka_serve.main": lambda: kafka_serve.main(
             ["--root", os.devnull]),
+        "make_pixel_mesh": lambda: make_pixel_mesh(),
+        "run_modis_distributed.main": lambda: run_modis_distributed.main(
+            ["--outdir", os.devnull]),
+        "chunk_worker --queue": lambda: chunk_worker.main(
+            ["--queue", os.devnull]),
+        "run_synthetic.main --queue": lambda: run_synthetic.main(
+            ["--chunk-size", "4", "--queue", "--num-workers", "2",
+             "--outdir", os.devnull]),
         "assimilate_date_batch": lambda: assimilate_date_batch(
             op.linearize, BandBatch(z[None], z[None], z[None] > 0),
             np.zeros((1, 4, 7)), np.zeros((1, 4, 7, 7))),
@@ -227,7 +242,9 @@ def _entry_points():
      "S1Observations", "run_mod09.main", "MOD09Observations",
      "kernels_prior", "RunConfig.make_initial_prior kernels",
      "smooth_chain", "kafka_smooth.main", "make_synthetic_tile",
-     "kafka_serve.main", "assimilate_date_batch"]))
+     "kafka_serve.main", "assimilate_date_batch", "make_pixel_mesh",
+     "run_modis_distributed.main", "chunk_worker --queue",
+     "run_synthetic.main --queue"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

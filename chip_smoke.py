@@ -191,11 +191,14 @@ one JSON line:
    sub-tile again on a pixel mesh of MESH_SHARDS shards on the one card
    (``KalmanFilter(mesh=...)``, one thread per shard, the convergence
    norm the one collective), each held date by date to its unsharded
-   run: x within 2e-4, the final P^-1 within rtol 2e-4 / atol 2e-2
-   (the JAX mesh tests' budgets), QA equal; fused_gn launches = shards x
-   dates, (10, 10) launches = shards x iterations; per-date walls beside
-   the unsharded ones, peak device bytes, and whether the sharded run is
-   the same bits;
+   run: every state and sigma raster within 2e-4, the final P^-1 within
+   rtol 2e-4 / atol 2e-2 (the JAX mesh tests' budgets), QA equal;
+   fused_gn launches = shards x dates and the tile the same bits,
+   (10, 10) launches = shards x iterations; then the tile on
+   MESH_SPLIT_SHARDS shards, which split some of the unsharded 2,048-px
+   groups: fused_gn launches = (shards + 1) x dates (the straddling
+   groups launched whole, once a date) and the same bits again;
+   per-date walls beside the unsharded ones and peak device bytes;
 26. distributed (inside phase cli_modis's directory, after it) —
    ``run_modis_distributed`` over the MCD43 tile in 1200 x 1200 chunks,
    once in this process, then as two gloo ranks in child processes on
@@ -203,7 +206,8 @@ one JSON line:
    all_reduce of the counts equals the one-process run's, every .done
    marker, every raster bit-identical; each rank's peak device bytes;
 27. queue (after distributed) — ``run_synthetic --chunk-size 1200`` over
-   the tile static in this process, then ``--queue --num-workers 2`` in
+   the tile static in this process (fused_gn launches = chunk-dates),
+   then ``--queue --num-workers 2`` in
    a child process with one worker SIGKILLed while it holds a lease: the
    survivor reclaims it, queue_status ends all done with no lease, the
    rasters equal the static run's bit for bit; then one chunk through
@@ -425,10 +429,12 @@ SERVE_WINDOW_DATES = {1: 0, 2: 2, 3: 4, 4: 6}
 #: phase serve_batch: the JAX test's micro-window
 #: (tests/test_serve_batch.py:353).
 SERVE_BATCH_WINDOW_MS = 1500.0
-#: phase mesh: the shards of the pixel mesh (all on the one card) and the
-#: JAX package's mesh budgets: x (tests/test_engine_mesh.py:49-54) and
-#: P^-1 (tests/test_shard.py:58-62).
+#: phase mesh: the shards of the pixel mesh (all on the one card), the
+#: shards of its split-group tile run, and the JAX package's mesh
+#: budgets: every output raster, state and sigma
+#: (tests/test_engine_mesh.py:49-54), and P^-1 (tests/test_shard.py:58-62).
 MESH_SHARDS = 2
+MESH_SPLIT_SHARDS = 4
 MESH_X_ATOL = 2e-4
 MESH_P_RTOL, MESH_P_ATOL = 2e-4, 2e-2
 #: phases distributed and queue: chunks of CHUNK_PX x CHUNK_PX (4 of the
@@ -4200,35 +4206,48 @@ def serve_batch_kernels(device, rec: dict, kept: dict):
 
 def mesh_compare(base: dict, run: dict) -> dict:
     """A sharded run against its unsharded one (both ``{"out":
-    MemoryOutput, "final": (x, P^-1)}``): the largest state-raster
-    difference over every window, the largest relative sigma difference,
-    the QA bands equal, the final x difference and the final P^-1 entries
+    MemoryOutput, "final": (x, P^-1)}``), date by date: each date's
+    largest state-raster and sigma-raster differences, the largest
+    relative sigma difference, the QA bands equal (and the pixels whose
+    verdicts differ), the final x difference and the final P^-1 entries
     beyond the MESH_P budget, and whether all of it is the same bits."""
     import torch
 
     out_b, out_m = base["out"].output, run["out"].output
-    x_err = unc_rel = 0.0
+    unc_rel = 0.0
+    x_by_date, sigma_by_date = [], []
     qa_equal = sorted(out_b) == sorted(out_m)
     same = qa_equal
-    for ts in out_b:
+    qa_differing = 0
+    for ts in sorted(out_b):
+        x_err = sigma_err = 0.0
         for key, ref in out_b[ts].items():
             got = out_m[ts][key]
             same = same and got.tobytes() == ref.tobytes()
             if key == "solver_qa":
-                qa_equal = qa_equal and bool(np.array_equal(got, ref))
+                qa_differing += int((got != ref).sum())
             elif key.endswith("_unc"):
+                diff = np.abs(got - ref)
+                sigma_err = max(sigma_err, float(diff.max()))
                 unc_rel = max(unc_rel, float(np.max(
-                    np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30))))
+                    diff / np.maximum(np.abs(ref), 1e-30))))
             else:
                 x_err = max(x_err, float(np.abs(got - ref).max()))
+        x_by_date.append(x_err)
+        sigma_by_date.append(sigma_err)
     x_b, p_b = base["final"]
     x_m, p_m = (t.full(x_b.device) for t in run["final"])
     beyond = int(((p_m - p_b).abs()
                   > MESH_P_ATOL + MESH_P_RTOL * p_b.abs()).sum())
     same = same and bool(torch.equal(x_m, x_b)) and \
         bool(torch.equal(p_m, p_b))
-    return {"x_max_abs_err": x_err, "sigma_max_rel_err": unc_rel,
-            "solver_qa_equal": qa_equal,
+    return {"x_max_abs_err": max(x_by_date, default=0.0),
+            "x_max_abs_err_by_date": x_by_date,
+            "sigma_max_abs_err": max(sigma_by_date, default=0.0),
+            "sigma_max_abs_err_by_date": sigma_by_date,
+            "sigma_max_rel_err": unc_rel,
+            "solver_qa_equal": qa_equal and qa_differing == 0,
+            "solver_qa_pixels_differing": qa_differing,
             "final_x_max_abs_err": float((x_m - x_b).abs().max()),
             "final_p_inv_entries_beyond_budget": beyond,
             "bit_identical": same}
@@ -4240,17 +4259,21 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
     """Phase main's MODIS tile and phase main_s2's S2 sub-tile again,
     through KalmanFilter.run on a pixel mesh of MESH_SHARDS shards on the
     one card, each held date by date to the unsharded run of its phase:
-    x within MESH_X_ATOL, the final P^-1 within the MESH_P budgets, QA
-    bands equal; fused_gn launches = shards x dates on the tile, (10, 10)
-    fused-update launches = shards x iterations on the sub-tile.  The
-    per-date walls beside the unsharded run's and the peak device
+    every state and sigma raster of every date within MESH_X_ATOL, the
+    final P^-1 within the MESH_P budgets, QA bands equal; on the tile,
+    where each shard holds whole 2,048-px groups of the unsharded run,
+    fused_gn launches = shards x dates and the same bits; (10, 10)
+    fused-update launches = shards x iterations on the sub-tile.  Then
+    the tile on MESH_SPLIT_SHARDS shards of 1,152,000 px, which the
+    groups do not divide: fused_gn launches = (shards + 1) x dates (the
+    straddling groups launched once a date) and the same bits again.
+    The per-date walls beside the unsharded run's and the peak device
     bytes."""
     import torch
 
-    from kafka_tpu_torch.core import fused_gn
+    from kafka_tpu_torch.core.fused_gn import _block, shard_launches
     from kafka_tpu_torch.shard import make_pixel_mesh
 
-    mesh = make_pixel_mesh([device] * MESH_SHARDS)
     cuda = device.type == "cuda"
     failures = []
 
@@ -4261,31 +4284,46 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
     def peak():
         return torch.cuda.max_memory_allocated(device) if cuda else None
 
-    peak_reset()
-    reset_launches()
-    kf, out, run_s, final = tip_tile_run(device, ny, nx, seed, final=True,
-                                         mesh=mesh)
-    launches = launch_counts()
-    dates, base_dates = kf.diagnostics_log, main_run["kf"].diagnostics_log
-    n_pad = kf.gather.n_pad
-    tip = {"tile": [ny, nx], "n_pad": n_pad, "shard_px": n_pad // mesh.size,
-           "group_px": fused_gn._block(n_pad, 2048),
-           "kernel_launches": launches, "run_s": run_s,
-           "n_iterations": [r["n_iterations"] for r in dates],
-           "unsharded_n_iterations": [r["n_iterations"]
-                                      for r in base_dates],
-           "date_wall_s": [r["wall_s"] for r in dates],
-           "unsharded_date_wall_s": [r["wall_s"] for r in base_dates],
-           "peak_device_bytes": peak(),
-           **mesh_compare(main_run, {"out": out, "final": final})}
-    del kf, out, final
-    if len(dates) != len(base_dates) or \
-            launches["fused_gn"] != mesh.size * len(dates):
-        failures.append(f"tile: {launches['fused_gn']} fused_gn launches "
-                        f"for {len(dates)} dates on {mesh.size} shards")
-    if launches["fused_update"] or launches["solve_rows"]:
-        failures.append(f"tile: launches {launches}")
+    def tile_on(shards: int) -> dict:
+        mesh = make_pixel_mesh([device] * shards)
+        peak_reset()
+        reset_launches()
+        kf, out, run_s, final = tip_tile_run(device, ny, nx, seed,
+                                             final=True, mesh=mesh)
+        launches = launch_counts()
+        dates, base = kf.diagnostics_log, main_run["kf"].diagnostics_log
+        n_pad = kf.gather.n_pad
+        rec = {"shards": shards, "tile": [ny, nx], "n_pad": n_pad,
+               "shard_px": n_pad // shards,
+               "group_px": _block(n_pad, 2048),
+               "groups_divide_shards": (n_pad // shards)
+               % _block(n_pad, 2048) == 0,
+               "launches_per_date": shard_launches(n_pad, shards),
+               "kernel_launches": launches, "run_s": run_s,
+               "n_iterations": [r["n_iterations"] for r in dates],
+               "unsharded_n_iterations": [r["n_iterations"] for r in base],
+               "date_wall_s": [r["wall_s"] for r in dates],
+               "unsharded_date_wall_s": [r["wall_s"] for r in base],
+               "peak_device_bytes": peak(),
+               **mesh_compare(main_run, {"out": out, "final": final})}
+        label = f"tile on {shards} shards"
+        if len(dates) != len(base) or launches["fused_gn"] != \
+                rec["launches_per_date"] * len(dates):
+            failures.append(f"{label}: {launches['fused_gn']} fused_gn "
+                            f"launches for {len(dates)} dates")
+        if launches["fused_update"] or launches["solve_rows"]:
+            failures.append(f"{label}: launches {launches}")
+        if not rec["bit_identical"]:
+            failures.append(f"{label}: same bits False")
+        return rec
 
+    tip = tile_on(MESH_SHARDS)
+    split = tile_on(MESH_SPLIT_SHARDS)
+    if split["groups_divide_shards"]:
+        failures.append(f"tile on {MESH_SPLIT_SHARDS} shards: the groups "
+                        "divide the shards")
+
+    mesh = make_pixel_mesh([device] * MESH_SHARDS)
     peak_reset()
     reset_launches()
     kf, out, x0, p_inv0, grid, obs_days = s2_tile_filter(
@@ -4297,7 +4335,8 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
     launches = launch_counts()
     dates, base_dates = kf.diagnostics_log, s2_run["kf"].diagnostics_log
     iterations = sum(r["n_iterations"] for r in dates)
-    s2 = {"tile": [s2_ny, s2_nx], "n_pad": kf.gather.n_pad,
+    s2 = {"shards": MESH_SHARDS, "tile": [s2_ny, s2_nx],
+          "n_pad": kf.gather.n_pad,
           "shard_px": kf.gather.n_pad // mesh.size,
           "kernel_launches": launches, "run_s": s2_run_s,
           "iterations": iterations,
@@ -4315,11 +4354,14 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
             upd != mesh.size * iterations or launches["fused_gn"]:
         failures.append(f"s2: {launches} for {iterations} iterations on "
                         f"{mesh.size} shards")
-    for label, r in (("tile", tip), ("s2", s2)):
+    for label, r in (("tile", tip), ("split tile", split), ("s2", s2)):
         if r["x_max_abs_err"] > MESH_X_ATOL or \
                 r["final_x_max_abs_err"] > MESH_X_ATOL:
             failures.append(f"{label}: x off by {r['x_max_abs_err']} / "
                             f"{r['final_x_max_abs_err']}")
+        if r["sigma_max_abs_err"] > MESH_X_ATOL:
+            failures.append(f"{label}: sigma off by "
+                            f"{r['sigma_max_abs_err_by_date']}")
         if r["final_p_inv_entries_beyond_budget"]:
             failures.append(f"{label}: "
                             f"{r['final_p_inv_entries_beyond_budget']} P^-1 "
@@ -4327,7 +4369,8 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
         if not r["solver_qa_equal"]:
             failures.append(f"{label}: QA verdicts differ")
     rec = {"phase": "mesh", "mesh": [str(d) for d in mesh.devices],
-           "tip_tile": tip, "s2_subtile": s2, "failures": failures}
+           "tip_tile": tip, "tip_tile_split_groups": split,
+           "s2_subtile": s2, "failures": failures}
     emit(rec)
     if failures:
         raise AssertionError("mesh: " + "; ".join(failures))
@@ -4340,16 +4383,6 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
-
-
-def _child_env() -> dict:
-    """The environment of a child process of the port: the checkout
-    first on its path."""
-    env = dict(os.environ)
-    root = os.path.dirname(os.path.abspath(__file__))
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (root, env.get("PYTHONPATH")) if p)
-    return env
 
 
 def _wait_all(procs, timeout_s: float) -> list:
@@ -4402,6 +4435,7 @@ def phase_distributed(device, workdir: str, ny: int = TILE, nx: int = TILE,
     one-process run.  Each rank's peak device bytes are printed."""
     import torch
 
+    from kafka_tpu_torch.cli import drivers
     from kafka_tpu_torch.cli import run_modis_distributed as dist
     from kafka_tpu_torch.io import get_chunks
 
@@ -4443,7 +4477,7 @@ def phase_distributed(device, workdir: str, ny: int = TILE, nx: int = TILE,
                  "--outdir", two, "--num-processes", "2",
                  "--process-index", str(i),
                  "--coordinator", f"localhost:{port}"],
-                env=_child_env(), stdout=log, stderr=subprocess.STDOUT))
+                env=drivers.child_env(), stdout=log, stderr=subprocess.STDOUT))
     rcs = _wait_all(procs, CHILD_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     ranks = []
@@ -4532,7 +4566,8 @@ def phase_queue(device, workdir: str, ny: int = TILE, nx: int = TILE,
     lease (the lease file names its pid) it is SIGKILLed.  Gates: the
     fleet reports the victim's -9 and the survivor's 0; the survivor
     reclaimed at least one lease; queue_status ends with every chunk done
-    and no lease; every raster bit-identical to the static run.  Then
+    and no lease; every raster bit-identical to the static run, whose
+    fused_gn launches equal its chunk-dates.  Then
     one chunk of phase distributed's config through the chunk_worker
     subprocess (``drivers._run_chunk_subprocess``): rc 0 and its rasters
     equal to phase distributed's one-process run's."""
@@ -4556,8 +4591,10 @@ def phase_queue(device, workdir: str, ny: int = TILE, nx: int = TILE,
     launches = launch_counts()
     failures = []
     n_chunks = len(list(get_chunks(nx, ny, (chunk, chunk))))
+    # One fused_gn launch per chunk-date, as in phase distributed.
     if printed != stats or stats["chunks_run"] != n_chunks or \
-            stats["failed"] or launches["fused_gn"] == 0:
+            stats["failed"] or launches["fused_gn"] == 0 or \
+            launches["fused_gn"] != stats["chunks_run"] * stats["n_dates"]:
         failures.append(f"static run: {stats}, launches {launches}")
 
     log_path = os.path.join(workdir, "queue_fleet.log")
@@ -4567,7 +4604,7 @@ def phase_queue(device, workdir: str, ny: int = TILE, nx: int = TILE,
             [sys.executable, "-m", "kafka_tpu_torch.cli.run_synthetic",
              *base, "--queue", "--num-workers", "2", "--lease-ttl-s",
              str(QUEUE_TTL_S), "--outdir", fleet, "--telemetry-dir", tel],
-            env=_child_env(), stdout=log, stderr=subprocess.STDOUT)
+            env=drivers.child_env(), stdout=log, stderr=subprocess.STDOUT)
     victim = None
     try:
         deadline = time.monotonic() + CHILD_TIMEOUT_S
@@ -4880,6 +4917,8 @@ def main() -> int:
             paths={"main": main_rec["kernel_launches"],
                    "mesh": mesh_rec["tip_tile"]["kernel_launches"]
                    ["fused_gn"],
+                   "mesh_split_groups": mesh_rec["tip_tile_split_groups"]
+                   ["kernel_launches"]["fused_gn"],
                    "distributed": dist_rec["one_process"]
                    ["kernel_launches"]["fused_gn"],
                    "queue": queue_rec["static"]["kernel_launches"]

@@ -75,7 +75,9 @@ def _queue_main(argv) -> int:
             cmd += ["--lease-ttl-s", str(args.lease_ttl_s)]
         if args.device is not None:
             cmd += ["--device", args.device]
-        env = dict(os.environ)
+        from .drivers import child_env
+
+        env = child_env()
         # All workers join one trace: new_run_id() picks this up.
         env.setdefault("KAFKA_TPU_RUN_ID", os.urandom(6).hex())
         procs = [subprocess.Popen(cmd, env=env)

@@ -316,6 +316,15 @@ def _package_root() -> str:
         os.path.abspath(__file__))))
 
 
+def child_env() -> dict:
+    """The environment of a child process of the port: this one's, with
+    the checkout that holds the package first on ``PYTHONPATH``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_package_root(), env.get("PYTHONPATH")) if p)
+    return env
+
+
 def _run_chunk_subprocess(cfg: RunConfig, chunk, prefix: str, device=None):
     """Run one chunk in a fresh interpreter (a fresh CUDA context):
     ``python -m kafka_tpu_torch.cli.chunk_worker``.  Returns
@@ -338,9 +347,7 @@ def _run_chunk_subprocess(cfg: RunConfig, chunk, prefix: str, device=None):
             "chunk_worker_timeout", 4 * 3600
         )
     )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (_package_root(), env.get("PYTHONPATH")) if p)
+    env = child_env()
     # Hand the run id down so the worker's spans correlate with this
     # scheduler's trace (telemetry.tracing).
     from ..telemetry import tracing

@@ -428,11 +428,9 @@ def _run_fleet(args, raw_argv) -> dict:
     child_argv = raw_argv
     for flag in ("--num-workers", "--telemetry-dir"):
         child_argv = _strip_flag(child_argv, flag)
-    from .drivers import _package_root
+    from .drivers import child_env
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (_package_root(), env.get("PYTHONPATH")) if p)
+    env = child_env()
     # One run id for the whole fleet: every worker's spans and events
     # join one trace (tracing.new_run_id reads this).
     env.setdefault("KAFKA_TPU_RUN_ID", os.urandom(6).hex())

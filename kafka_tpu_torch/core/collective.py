@@ -60,6 +60,14 @@ class ShardGroup:
                 raise ValueError(f"unknown reduction {op!r}")
         return out
 
+    def all_gather(self, rank: int, value) -> list:
+        """Every shard's ``value``, in shard order."""
+        self._slots[rank] = value
+        self._barrier.wait()
+        parts = list(self._slots)
+        self._barrier.wait()
+        return parts
+
     def abort(self) -> None:
         self._barrier.abort()
 
@@ -98,6 +106,15 @@ def all_reduce(value: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if m is None:
         return value
     return m.group.all_reduce(m.rank, value, op)
+
+
+def all_gather(value) -> list:
+    """Every shard's ``value`` (any object), in shard order; ``[value]``
+    outside a shard group."""
+    m = current()
+    if m is None:
+        return [value]
+    return m.group.all_gather(m.rank, value)
 
 
 def step_norm(step: torch.Tensor, numel_t: torch.Tensor) -> torch.Tensor:

@@ -384,24 +384,119 @@ def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
 def summarise(raw, n: int, block: int, norm_denominator):
     """``(x, a, fwd, inn, n_done, norm, verdicts, nonfinite_count,
     clip_saturated)`` from raw outputs, as the JAX driver assembles them:
-    ``n_done`` the max over groups, ``norm`` the global final step norm
-    (over every shard's groups on a mesh shard, ``core.collective``)."""
-    x, a, fwd, inn, st, hl = raw
+    ``n_done`` the max over groups, ``norm`` the global final step norm."""
     block = _block(n, block)
     # A fresh contiguous copy: the sums below then see the same layout
     # whether ``raw`` is one launch's output or one member's slice of a
     # folded launch (serve.batch), and give the same bits.
-    per_block = st[:, ::block].contiguous()
-    n_done = collective.all_reduce(per_block[0].max(), "max") \
-        .to(torch.int32)
+    per_block = raw[4][:, ::block].contiguous()
+    return _summary(raw, per_block[0].max(), per_block[1].sum(),
+                    norm_denominator)
+
+
+def _summary(raw, trips, ssq, norm_denominator):
+    """:func:`summarise`'s tuple from the largest group trip count and
+    the groups' summed squared final steps."""
+    x, a, fwd, inn, st, hl = raw
     numel = torch.tensor(float(norm_denominator), dtype=torch.float32,
                          device=st.device)
-    norm = torch.sqrt(collective.all_reduce(per_block[1].sum())) / numel
-    verdicts = hl[0].to(torch.int32)
-    nonfinite_count = (hl[1] > 0).sum().to(torch.int32)
-    clip_saturated = (hl[2:] > 0).sum(dim=1).to(torch.int32)
-    return (x, a, fwd, inn, n_done, norm, verdicts, nonfinite_count,
-            clip_saturated)
+    return (x, a, fwd, inn, trips.to(torch.int32), torch.sqrt(ssq) / numel,
+            hl[0].to(torch.int32), (hl[1] > 0).sum().to(torch.int32),
+            (hl[2:] > 0).sum(dim=1).to(torch.int32))
+
+
+def shard_layout(n_total: int, size: int, rank: int) -> tuple:
+    """Where the unsharded run's convergence groups (``gcd(n_total,
+    2048)`` px) fall on shard ``rank`` of ``size`` equal shards:
+    ``(group, lo, hi)``, the shard's whole groups being its pixels
+    ``[lo, hi)``.  The pixels before ``lo`` and from ``hi`` on belong to
+    groups that straddle shards; a shard inside one group has none of
+    its own (``lo == hi == n``)."""
+    if n_total % size:
+        raise ValueError(f"{n_total} pixels do not split into {size} "
+                         "equal shards")
+    n = n_total // size
+    group = _block(n_total, 2048)
+    start = rank * n
+    first = -(-start // group) * group
+    last = (start + n) // group * group
+    if first >= last:
+        return group, n, n
+    return group, first - start, last - start
+
+
+def shard_launches(n_total: int, size: int) -> int:
+    """Launches of one sharded solve (:func:`fused_gn_shard`): one per
+    shard holding whole groups, and one for the groups that straddle
+    shards if any do (when the groups do not divide a shard)."""
+    group = _block(n_total, 2048)
+    whole = sum(lo < hi for _, lo, hi in
+                (shard_layout(n_total, size, k) for k in range(size)))
+    return whole + int((n_total // size) % group != 0)
+
+
+def fused_gn_shard(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
+                   min_iterations: int, max_iterations: int, relaxation,
+                   state_bounds_rows, norm_denominator, corrupt=None):
+    """One mesh shard's part of a sharded solve, run in every shard's
+    thread (``core.collective``): the summary tuple of
+    :func:`summarise` for the shard's pixels.
+
+    Every pixel goes through the unsharded run's convergence group with
+    that group's share of the convergence test, so the shards together
+    give the unsharded run's bits.  A shard launches the kernel over its
+    whole groups; the groups that straddle shards are gathered to the
+    first shard's device, launched there once, and their rows handed
+    back.  The trip count and the norm are the whole batch's."""
+    m = collective.current()
+    n, dev = pf_rows.shape[1], pf_rows.device
+    group, lo, hi = shard_layout(m.n_total, m.group.size, m.rank)
+    rows = [y, r_inv, mask_f, xf_rows, pf_rows, corrupt]
+    trips, ssq = [], []
+
+    def launch(part):
+        raw = fused_gn_raw(lin_rows, *part[:5], tol, min_iterations,
+                           max_iterations, relaxation, state_bounds_rows,
+                           norm_denominator, group, part[5],
+                           scalar_n=m.n_total)
+        per_group = raw[4][:, ::group].contiguous()
+        trips.append(per_group[0].max())
+        ssq.append(per_group[1].sum())
+        return raw
+
+    def cut(a, b):
+        if (a, b) == (0, n):
+            return rows
+        return [None if r is None else r[..., a:b].contiguous()
+                for r in rows]
+
+    parts = [launch(cut(lo, hi))] if lo < hi else []
+    if n % group:
+        # The straddling groups: every shard's pixels before lo and from
+        # hi on, joined in shard order, are whole groups.
+        pieces = collective.all_gather((cut(0, lo), cut(hi, n)))
+        joined = None
+        if m.rank == 0:
+            joined = launch([None if rows[i] is None else torch.cat(
+                [piece[i].to(dev) for head_tail in pieces
+                 for piece in head_tail], dim=-1).contiguous()
+                for i in range(len(rows))])
+        joined = collective.all_gather(joined)[0]
+        at = sum(head[4].shape[-1] + tail[4].shape[-1]
+                 for head, tail in pieces[:m.rank])
+        head = tuple(t[..., at:at + lo].to(dev) for t in joined)
+        tail = tuple(t[..., at + lo:at + lo + n - hi].to(dev)
+                     for t in joined)
+        parts = [head] + parts + [tail]
+    raw = parts[0] if len(parts) == 1 else tuple(
+        torch.cat(rows_of, dim=-1) for rows_of in zip(*parts))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return _summary(
+        raw,
+        collective.all_reduce(torch.stack(trips).max() if trips else zero,
+                              "max"),
+        collective.all_reduce(torch.stack(ssq).sum() if ssq else zero),
+        norm_denominator)
 
 
 def fused_gn_rows(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,

@@ -282,33 +282,20 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
     inkernel = _inkernel_ok(linearize, operator_params, min_iterations,
                             max_iterations, state_bounds, p,
                             inkernel_linearize)
-    shard = collective.current()
-    if inkernel and shard is not None:
-        from .fused_gn import _block
-
-        # The kernel's convergence groups are the unsharded batch's: a
-        # mesh shard runs it only when it holds whole groups.  Otherwise
-        # a group would straddle shards, and the shard takes the row
-        # loop, whose convergence norm is global (the collective).
-        inkernel = n_pix % _block(shard.n_total, 2048) == 0
     if inkernel:
         y, w, mask_f, xf_rows, pf_rows, cor = _gn_rows_inputs(
             obs, x_forecast, p_inv_forecast, corrupt)
         args = (linearize.__self__.kernel_linearize_rows, y, w, mask_f,
                 xf_rows, pf_rows, tol, min_iterations, max_iterations,
                 relaxation, _kernel_bounds_rows(state_bounds, p), numel)
-        if shard is None:
+        if collective.current() is None:
             return _gn_rows_result(fused_gn_rows(
                 *args, corrupt=cor, device=x_forecast.device))
-        # A mesh shard: the unsharded run's groups and their share of
-        # the convergence test, so each group takes the trips it takes
-        # without a mesh; the trip count and norm summarised are the
-        # whole batch's.
-        from . import fused_gn as fg
+        # A mesh shard: every pixel in the unsharded run's group, the
+        # groups straddling shards launched once for all of them.
+        from .fused_gn import fused_gn_shard
 
-        block = fg._block(shard.n_total, 2048)
-        raw = fg.fused_gn_raw(*args, block, cor, scalar_n=shard.n_total)
-        return _gn_rows_result(fg.summarise(raw, n_pix, block, numel))
+        return _gn_rows_result(fused_gn_shard(*args, corrupt=cor))
     return run_row_loops([_row_loop(
         linearize, obs, x_forecast, p_inv_forecast, operator_params, tol,
         min_iterations, max_iterations, relaxation, state_bounds,

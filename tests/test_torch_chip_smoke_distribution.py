@@ -3,9 +3,11 @@ sizes, with the kernels' plain versions counted as launches (under the
 wrappers' lock: the mesh's shards launch from one thread each): phase
 mesh (a tile whose shards hold whole 2,048-px convergence groups, so
 the fused Gauss-Newton path runs sharded, and an S2 sub-tile on the row
-loop, each the same bits as its unsharded run), phase distributed (two
-gloo ranks in child processes) and phase queue (a fleet with one worker
-SIGKILLed while it holds a lease, then the chunk_worker subprocess)."""
+loop, each the same bits as its unsharded run; then the tile on shards
+that split some groups, still on the fused path and the same bits),
+phase distributed (two gloo ranks in child processes) and phase queue
+(a fleet with one worker SIGKILLed while it holds a lease, then the
+chunk_worker subprocess)."""
 
 import sys
 from pathlib import Path
@@ -46,7 +48,8 @@ def counted(monkeypatch):
 @pytest.fixture(scope="module")
 def unsharded():
     """Phase main at 160 x 160 (20,480 px: two shards of five 2,048-px
-    groups) and phase main_s2 at 16 x 16, their runs kept."""
+    groups, four of 5,120 px that split them) and phase main_s2 at 16 x 16,
+    their runs kept."""
     dev = torch.device("cpu")
     main_run, s2_run = {}, {}
     with pytest.MonkeyPatch.context() as mp:
@@ -66,6 +69,10 @@ def test_phase_mesh_rehearsal(unsharded, counted):
     assert s2["kernel_launches"]["fused_update_by_instance"]["10x10"] == \
         2 * s2["iterations"]
     assert tip["bit_identical"] and s2["bit_identical"]
+    split = rec["tip_tile_split_groups"]
+    assert (split["shards"], split["groups_divide_shards"]) == (4, False)
+    assert split["kernel_launches"]["fused_gn"] == (4 + 1) * 6
+    assert split["bit_identical"]
 
 
 def test_phase_mesh_fails_when_the_sharded_run_drifts(unsharded,
@@ -77,6 +84,27 @@ def test_phase_mesh_fails_when_the_sharded_run_drifts(unsharded,
     with pytest.raises(AssertionError, match="x off by"):
         cs.phase_mesh(torch.device("cpu"), dict(main_run, final=(
             x + 1e-3, p_inv)), s2_run, ny=160, nx=160, s2_ny=16, s2_nx=16)
+
+
+@pytest.mark.parametrize("shift,match", [
+    (1e-3, "sigma off by"),
+    (1e-7, "same bits False"),
+])
+def test_phase_mesh_holds_every_date(unsharded, counted, shift, match):
+    """One date's sigma raster off by more than the budget fails the
+    phase; off by less, the tile's lost bit identity fails it too."""
+    import types
+
+    main_run, s2_run = unsharded
+    output = {ts: dict(rasters) for ts, rasters in
+              main_run["out"].output.items()}
+    ts = sorted(output)[1]
+    key = next(k for k in output[ts] if k.endswith("_unc"))
+    output[ts][key] = output[ts][key] + shift
+    with pytest.raises(AssertionError, match=match):
+        cs.phase_mesh(torch.device("cpu"), dict(
+            main_run, out=types.SimpleNamespace(output=output)), s2_run,
+            ny=160, nx=160, s2_ny=16, s2_nx=16)
 
 
 def test_phases_distributed_and_queue_rehearsal(tmp_path, counted):

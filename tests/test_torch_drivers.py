@@ -587,8 +587,8 @@ def mod09(tmp_path_factory):
     (dict(hessian_correction=True), "hessian_correction"),
 ])
 def test_unported_options_raise(modis, mod09, tmp_path, change, match):
-    """None of these options is refused any more: each runs through both
-    packages' ``run_config`` on the same tree and is held to the JAX
+    """Named for the refusals these options once met; none is refused
+    any more: each runs through both packages' ``run_config`` on the same tree and is held to the JAX
     driver by the budgets of ``same_outputs``: the kernel-weight ones
     (``match`` "13b") over the MOD09 tree with the MOD09 driver's
     config, the engine modes over the MCD43 tile with the MODIS
@@ -643,10 +643,10 @@ def test_synergy_driver_matches_jax(modis, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(num_processes=2), dict(queue=True)])
 def test_multi_process_runs_raise(modis, tmp_path, kw):
-    """Runs over several processes no longer raise: with two processes
-    this process (rank 0) runs its round-robin share, the one chunk of
-    the tile, and rank 1 finds nothing left; as a queue worker it claims
-    and runs the chunk.  Either way the tile's 4 dates are assimilated
+    """Named for the refusal these runs once met; they now run: with two
+    processes this process (rank 0) runs its round-robin share, the one
+    chunk of the tile, and rank 1 finds nothing left; as a queue worker
+    it claims and runs the chunk.  Either way the tile's 4 dates are assimilated
     and the restart marker is the JAX package's."""
     cfg = RunConfig.load(str(modis["root"] / "cfg.json"))
     cfg.data_folder = str(modis["root"] / "mcd43")

@@ -4,11 +4,11 @@ port unsharded at the JAX sharding budgets (x atol 2e-4; P^-1 rtol 2e-4,
 atol 2e-2) and against the JAX sharded step on eight CPU devices at the
 port-vs-JAX budget of tests/test_torch_solvers.py (x atol 2e-3, P^-1
 rtol and atol 2e-2), with equal iteration counts; the fused scan sharded
-(diagnostics rtol 5e-3, atol 5e-2), per-pixel
-convergence, the fused Gauss-Newton path bit for bit when each shard
-holds whole convergence groups, the partitioning, ``pad_for_mesh``, the
-round-robin with restarts and crashes, the marker files, the stale-tmp
-sweep and the telemetry.  Last, the kernel wrappers launch on the
+(diagnostics rtol 5e-3, atol 5e-2), per-pixel convergence, the fused
+Gauss-Newton path bit for bit whether or not the shards hold whole
+convergence groups, the partitioning, ``pad_for_mesh``, the round-robin
+with restarts and crashes, the marker files, the stale-tmp sweep and
+the telemetry.  Last, the kernel wrappers launch on the
 device of their inputs whatever device is current."""
 
 import os
@@ -417,6 +417,50 @@ def test_fused_gn_shards_keep_the_unsharded_groups(monkeypatch):
     x_sh, p_sh, d_sh = step(bands, x0, p_inv0, torch.eye(7),
                             torch.zeros(7), None, None, None)
     assert calls == [n_pix] + [2048] * 8
+    np.testing.assert_array_equal(np.asarray(x_sh), x_ref.numpy())
+    np.testing.assert_array_equal(np.asarray(p_sh), p_ref.numpy())
+    np.testing.assert_array_equal(np.asarray(d_sh.health_verdicts),
+                                  d_ref.health_verdicts.numpy())
+    assert int(d_sh.n_iterations) == int(d_ref.n_iterations)
+
+
+@pytest.mark.parametrize("n_pix,shards,launches", [
+    # 2^12 x 3 px on 4 shards of 3,072: groups 1 and 4 straddle.
+    (3 * 4096, 4, [(2048, 2048)] * 4 + [(4096, 2048)]),
+    # One 1,536-px group over 8 shards of 192: no shard holds a group.
+    (1536, 8, [(1536, 1536)]),
+])
+def test_fused_gn_shards_splitting_groups_stay_on_the_kernel(
+        monkeypatch, n_pix, shards, launches):
+    """Shards that split the unsharded groups still run the fused
+    Gauss-Newton path: each shard launches over its whole groups and the
+    groups straddling shards are launched once, whole, so the sharded
+    solve equals the unsharded one bit for bit.  The MODIS tile's
+    4,608,000 px = 2^12 x 1125 on 4 shards straddles the same way."""
+    from kafka_tpu_torch.core import fused_gn
+
+    assert fused_gn.shard_launches(4_608_000, 4) == 5
+    assert fused_gn.shard_launches(4_608_000, 2) == 2
+    assert fused_gn.shard_launches(n_pix, shards) == len(launches)
+    op, bands, x0, p_inv0 = problem(n_pix, seed=4)
+    opts = {"state_bounds": bounds_of(op), "relaxation": 0.7}
+    calls = []
+    real = fused_gn.fused_gn_raw
+
+    def counted(*a, **k):
+        calls.append((a[5].shape[1], a[12]))
+        return real(*a, **k)
+
+    monkeypatch.setattr(fused_gn, "fused_gn_raw", counted)
+    x_ref, p_ref, d_ref = iterated_solve(op.linearize, bands, x0, p_inv0,
+                                         None, **opts)
+    step = make_sharded_step(op.linearize,
+                             make_pixel_mesh(["cpu"] * shards),
+                             use_prior=False, solver_options=opts)
+    calls.clear()
+    x_sh, p_sh, d_sh = step(bands, x0, p_inv0, torch.eye(7),
+                            torch.zeros(7), None, None, None)
+    assert sorted(calls) == sorted(launches)
     np.testing.assert_array_equal(np.asarray(x_sh), x_ref.numpy())
     np.testing.assert_array_equal(np.asarray(p_sh), p_ref.numpy())
     np.testing.assert_array_equal(np.asarray(d_sh.health_verdicts),

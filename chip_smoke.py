@@ -212,7 +212,23 @@ one JSON line:
    survivor reclaims it, queue_status ends all done with no lease, the
    rasters equal the static run's bit for bit; then one chunk through
    the chunk_worker subprocess, rc 0 and its rasters equal phase
-   distributed's.
+   distributed's;
+28. device_plane (last) — ``run_synthetic`` over phase cli's tile and
+   mask (4 windows, no checkpoint) plain and with ``--telemetry-dir``,
+   ``--http-port`` and ``--profile-windows 2`` while a thread scrapes
+   the live endpoint: the same bits, device reads equal to the
+   dispatches, the engine's fused_gn launches equal to the dates (the
+   probe's own launches taken out), the ``torch.profiler`` capture's kernel table counting
+   the captured fused_gn launches at a time per launch near phase
+   kernel's, the roofline/throughput/memory gauges, every device-plane
+   metric name on ``/metrics``; the health probe on the idle card
+   (healthy; fused_gn launches = the probe's solves) and in a fresh
+   process (healthy on its first reading); a real CUDA OOM
+   under a flight recorder (forensics in the crash dump) and a fused_gn
+   launch after it held to its plain version; a ``/profilez`` capture
+   taken on a handler thread holding this thread's kernels; ``kafka_serve`` with the
+   fleet-plane flags answering phase serve's cold, cache and warm
+   requests with phase serve's digests, nothing shed.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -266,10 +282,6 @@ X_ATOL = 2e-3
 A_RTOL = 2e-2
 DIAG_ATOL = 5e-3
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
-# float32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 #: floats per pixel the fused solve must move once: reads y, r_inv, mask
 #: (2 bands each), x_f (7), packed P_f^-1 (28); writes x (7), packed A
 #: (28), fwd (2), inn (2) and the verdict (1).  Plus per convergence
@@ -1028,8 +1040,13 @@ def update_floats(p: int, nb: int) -> tuple:
 
 
 def bound(bytes_moved: float, flops: float) -> dict:
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    """The least time of a function on the card: its bytes over the HBM
+    roof, its float32 operations over the peak rate (the H100 roofs of
+    ``kafka_tpu_torch.telemetry.perf``, their one home)."""
+    from kafka_tpu_torch.telemetry.perf import HBM_GBPS, PEAK_TFLOPS_F32
+
+    bytes_ms = bytes_moved / (HBM_GBPS * 1e9) * 1e3
+    ops_ms = flops / (PEAK_TFLOPS_F32 * 1e12) * 1e3
     return {"bytes": bytes_moved, "flops": flops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -3903,6 +3920,11 @@ def phase_serve(device, workdir: str, ny: int = TILE, nx: int = TILE,
         "smoothed_equals_kafka_smooth": smoothed_equal,
         "n_pixels": {f"tile{t}": (responses.get(f"r00_tile{t}_cold") or {})
                      .get("n_pixels") for t in range(tiles)},
+        # tile:label -> the response's state digest (phase device_plane
+        # serves some of these requests again and must match them).
+        "x_sha256": {f"{tile}:{label}": (responses[rid] or {})
+                     .get("x_sha256")
+                     for rid, (tile, label, _, _) in rids.items()},
     }
     if days != SERVE_DAYS:
         rec["reduced"] = {"days": f"{days} of {SERVE_DAYS}"}
@@ -4133,6 +4155,38 @@ def phase_serve_batch(device, workdir: str, ny: int = TILE, nx: int = TILE):
         raise AssertionError("serve_batch: " + "; ".join(failures))
     return rec, {"gn": checks["twostream"].get("gn"),
                  "rows": checks["identity"].get("rows")}
+
+
+def f64_rule(device, rows: dict) -> dict:
+    """One fused_gn launch on ``rows`` held as phase kernel holds it,
+    without timing: finite outputs, its per-pixel errors against the
+    float64 plain version at QUANTILES and the rule's failures (empty
+    when it holds), and the trip and verdict comparison of
+    ``held_trips``."""
+    import torch
+
+    from kafka_tpu_torch.core import fused_gn
+
+    n_pix = rows["pf_rows"].shape[1]
+    block = fused_gn._block(n_pix, rows.get("block", 2048))
+    ref = plain_f64(rows)
+    plain = fused_gn.fused_gn_raw_plain(**rows)
+    kern = fused_gn.fused_gn_raw(**rows)
+    xf = rows["xf_rows"]
+    nudged = [fused_gn.fused_gn_raw_plain(**{
+        **rows, "xf_rows": torch.nextafter(xf, torch.full_like(xf, to))})
+        for to in (float("inf"), float("-inf"))]
+    _sync(device)
+    vs_ref = summary(pixel_errors(kern, ref, block))
+    plain_vs_ref = summary(pixel_errors(plain, ref, block))
+    return {
+        "n_pix": n_pix,
+        "finite": all(bool(torch.isfinite(t).all()) for t in kern),
+        "kernel_vs_f64": vs_ref,
+        "f64_quantile_rule": held_quantiles(vs_ref, plain_vs_ref,
+                                            ("x", "A", "diag")),
+        **held_trips(kern, plain, ref, nudged, block),
+    }
 
 
 def serve_batch_kernels(device, rec: dict, kept: dict):
@@ -4683,6 +4737,600 @@ def phase_queue(device, workdir: str, ny: int = TILE, nx: int = TILE,
     return rec
 
 
+#: phase device_plane: run_synthetic over phase cli's tile and mask, 4
+#: one-acquisition windows, no checkpoint; run 2 adds the telemetry dir,
+#: the live endpoint and a capture of DEVICE_PLANE_PROFILE_WINDOWS.
+DEVICE_PLANE_ARGS = ("--operator", "twostream", "--days", "16", "--step",
+                     "4", "--obs-every", "4")
+DEVICE_PLANE_PROFILE_WINDOWS = 2
+#: the assimilated dates of each device_plane run: one fused_gn launch
+#: each.
+DEVICE_PLANE_DATES = 4
+#: the kernel table's row of the fused Gauss-Newton kernel.
+FUSED_GN_KERNEL = "fused_gn_kernel"
+#: the capture's ms per fused_gn launch against phase kernel's CUDA-event
+#: time of the kernel (another date, other trips): within these factors.
+CAPTURE_MS_RANGE = (0.5, 2.0)
+#: the device-plane metric names (the JAX package's); the serving
+#: daemon with a fleet dir alone owns FLEET_NAMES.
+DEVICE_PLANE_NAMES = (
+    "kafka_compile_program_seconds", "kafka_device_memory_bytes_in_use",
+    "kafka_device_memory_headroom_bytes", "kafka_device_memory_peak_bytes",
+    "kafka_devprof_captures_parsed_total",
+    "kafka_devprof_collective_fraction", "kafka_devprof_kernel_ms_total",
+    "kafka_devprof_live_buffer_bytes", "kafka_devprof_live_buffers",
+    "kafka_devprof_parse_failures_total", "kafka_engine_device_reads_total",
+    "kafka_fleet_dead_hosts", "kafka_health_probe_device_ms",
+    "kafka_health_probe_host_ms", "kafka_health_unhealthy",
+    "kafka_httpd_requests_total", "kafka_live_publish_errors_total",
+    "kafka_live_snapshots_total", "kafka_perf_capture_evictions_total",
+    "kafka_perf_device_fraction", "kafka_perf_phase_fraction",
+    "kafka_perf_profile_captures_total", "kafka_perf_px_steps_per_s",
+    "kafka_perf_roofline_utilization", "kafka_slo_alerts_fired_total",
+    "kafka_slo_alerts_firing", "kafka_slo_evaluations_total")
+FLEET_NAMES = ("kafka_fleet_dead_hosts",)
+#: device readings a fresh process takes after its gated probe round
+#: (recorded: how the reading moves as the process warms).
+FRESH_PROBE_READINGS = 4
+#: phase serve's requests the device-plane server answers again.
+DEVICE_PLANE_SERVE = ("cold", "cache", "warm")
+
+
+def fresh_probe() -> None:
+    """Phase device_plane's child process: one probe round
+    (``health.probe_health`` with no wait before its retry; on the card
+    the device probe runs fused_gn), then FRESH_PROBE_READINGS more
+    device readings on a card.  Prints the verdict and the readings as
+    one JSON line."""
+    import torch
+
+    from kafka_tpu_torch.telemetry import health
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+
+    t0 = time.perf_counter()
+    with use(MetricsRegistry()):
+        verdict = health.probe_health(retry_wait_s=0.0)
+        later = [health.probe_device() for _ in range(FRESH_PROBE_READINGS)
+                 ] if torch.cuda.is_available() else []
+    print(json.dumps({**verdict, "later_device_ms": later,
+                      "probe_s": time.perf_counter() - t0}), flush=True)
+
+
+def http_get(url: str, timeout: float = 120.0) -> tuple:
+    """``(status, body text)`` of a GET; an HTTP error status is returned,
+    not raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read().decode("utf-8", "replace")
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode("utf-8", "replace")
+
+
+class Scraper:
+    """A thread that GETs ``paths`` of a live endpoint every
+    ``interval_s`` until stopped, keeping each path's last 200 answer.
+    Connection errors (before the endpoint is up, after it closed) are
+    counted."""
+
+    def __init__(self, base: str, paths, interval_s: float = 0.5):
+        import threading
+
+        self.base, self.paths = base, tuple(paths)
+        self.interval_s = interval_s
+        self.last, self.answers, self.errors = {}, {}, 0
+        self.stop_event = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="chip-smoke-scraper")
+
+    def _get(self, path):
+        status, body = http_get(self.base + path)
+        self.answers.setdefault(path, []).append(status)
+        if status == 200:
+            self.last[path] = body
+        return status, body
+
+    def _run(self):
+        while True:
+            for path in self.paths:
+                try:
+                    self._get(path)
+                except OSError:
+                    self.errors += 1
+            if self.stop_event.wait(self.interval_s):
+                return
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop_event.set()
+        self.thread.join(timeout=300)
+
+
+def prom_values(text: str) -> dict:
+    """name -> {sorted label tuple: value} of a Prometheus text page
+    (the port's own parser, which also checks the format)."""
+    from kafka_tpu_torch.telemetry.aggregate import parse_prom_text
+
+    return {name: {tuple(sorted(s["labels"].items())): s["value"]
+                   for s in fam["samples"]}
+            for name, fam in parse_prom_text(text).items()}
+
+
+def prom_names(text: str) -> set:
+    """Every metric family named on a Prometheus text page (its HELP and
+    TYPE lines, samples or not)."""
+    from kafka_tpu_torch.telemetry.aggregate import parse_prom_text
+
+    return set(parse_prom_text(text))
+
+
+def engine_dispatches(filters) -> int:
+    """Solve dispatches of the filters' runs: one per unfused window and
+    one per fused block (its windows' records carry ``fused`` k)."""
+    n = 0.0
+    for kf in filters:
+        for rec in kf.diagnostics_log:
+            n += 1.0 / rec["fused"] if "fused" in rec else 1.0
+    return int(round(n))
+
+
+def phase_device_plane(device, workdir: str, kernel_ms=None,
+                       serve_shas=None, ny: int = TILE, nx: int = TILE,
+                       seed: int = 0, probe_n: int = 1 << 19):
+    """The device plane on the card, in three parts.
+
+    a. ``run_synthetic`` (DEVICE_PLANE_ARGS) over phase cli's tile and
+       mask twice: plain, then with ``--telemetry-dir``, ``--http-port``
+       and ``--profile-windows`` while a thread scrapes ``/metrics``,
+       ``/kernelz`` and ``/meshz`` and, once the capture has stopped,
+       ``/healthz?probe=1``.  Gates: run 2's rasters the bits of run 1's;
+       ``kafka_engine_device_reads_total`` equal to the engine's
+       dispatches in each run; the fused_gn launches counted at the
+       launch site, less the probe's solves (from its answer), equal to
+       the DEVICE_PLANE_DATES dates in each run; the capture parsed, its kernel table's
+       ``fused_gn_kernel`` row counting the fused_gn launches made while
+       it ran, at CAPTURE_MS_RANGE of ``kernel_ms`` a launch (phase
+       kernel's CUDA-event time; not gated when None, as in a CPU
+       rehearsal); the gn_inkernel roofline gauge in (0, 1.05];
+       throughput above 0; the peak memory gauge above 0 and at most the
+       card's bytes; every DEVICE_PLANE_NAMES name but FLEET_NAMES on
+       the scraped ``/metrics``.
+    b. ``health.probe_health()`` on the idle card: fused_gn launches grow
+       by the probe's solves and the verdict is healthy; a probe round in
+       a fresh process (``fresh_probe``, what a newly started daemon's
+       readiness check meets) healthy on its first reading.  Then a real
+       ``torch.cuda.OutOfMemoryError`` (one allocation larger than the
+       card) under a flight recorder: the crash dump carries the
+       forensics (memory stats, a non-empty allocator census), and a
+       fused_gn launch after it still holds to its plain version.  Then
+       ``/profilez?seconds=1`` asked while this thread launches fused_gn:
+       the capture, taken on a handler thread, holds those kernels.
+    c. ``kafka_serve`` (phase serve's tiles and grid) with the fleet-plane
+       flags, answering phase serve's cold, cache and warm requests:
+       every ``x_sha256`` equal to phase serve's (``serve_shas``), live
+       snapshots in the fleet dir, ``/alertz`` (the SLO endpoint)
+       answering, all DEVICE_PLANE_NAMES on ``/metrics``, nothing shed.
+    """
+    import contextlib
+    import io
+    import threading
+
+    import torch
+
+    from kafka_tpu_torch.cli import drivers, kafka_serve, run_synthetic as rs
+    from kafka_tpu_torch.core import fused_gn
+    from kafka_tpu_torch.io import read_geotiff, write_geotiff
+    from kafka_tpu_torch.serve import (read_response, submit_request,
+                                       synthetic_dates)
+    from kafka_tpu_torch.serve.synthetic import DEFAULT_BASE_DATE
+    from kafka_tpu_torch.telemetry import (devprof, flight_recorder,
+                                           get_registry, health, perf)
+    from kafka_tpu_torch.telemetry.httpd import TelemetryHTTPd
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+    from kafka_tpu_torch.testing.fixtures import DEFAULT_GEO
+
+    t_phase = time.perf_counter()
+    failures = []
+    mask_path = os.path.join(workdir, "dp_mask.tif")
+    write_geotiff(mask_path, land_mask(ny, nx, seed).astype(np.uint8),
+                  DEFAULT_GEO)
+    base = [*DEVICE_PLANE_ARGS, "--ny", str(ny), "--nx", str(nx), "--mask",
+            mask_path, "--device", str(device)]
+
+    # -- a. the engine, twice -------------------------------------------
+    runs = {}
+    capture = {}
+    real_start, real_stop = perf.start_windowed_capture, \
+        perf.stop_windowed_capture
+    probe = {}
+
+    def start_capture(*args, **kwargs):
+        capture["launches_at_start"] = fused_gn.fused_gn_rows.launches
+        return real_start(*args, **kwargs)
+
+    def stop_capture(*args, **kwargs):
+        stopping = perf._windowed["directory"] and \
+            "launches_at_stop" not in capture
+        if stopping:
+            capture["launches_at_stop"] = fused_gn.fused_gn_rows.launches
+        out = real_stop(*args, **kwargs)
+        if stopping:
+            url = f"http://127.0.0.1:{port}"
+            # The capture has just been parsed: /kernelz must show it
+            # now, while the run goes on.
+            capture["kernelz"] = http_get(url + "/kernelz?json=1")
+            # The health probe, asked from a thread of its own while the
+            # run goes on (after the capture, so its launches stay out of
+            # the captured count); joined after the run.
+            probe["thread"] = threading.Thread(
+                target=lambda: probe.update(
+                    answer=http_get(url + "/healthz?probe=1")),
+                daemon=True)
+            probe["thread"].start()
+        return out
+
+    for name in ("plain", "device_plane"):
+        outdir = os.path.join(workdir, f"dp_{name}")
+        argv = base + ["--outdir", outdir]
+        filters = []
+        real_kf = rs.KalmanFilter
+
+        def make_kf(*args, **kwargs):
+            kf = real_kf(*args, **kwargs)
+            filters.append(kf)
+            return kf
+
+        scraper = contextlib.nullcontext()
+        if name == "device_plane":
+            tel = os.path.join(workdir, "dp_tel")
+            port = _free_port()
+            argv += ["--telemetry-dir", tel, "--http-port", str(port),
+                     "--profile-windows", str(DEVICE_PLANE_PROFILE_WINDOWS)]
+            scraper = Scraper(f"http://127.0.0.1:{port}",
+                              ("/metrics", "/kernelz?json=1",
+                               "/meshz?json=1"))
+        reset_launches()
+        with use(MetricsRegistry()), scraper, patched(
+                (rs, "KalmanFilter", make_kf),
+                (perf, "start_windowed_capture", start_capture),
+                (perf, "stop_windowed_capture", stop_capture)):
+            stats, printed, wall = run_driver(rs.main, argv)
+            # The run's registry (--telemetry-dir configures its own).
+            reg = get_registry()
+            if "thread" in probe:
+                probe["thread"].join(timeout=300)
+        launches = launch_counts()
+        # The fused_gn launches of the engine: the run's count at the
+        # launch site less the health probe's (run 2 asks for one during
+        # the run), which its answer accounts for.
+        probe_solves = 0
+        if name == "device_plane":
+            body = json.loads((probe.get("answer") or (0, "{}"))[1] or "{}")
+            if body.get("probe_device_ms") is not None:
+                probe_solves = health.probe_solves() * (
+                    2 if body.get("probe_retried") else 1)
+        runs[name] = {
+            "wall_s": wall, "summary": stats, "outdir": outdir,
+            "kernel_launches": launches,
+            "dates": sum(len(kf.diagnostics_log) for kf in filters),
+            "probe_solves": probe_solves,
+            "engine_fused_gn_launches": launches["fused_gn"] - probe_solves,
+            "dispatches": engine_dispatches(filters),
+            "device_reads": reg.value("kafka_engine_device_reads_total"),
+            "registry": reg, "scraper": scraper}
+        if runs[name]["device_reads"] != runs[name]["dispatches"]:
+            failures.append(
+                f"{name}: kafka_engine_device_reads_total "
+                f"{runs[name]['device_reads']} != dispatches "
+                f"{runs[name]['dispatches']}")
+        if not runs[name]["engine_fused_gn_launches"] == \
+                runs[name]["dates"] == DEVICE_PLANE_DATES:
+            failures.append(
+                f"{name}: {runs[name]['engine_fused_gn_launches']} engine "
+                f"fused_gn launches ({launches['fused_gn']} less the "
+                f"probe's {probe_solves}) against "
+                f"{runs[name]['dates']} dates, expected "
+                f"{DEVICE_PLANE_DATES}")
+    differ = [n for n in tif_names(runs["plain"]["outdir"])
+              if not same_bits(*(read_geotiff(os.path.join(
+                  runs[k]["outdir"], n))[0] for k in
+                  ("plain", "device_plane")))]
+    if differ or tif_names(runs["plain"]["outdir"]) != \
+            tif_names(runs["device_plane"]["outdir"]):
+        failures.append(f"device-plane run rasters differ: {differ[:5]}")
+    dp = runs["device_plane"]
+    reg, scraper = dp["registry"], dp["scraper"]
+    sessions = devprof.find_capture_sessions(os.path.join(tel, "profile"))
+    table = devprof.parse_capture(sessions[-1]) if sessions else None
+    kernels = (table or {}).get("kernels") or []
+    gn_row = next((k for k in kernels if FUSED_GN_KERNEL in k["name"]),
+                  None)
+    captured = capture.get("launches_at_stop", 0) - \
+        capture.get("launches_at_start", 0)
+    ms_per_launch = None
+    if table is None:
+        failures.append(f"the capture under {tel} did not parse")
+    elif gn_row is None or gn_row["count"] != captured or captured <= 0:
+        failures.append(f"kernel table row {gn_row} against {captured} "
+                        "fused_gn launches in the captured windows")
+    else:
+        ms_per_launch = gn_row["ms"] / gn_row["count"]
+        if kernel_ms is not None and not (
+                CAPTURE_MS_RANGE[0] * kernel_ms <= ms_per_launch
+                <= CAPTURE_MS_RANGE[1] * kernel_ms):
+            failures.append(f"capture ms/launch {ms_per_launch} outside "
+                            f"{CAPTURE_MS_RANGE} x {kernel_ms}")
+    # The gauges as the run left them (a scrape may predate the last
+    # window); the names as the live endpoint served them.
+    metrics = scraper.last.get("/metrics", "")
+    values = prom_values(reg.prom_text())
+    util = (values.get("kafka_perf_roofline_utilization") or {}).get(
+        (("component", "gn_inkernel"),))
+    if util is None or not 0.0 < util <= 1.05:
+        failures.append(f"roofline utilization gn_inkernel {util}")
+    px_rate = (values.get("kafka_perf_px_steps_per_s") or {}).get(())
+    if not px_rate or px_rate <= 0:
+        failures.append(f"kafka_perf_px_steps_per_s {px_rate}")
+    peak = max((values.get("kafka_device_memory_peak_bytes") or {})
+               .values(), default=None)
+    card_bytes = torch.cuda.mem_get_info(device)[1] \
+        if device.type == "cuda" else None
+    if device.type == "cuda" and (peak is None or not
+                                  0 < peak <= card_bytes):
+        failures.append(f"peak memory gauge {peak} against the card's "
+                        f"{card_bytes} bytes")
+    missing = sorted(set(DEVICE_PLANE_NAMES) - set(FLEET_NAMES)
+                     - prom_names(metrics))
+    if missing:
+        failures.append(f"names missing from /metrics: {missing}")
+    kernelz = json.loads((capture.get("kernelz") or (0, "{}"))[1])
+    meshz = json.loads(scraper.last.get("/meshz?json=1", "{}"))
+    status, healthz = probe.get("answer", (None, None))
+    if not kernelz.get("captures_parsed") or not meshz.get("devices"):
+        failures.append(f"/kernelz {kernelz.get('captures_parsed')}, "
+                        f"/meshz {meshz.get('devices')}")
+    if status not in (200, 503):
+        failures.append(f"/healthz?probe=1 answered {status}")
+    probe_live = {k: reg.value(k) for k in (
+        "kafka_health_probe_device_ms", "kafka_health_probe_host_ms",
+        "kafka_health_unhealthy")}
+    if failures:
+        # Parts b and c need a working engine path: stop here.
+        emit({"phase": "device_plane", "part": "engine",
+              "engine": {k: {"wall_s": r["wall_s"],
+                             "dispatches": r["dispatches"],
+                             "device_reads": r["device_reads"],
+                             "kernel_launches": r["kernel_launches"],
+                             "engine_fused_gn_launches":
+                                 r["engine_fused_gn_launches"]}
+                         for k, r in runs.items()},
+              "top_kernels": kernels[:6], "failures": failures})
+        raise AssertionError("device_plane: " + "; ".join(failures))
+
+    # -- b. health probe and OOM forensics ------------------------------
+    t_b = time.perf_counter()
+    with use(MetricsRegistry()) as hreg:
+        before = fused_gn.fused_gn_rows.launches
+        verdict = health.probe_health()
+        solves = {}
+        if device.type != "cuda":
+            # The CPU rehearsal: probe_health probes no device there; a
+            # short probe of the plain version stands in.
+            solves = {"ks": (1, 2), "reps": 1}
+            health.probe_device(n_pix=probe_n, device=device, **solves)
+            verdict["probe_device_ms"] = hreg.value(
+                "kafka_health_probe_device_ms")
+        probe_launches = fused_gn.fused_gn_rows.launches - before
+    expected = (2 if verdict["probe_retried"] else 1) * \
+        health.probe_solves(**solves)
+    if probe_launches != expected:
+        failures.append(f"probe launched fused_gn {probe_launches} times, "
+                        f"expected {expected}")
+    if device.type == "cuda" and verdict["unhealthy"]:
+        failures.append(f"idle card unhealthy: {verdict}")
+    # The state a newly started daemon's readiness check meets: one probe
+    # round in a fresh process, its first reading gated (no retry).
+    t_fresh = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.fresh_probe()"],
+        env=drivers.child_env(),
+        capture_output=True, text=True, timeout=300)
+    fresh = {"rc": child.returncode,
+             "wall_s": time.perf_counter() - t_fresh}
+    try:
+        fresh.update(json.loads(child.stdout.strip().splitlines()[-1]))
+    except (IndexError, ValueError):
+        fresh["stderr"] = child.stderr[-2000:]
+    if child.returncode != 0 or "unhealthy" not in fresh:
+        failures.append(f"fresh-process probe failed: {fresh}")
+    elif device.type == "cuda" and (fresh["unhealthy"]
+                                    or fresh["probe_retried"]):
+        failures.append(f"fresh-process probe off-band: {fresh}")
+    oom_dir = os.path.join(workdir, "dp_oom")
+    hold = torch.empty(1 << 24, device=device)  # resident during the OOM
+    oom = {"raised": None}
+    with use(MetricsRegistry()):
+        recorder = flight_recorder.FlightRecorder(oom_dir)
+        too_big = (torch.cuda.mem_get_info(device)[1] + (1 << 30)
+                   if device.type == "cuda" else None)
+        try:
+            with recorder:
+                if too_big is None:
+                    raise torch.cuda.OutOfMemoryError(
+                        "CUDA out of memory (CPU rehearsal)")
+                torch.empty(too_big, dtype=torch.uint8, device=device)
+        except torch.cuda.OutOfMemoryError as exc:
+            oom["raised"] = type(exc).__name__
+    del hold
+    dumps = sorted(n for n in os.listdir(oom_dir)
+                   if n.startswith("crash_")) if os.path.isdir(oom_dir) \
+        else []
+    forensics = (json.load(open(os.path.join(oom_dir, dumps[-1])))
+                 .get("device_forensics") if dumps else None)
+    if oom["raised"] is None or not forensics:
+        failures.append(f"OOM raised {oom['raised']}, dumps {dumps}")
+    elif device.type == "cuda" and (not forensics["memory"]
+                                    or not forensics["buffer_census"]):
+        failures.append(f"OOM forensics incomplete: {forensics}")
+    rows = problem_rows(probe_n, device)
+    after_oom = f64_rule(device, rows)
+    if not after_oom["finite"] or after_oom["f64_quantile_rule"] or \
+            after_oom["groups_differing"] or after_oom["verdicts_differing"]:
+        failures.append(f"fused_gn after the OOM: {after_oom}")
+    # /profilez: the profiler started on an endpoint handler thread while
+    # this thread launches fused_gn; the capture must hold those kernels
+    # (CUDA tracing records every thread's GPU work once set up).
+    pz = {}
+    with use(MetricsRegistry(os.path.join(workdir, "dp_profilez"))) as preg:
+        httpd = TelemetryHTTPd(port=0, registry=preg).start()
+        asker = threading.Thread(target=lambda: pz.update(answer=http_get(
+            httpd.url + "/profilez?seconds=1")), daemon=True)
+        try:
+            asker.start()
+            while asker.is_alive():
+                fused_gn.fused_gn_raw(**rows)
+                _sync(device)
+            asker.join(timeout=120)
+        finally:
+            httpd.close()
+    pz_summary = devprof.kernel_summary(preg)
+    pz_row = next((k for k in pz_summary["kernels"]
+                   if FUSED_GN_KERNEL in k["name"]), None)
+    if (pz.get("answer") or (None,))[0] != 200 or \
+            (device.type == "cuda" and pz_row is None):
+        failures.append(
+            f"/profilez {pz.get('answer')}: no fused_gn row in "
+            f"{[(k['name'][:60], k['count']) for k in pz_summary['kernels'][:5]]}"
+            f" ({pz_summary['captures_parsed']} parsed, parse failures "
+            f"{preg.value('kafka_devprof_parse_failures_total')})")
+
+    # -- c. the server with the fleet plane -----------------------------
+    t_c = time.perf_counter()
+    root = os.path.join(workdir, "dp_serve")
+    fleet = os.path.join(workdir, "dp_fleet")
+    dates = synthetic_dates(DEFAULT_BASE_DATE, SERVE_DAYS, 2)
+    rids = {}
+    for k, (label, date, smoothed, want) in enumerate(serve_ladder(dates)):
+        if label not in DEVICE_PLANE_SERVE:
+            continue
+        for t in range(2):
+            rid = f"r{k:02d}_tile{t}_{label}"
+            rids[rid] = (f"tile{t}", label, want)
+            submit_request(root, {"request_id": rid, "tile": f"tile{t}",
+                                  "date": date.isoformat(),
+                                  "smoothed": smoothed})
+    port = _free_port()
+    argv = ["--root", root, "--tiles", "2", "--operator", "twostream",
+            "--ny", str(ny), "--nx", str(nx), "--days", str(SERVE_DAYS),
+            "--step", "4", "--obs-every", "2", "--exit-when-idle",
+            "--no-aot", "--telemetry-dir", fleet, "--fleet-dir", fleet,
+            "--http-port", str(port), "--live-interval-s", "1",
+            "--shed-slo", "--slo-fast-window-s", "60",
+            "--slo-slow-window-s", "600", "--slo-interval-s", "1",
+            "--device", str(device)]
+    serve_scraper = Scraper(f"http://127.0.0.1:{port}",
+                            ("/metrics", "/alertz?json=1"), interval_s=0.3)
+    reset_launches()
+    with use(MetricsRegistry()), serve_scraper, \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        summary = kafka_serve.main(argv)
+        serve_s = time.perf_counter() - t0
+    serve_launches = launch_counts()
+    responses = {rid: read_response(root, rid) or {} for rid in rids}
+    sha_diff = []
+    for rid, (tile, label, want) in rids.items():
+        r = responses[rid]
+        if r.get("status") != "ok" or r.get("served_from") != want:
+            failures.append(f"{rid}: {r.get('status')} "
+                            f"{r.get('served_from')}")
+        elif serve_shas is not None and \
+                r.get("x_sha256") != serve_shas.get(f"{tile}:{label}"):
+            sha_diff.append(rid)
+    if sha_diff:
+        failures.append(f"x_sha256 differ from phase serve: {sha_diff}")
+    snaps = sorted(n for n in os.listdir(fleet) if n.startswith("live_"))
+    if not snaps:
+        failures.append("no live snapshot in the fleet dir")
+    alertz = serve_scraper.last.get("/alertz?json=1")
+    if alertz is None:
+        failures.append("/alertz never answered")
+    missing_serve = sorted(set(DEVICE_PLANE_NAMES) - prom_names(
+        serve_scraper.last.get("/metrics", "")))
+    if missing_serve:
+        failures.append(f"names missing from the server's /metrics: "
+                        f"{missing_serve}")
+    if summary.get("rejected") or summary.get("errors") or \
+            summary.get("failed"):
+        failures.append(f"server summary {summary}")
+    if serve_launches["fused_gn"] <= 0:
+        failures.append("no fused_gn launch during the serve")
+
+    rec = {
+        "phase": "device_plane", "tile": [ny, nx],
+        "argv": list(DEVICE_PLANE_ARGS),
+        "engine": {k: {"wall_s": r["wall_s"], "dispatches": r["dispatches"],
+                       "device_reads": r["device_reads"],
+                       "kernel_launches": r["kernel_launches"],
+                       "dates": r["dates"],
+                       "probe_solves": r["probe_solves"],
+                       "engine_fused_gn_launches":
+                           r["engine_fused_gn_launches"]}
+                   for k, r in runs.items()},
+        "rasters_differing": len(differ),
+        "capture": {"sessions": len(sessions),
+                    "device_ms": None if table is None
+                    else table["device_ms"],
+                    "by_bucket": None if table is None
+                    else table["by_bucket"],
+                    "top_kernels": kernels[:6],
+                    "fused_gn_launches_captured": captured,
+                    "fused_gn_ms_per_launch": ms_per_launch,
+                    "phase_kernel_ms": kernel_ms},
+        "gauges": {"roofline_utilization_gn_inkernel": util,
+                   "px_steps_per_s": px_rate, "peak_bytes": peak,
+                   "card_bytes": card_bytes},
+        "scrapes": {p: len(v) for p, v in scraper.answers.items()},
+        "scrape_errors": scraper.errors,
+        "healthz_probe": healthz, "probe_during_run": probe_live,
+        "probe_idle": verdict, "probe_launches": probe_launches,
+        "probe_fresh_process": fresh,
+        "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
+        "oom": {"raised": oom["raised"], "dump": dumps[-1:] or None,
+                "memory": None if not forensics else forensics["memory"],
+                "census_groups": None if not forensics
+                else len(forensics["buffer_census"]),
+                "census_top": None if not forensics
+                else forensics["buffer_census"][:3]},
+        "after_oom": {k: after_oom[k] for k in (
+            "n_pix", "finite", "f64_quantile_rule", "groups_differing",
+            "verdicts_differing")},
+        "profilez_thread_fused_gn": pz_row,
+        "serve": {"wall_s": serve_s, "summary": {
+            k: summary.get(k) for k in ("admitted", "rejected", "errors",
+                                        "http_port")},
+            "requests": {rid: responses[rid].get("served_from")
+                         for rid in rids},
+            "sha_compared": serve_shas is not None,
+            "live_snapshots": len(snaps),
+            "alertz": None if alertz is None
+            else json.loads(alertz).get("enabled"),
+            "kernel_launches": serve_launches},
+        "seconds": {"phase": time.perf_counter() - t_phase,
+                    "engine": t_b - t_phase, "probe_oom": t_c - t_b,
+                    "serve": time.perf_counter() - t_c},
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("device_plane: " + "; ".join(failures))
+    return rec
+
 
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
@@ -4860,6 +5508,13 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     batch_gn, batch_upd = serve_batch_kernels(device, batch_rec, batch_kept)
     del batch_kept
+    os.makedirs(workdir)
+    try:
+        dp_rec = phase_device_plane(device, workdir,
+                                    kernel_ms=cli_kernel["ms"],
+                                    serve_shas=serve_rec["x_sha256"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     path_launches = {
         (10, 10): s2_rec["kernel_launches"]["fused_update"],
         (7, 2): ref_s2["tip_rowloop"]["launches"],
@@ -4929,7 +5584,11 @@ def main() -> int:
                    "smooth": smooth_rec["kernel_launches"]["fused_gn"],
                    "serve": serve_rec["kernel_launches"]["fused_gn"],
                    "serve_batch": batch_rec["runs"]["twostream"]
-                   ["launches"]["fused_gn"]},
+                   ["launches"]["fused_gn"],
+                   "device_plane": dp_rec["engine"]["device_plane"]
+                   ["engine_fused_gn_launches"],
+                   "device_plane_serve": dp_rec["serve"]
+                   ["kernel_launches"]["fused_gn"]},
             at_serve_batch_round={
                 **at(batch_gn),
                 "path": "phase serve_batch: a coalesced round of two "

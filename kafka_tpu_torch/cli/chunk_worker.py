@@ -26,8 +26,11 @@ worker that dies has its chunks reclaimed by the survivors.
 
 Queue-mode exit codes: 0 all chunks done (or a clean SIGTERM drain), 75
 when chunks were quarantined (partial success — rerun after fixing).
-Every mode runs on CUDA unless ``--device cpu``.  ``--http-port`` (the
-live metrics endpoint) comes with the device-plane slice and is refused.
+Every mode runs on CUDA unless ``--device cpu``.  ``--http-port`` serves
+the live metrics endpoint of a queue worker (a local fleet gives worker
+i port+i).  Both modes install the flight recorder, publish live
+snapshots and run the SLO engine when the config names a telemetry
+directory (the one-chunk mode under ``chunk_<prefix>/`` of it).
 """
 
 from __future__ import annotations
@@ -58,12 +61,11 @@ def _queue_main(argv) -> int:
                     help="local fleet size (N>1 spawns N single-worker "
                          "subprocesses of this command and waits)")
     ap.add_argument("--http-port", type=int, default=0,
-                    help="(not ported yet) live metrics endpoint port")
+                    help="live metrics endpoint port (/metrics /healthz "
+                         "/statusz; 0 = disabled; a local fleet gives "
+                         "worker i port+i)")
     add_device_arg(ap)
     args = ap.parse_args(argv)
-    if args.http_port:
-        ap.error("--http-port is not ported to kafka_tpu_torch yet; it "
-                 "comes with the device-plane slice (ROADMAP.md)")
     from .. import resolve_device
 
     resolve_device(args.device)  # CUDA unless asked; raises without it
@@ -80,8 +82,13 @@ def _queue_main(argv) -> int:
         env = child_env()
         # All workers join one trace: new_run_id() picks this up.
         env.setdefault("KAFKA_TPU_RUN_ID", os.urandom(6).hex())
-        procs = [subprocess.Popen(cmd, env=env)
-                 for _ in range(args.num_workers)]
+        procs = []
+        for i in range(args.num_workers):
+            worker_cmd = list(cmd)
+            if args.http_port:
+                # One endpoint per worker process.
+                worker_cmd += ["--http-port", str(args.http_port + i)]
+            procs.append(subprocess.Popen(worker_cmd, env=env))
         rcs = [p.wait() for p in procs]
         hard = [rc for rc in rcs if rc not in (0, 75)]
         if hard:
@@ -89,12 +96,18 @@ def _queue_main(argv) -> int:
         return 75 if 75 in rcs else 0
 
     from ..engine.config import RunConfig
+    from ..telemetry.httpd import maybe_start
     from .drivers import resolve_aux_builder, run_config
 
     cfg = RunConfig.load(args.config)
-    stats = run_config(cfg, resolve_aux_builder(cfg, args.device),
-                       queue=True, lease_ttl_s=args.lease_ttl_s,
-                       device=args.device)
+    httpd = maybe_start(args.http_port, role="queue_worker")
+    try:
+        stats = run_config(cfg, resolve_aux_builder(cfg, args.device),
+                           queue=True, lease_ttl_s=args.lease_ttl_s,
+                           device=args.device)
+    finally:
+        if httpd is not None:
+            httpd.close()
     print(json.dumps(stats))
     if stats.get("failed"):
         from ..resilience import EXIT_PARTIAL_SUCCESS
@@ -117,10 +130,14 @@ def main(argv=None) -> int:
     from ..engine.config import RunConfig
     from ..io.tiling import Chunk
     from ..resilience import faults
-    from ..telemetry import configure, get_registry, tracing
+    from ..telemetry import (configure, flight_recorder, get_registry,
+                             install_compile_listeners, live, slo, tracing)
+    from ..utils.compilation_cache import enable_compilation_cache
     from .drivers import (_is_oom, load_state_mask, resolve_aux_builder,
                           run_one_chunk)
 
+    enable_compilation_cache()
+    install_compile_listeners()
     # Chaos specs propagate into chunk workers through the environment,
     # so a KAFKA_TPU_FAULTS run exercises the subprocess path too (call
     # counters are per process — spec call numbers are worker-local).
@@ -128,23 +145,34 @@ def main(argv=None) -> int:
     cfg = RunConfig.load(cfg_path)
     # Per-chunk telemetry subdirectory: this fresh process must not
     # interleave its events/trace with the parent scheduler's files.
+    tel_dir = None
     if cfg.telemetry_dir:
-        configure(os.path.join(cfg.telemetry_dir, f"chunk_{prefix}"))
+        tel_dir = os.path.join(cfg.telemetry_dir, f"chunk_{prefix}")
+        configure(tel_dir)
+    recorder = flight_recorder.install(tel_dir)
     chunk = Chunk(int(x0), int(y0), int(nx), int(ny), int(chunk_no))
     full_mask, geo = load_state_mask(cfg)
     # new_run_id() picks up KAFKA_TPU_RUN_ID from the parent scheduler,
-    # so this worker's spans correlate with its trace.
+    # so this worker's spans and crash dumps correlate with its trace.
     with tracing.push(run_id=tracing.new_run_id(), chunk_id=prefix):
+        live.start_publisher(role="chunk_worker")
+        # SLO evaluator: solver/quality burn over this worker's registry,
+        # alerts.jsonl next to its chunk telemetry.
+        slo.start_engine()
         try:
-            summary = run_one_chunk(
-                cfg, chunk, prefix, full_mask, geo,
-                resolve_aux_builder(cfg, device), device=device,
-            )
+            with recorder:
+                summary = run_one_chunk(
+                    cfg, chunk, prefix, full_mask, geo,
+                    resolve_aux_builder(cfg, device), device=device,
+                )
         except Exception as exc:  # noqa: BLE001 — classified for parent
             if _is_oom(exc):
                 print(str(exc)[:500], file=sys.stderr)
                 return OOM_EXIT_CODE
             raise
+        finally:
+            slo.stop_engine()
+            live.stop_publisher()
     get_registry().dump()
     print(json.dumps(summary))
     return 0

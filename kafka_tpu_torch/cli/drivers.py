@@ -25,9 +25,11 @@ As in the JAX module:
   failure for the retry policy).
 
 The run's device is an argument (``run_config(..., device=None)``, None
-means CUDA).  The flight recorder, live publisher, SLO engine, compile
-listeners and compilation cache of the JAX ``run_config`` come with the
-device-plane slice (ROADMAP).
+means CUDA).  As in the JAX ``run_config``, a run points the kernel
+builds at the compilation cache, counts them (compile listeners),
+installs the flight recorder and, for its duration, publishes live
+snapshots and runs the SLO engine (the last three write only with a
+telemetry directory).
 """
 
 from __future__ import annotations
@@ -526,14 +528,22 @@ def run_config(
     ``lease_ttl_s``, and ``num_processes`` / ``process_index`` are
     irrelevant."""
     from ..resilience import RetryPolicy, faults
-    from ..telemetry import configure, get_registry, tracing
+    from ..telemetry import (configure, flight_recorder, get_registry,
+                             install_compile_listeners, live, slo, tracing)
+    from ..utils.compilation_cache import enable_compilation_cache
 
     dev = resolve_device(device)
+    enable_compilation_cache()
+    install_compile_listeners()
     if cfg.telemetry_dir:
         configure(cfg.telemetry_dir)
     # Chaos-run hook: KAFKA_TPU_FAULTS scripts deterministic failures at
     # the fault points.
     faults.install_from_env()
+    # Crash forensics: unhandled exceptions, SIGTERM/SIGINT and unhealthy
+    # probe verdicts dump crash_<ts>.json into the telemetry directory
+    # (no-op without one).
+    recorder = flight_recorder.install(cfg.telemetry_dir)
     full_mask, geo = load_state_mask(cfg)
     ny, nx = full_mask.shape
     chunks = list(get_chunks(nx, ny, tuple(cfg.chunk_size)))
@@ -567,29 +577,37 @@ def run_config(
     deadline_s = ft.get("chunk_deadline_s")
     deadline_s = float(deadline_s) if deadline_s is not None else None
     # One trace context for the whole run: chunk/window ids are pushed
-    # below it.
-    with tracing.push(run_id=tracing.new_run_id()):
-        if queue:
-            from ..shard.queue import DEFAULT_LEASE_TTL_S, run_queue
+    # below it, and the recorder guard dumps on the way out of a failure.
+    with tracing.push(run_id=tracing.new_run_id()), recorder:
+        # Live heartbeat (no-op without a telemetry dir; the stop writes
+        # the clean-shutdown snapshot) and the SLO evaluator.
+        live.start_publisher(role="queue_worker" if queue else "engine")
+        slo.start_engine()
+        try:
+            if queue:
+                from ..shard.queue import DEFAULT_LEASE_TTL_S, run_queue
 
-            stats = run_queue(
-                chunks, run_one, cfg.output_folder,
-                lease_ttl_s=(lease_ttl_s if lease_ttl_s
-                             else DEFAULT_LEASE_TTL_S),
-                retry_policy=retry_policy,
-                quarantine=bool(ft.get("quarantine", True)),
-                chunk_deadline_s=deadline_s,
-                max_requeues=ft.get("max_requeues"),
-            )
-        else:
-            stats = run_chunks(
-                chunks, run_one, cfg.output_folder,
-                num_processes=num_processes,
-                process_index=process_index,
-                retry_policy=retry_policy,
-                quarantine=bool(ft.get("quarantine", False)),
-                chunk_deadline_s=deadline_s,
-            )
+                stats = run_queue(
+                    chunks, run_one, cfg.output_folder,
+                    lease_ttl_s=(lease_ttl_s if lease_ttl_s
+                                 else DEFAULT_LEASE_TTL_S),
+                    retry_policy=retry_policy,
+                    quarantine=bool(ft.get("quarantine", True)),
+                    chunk_deadline_s=deadline_s,
+                    max_requeues=ft.get("max_requeues"),
+                )
+            else:
+                stats = run_chunks(
+                    chunks, run_one, cfg.output_folder,
+                    num_processes=num_processes,
+                    process_index=process_index,
+                    retry_policy=retry_policy,
+                    quarantine=bool(ft.get("quarantine", False)),
+                    chunk_deadline_s=deadline_s,
+                )
+        finally:
+            slo.stop_engine()
+            live.stop_publisher()
     stats["chunks_with_pixels"] = len(summaries)
     stats["pixels"] = int(
         sum(s["n_pixels"] for s in summaries.values())

@@ -20,14 +20,16 @@ Start-up warms every shape bucket (``serve.batch.aot_compile_buckets``:
 the kernel builds and one run of each bucket's program) before the
 first request is admitted, unless ``--no-aot``.
 
-Not ported yet, and refused when set away from their defaults: the
-flags whose JAX meaning needs the device plane (ROADMAP.md, Queue 1) —
-``--http-port``, ``--live-interval-s``, ``--fleet-dir``,
-``--max-dead-hosts``, ``--shed-slo``, ``--slo-fast-window-s``,
-``--slo-slow-window-s``, ``--slo-interval-s`` — and
-``--compile-cache-dir`` (nothing is compiled per shape in the port).
-The flight recorder is left out, as ``cli/drivers.py:run_config``
-leaves it out.
+Fleet plane, as in the JAX daemon: live heartbeat snapshots
+(``--live-interval-s``), the live HTTP endpoint (``--http-port``:
+``/metrics``, ``/healthz``, ``/statusz``, ``/requestz``, ``/alertz``,
+``/kernelz``, ``/meshz``, ``/profilez``), the SLO engine (its windows
+``--slo-fast-window-s`` / ``--slo-slow-window-s`` / ``--slo-interval-s``;
+``--shed-slo`` sheds while a page-severity alert fires), fleet awareness
+(``--fleet-dir``: the dead-host gauge, shed past ``--max-dead-hosts``)
+and the flight recorder.  ``--compile-cache-dir`` points the kernel
+builds elsewhere (default: the checkout's ``build/kafka_tpu_torch/``,
+where every process of the machine finds them).
 
 This driver serves SYNTHETIC tiles (like ``run_synthetic``); production
 sources plug into the same ``AssimilationService`` programmatically
@@ -47,20 +49,6 @@ import os
 import sys
 
 from . import add_device_arg, add_telemetry_arg, make_console
-
-#: flags whose JAX meaning needs a module of the device-plane slice, with
-#: the default that passes.
-_NOT_PORTED = {
-    "http_port": 0,
-    "live_interval_s": None,
-    "fleet_dir": None,
-    "max_dead_hosts": None,
-    "shed_slo": False,
-    "slo_fast_window_s": None,
-    "slo_slow_window_s": None,
-    "slo_interval_s": None,
-    "compile_cache_dir": None,
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,8 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=8,
                     help="coalesced-round member cap")
     ap.add_argument("--compile-cache-dir", default=None,
-                    help="not ported (the JAX package's persistent XLA "
-                         "compilation cache)")
+                    help="kernel build cache directory (default: the "
+                         "checkout's build/kafka_tpu_torch)")
     ap.add_argument("--aot-buckets", default="1",
                     help="comma-separated batch sizes to warm per shape "
                          "bucket at startup")
@@ -136,24 +124,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--journal-keep", type=int, default=3,
                     help="rotated requests.jsonl segments kept")
     ap.add_argument("--http-port", type=int, default=0,
-                    help="not ported (the live HTTP endpoint); 0 only")
+                    help="live metrics endpoint port (/metrics /healthz "
+                         "/statusz /requestz /alertz; 0 = disabled)")
     ap.add_argument("--live-interval-s", type=float, default=None,
-                    help="not ported (the live heartbeat publisher)")
+                    help="live snapshot publish cadence (default 2 s or "
+                         "$KAFKA_TPU_LIVE_INTERVAL_S)")
     ap.add_argument("--fleet-dir", default=None,
-                    help="not ported (the fleet's live snapshots)")
+                    help="telemetry root holding the fleet's live "
+                         "snapshots; enables the dead-host gauge")
     ap.add_argument("--max-dead-hosts", type=int, default=None,
-                    help="not ported (needs --fleet-dir)")
+                    help="shed requests (reason fleet_degraded) while "
+                         "more workers than this are dead (needs "
+                         "--fleet-dir)")
     ap.add_argument("--shed-quality-drift", action="store_true",
                     help="shed requests (reason quality_degraded) "
                          "while any quality drift sentinel is alarming")
     ap.add_argument("--shed-slo", action="store_true",
-                    help="not ported (the SLO engine)")
+                    help="shed requests (reason slo_burn) while any "
+                         "PAGE-severity SLO alert is firing "
+                         "(kafka_slo_alerts_firing, telemetry.slo)")
     ap.add_argument("--slo-fast-window-s", type=float, default=None,
-                    help="not ported (the SLO engine)")
+                    help="SLO fast (paging) burn-rate window "
+                         "(default 300s)")
     ap.add_argument("--slo-slow-window-s", type=float, default=None,
-                    help="not ported (the SLO engine)")
+                    help="SLO slow (warning) burn-rate window "
+                         "(default 3600s)")
     ap.add_argument("--slo-interval-s", type=float, default=None,
-                    help="not ported (the SLO engine)")
+                    help="SLO evaluation cadence (default 5s)")
     add_device_arg(ap)
     add_telemetry_arg(ap)
     ap.add_argument("--verbose", action="store_true")
@@ -162,12 +159,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for name, default in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise SystemExit(
-                f"kafka_serve: --{name.replace('_', '-')} is not ported "
-                "yet (it needs the device-plane slice, ROADMAP.md "
-                "Queue 1); leave it at its default")
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING
     )
@@ -178,15 +169,21 @@ def main(argv=None):
         make_synthetic_tile,
     )
     from ..serve import batch as serve_batch
-    from ..telemetry import configure, get_registry, live, tracing
+    from ..telemetry import (configure, flight_recorder, get_registry,
+                             install_compile_listeners, live, slo, tracing)
+    from ..telemetry.httpd import maybe_start
+    from ..utils.compilation_cache import enable_compilation_cache
 
     device = resolve_device(args.device)
+    enable_compilation_cache(cache_dir=args.compile_cache_dir)
+    install_compile_listeners()
     if args.telemetry_dir:
         configure(
             args.telemetry_dir,
             events_rotate_bytes=int(args.events_rotate_mb * 1024 * 1024),
             events_keep=args.events_keep,
         )
+    recorder = flight_recorder.install(args.telemetry_dir)
     faults.install_from_env()
     os.makedirs(args.root, exist_ok=True)
     ckpt_root = args.ckpt_root or args.root
@@ -212,7 +209,9 @@ def main(argv=None):
             else None
         ),
         shed_when_unhealthy=not args.no_shed_unhealthy,
+        max_dead_hosts=args.max_dead_hosts,
         shed_on_quality_drift=args.shed_quality_drift,
+        shed_on_slo=args.shed_slo,
     )
     # Bucket warm-up: build the kernels and run every resident shape
     # bucket's program (solo plus each --aot-buckets batch size) BEFORE
@@ -241,16 +240,54 @@ def main(argv=None):
         poll_interval_s=args.poll_interval_s,
         exit_when_idle=args.exit_when_idle,
         idle_grace_s=args.idle_grace_s,
+        fleet_dir=args.fleet_dir,
     )
+
+    def statusz():
+        # The /statusz page's daemon-specific facts (read-only; handler
+        # threads must never block on the serve path).
+        return {
+            "serve_root": os.path.abspath(args.root),
+            "sessions": {
+                name: {"serves": sess.serves}
+                for name, sess in service.sessions.items()
+            },
+            "queue_depth": service.pending(),
+            "draining": service.draining,
+            "fleet_dir": args.fleet_dir,
+            "serve_aot_buckets": aot_manifest,
+        }
+
     reg = get_registry()
-    with tracing.push(run_id=tracing.new_run_id()):
+    slo_kwargs = {
+        k: v for k, v in (
+            ("fast_window_s", args.slo_fast_window_s),
+            ("slow_window_s", args.slo_slow_window_s),
+            ("interval_s", args.slo_interval_s),
+        ) if v is not None
+    }
+    with tracing.push(run_id=tracing.new_run_id()), recorder:
+        # Fleet plane: heartbeat snapshots, the SLO evaluator and the
+        # optional HTTP endpoint, up for exactly as long as the daemon
+        # serves.
         live.update_status(serve_root=os.path.abspath(args.root),
                            tiles=sorted(sessions),
                            serve_aot_buckets=aot_manifest)
-        summary = daemon.run()
+        live.start_publisher(role="serve", interval_s=args.live_interval_s)
+        slo.start_engine(**slo_kwargs)
+        httpd = maybe_start(args.http_port, status_provider=statusz,
+                            role="serve")
+        try:
+            summary = daemon.run()
+        finally:
+            slo.stop_engine()
+            live.stop_publisher()
+            if httpd is not None:
+                httpd.close()
     # Request-level errors completed the run but lost work — surface the
     # partial-success exit code the other drivers use.
     summary["failed"] = summary["errors"]
+    summary["http_port"] = None if httpd is None else httpd.port
     summary["serve_aot_buckets"] = aot_manifest
     summary["telemetry_dir"] = reg.dump()
     print(json.dumps(summary))

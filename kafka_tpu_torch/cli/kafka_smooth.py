@@ -25,9 +25,9 @@ The summary JSON includes a ``x_sha256`` per date — the digest the
 ``smoothed=true`` serve path also reports, so offline and served
 reanalysis compare bit for bit.
 
-Left out, as ``cli/drivers.py:run_config`` leaves them out: the flight
-recorder (``flight_recorder.install``) and the compilation cache
-(nothing is compiled per shape in the port).
+As in ``cli/drivers.py:run_config``, the run uses the kernel-build cache
+and counts its builds, installs the flight recorder and, with a
+telemetry directory, publishes live snapshots and runs the SLO engine.
 """
 
 from __future__ import annotations
@@ -108,76 +108,98 @@ def main(argv=None):
         level=logging.INFO if args.verbose else logging.WARNING
     )
     from .. import resolve_device
-    from ..telemetry import configure, get_registry, quality, tracing
+    from ..telemetry import (configure, flight_recorder,
+                             install_compile_listeners, live, slo, tracing)
+    from ..utils.compilation_cache import enable_compilation_cache
 
     device = resolve_device(args.device)
+    enable_compilation_cache()
+    install_compile_listeners()
     if args.telemetry_dir:
         configure(args.telemetry_dir)
+    recorder = flight_recorder.install(args.telemetry_dir)
 
     ck = Checkpointer(args.ckpt_dir, prefix=args.ckpt_prefix,
                       n_shards=max(1, args.shards))
     t0 = time.time()
-    with tracing.push(run_id=tracing.new_run_id()):
+    with tracing.push(run_id=tracing.new_run_id()), recorder:
+        live.start_publisher(role="smooth")
+        slo.start_engine()
         try:
-            result = smooth_checkpoints(
-                ck, q_diag=np.float32(args.q),
-                state_propagator=_PROPAGATORS[args.propagator],
-                device=device,
-            )
-        except SmootherError as exc:
-            print(f"kafka-smooth: {exc}", file=sys.stderr)
-            return {"failed": 1, "error": str(exc)}
-
-        t_total, n_pix, p = result.x_smoothed.shape
-        if args.params:
-            params = tuple(s for s in args.params.split(",") if s)
-        else:
-            params = tuple(_OPERATOR_PARAMS[args.operator])[:p]
-        if len(params) != p:
-            print(
-                f"kafka-smooth: chain stores {p} parameters but "
-                f"{len(params)} names were given ({params})",
-                file=sys.stderr,
-            )
-            return {"failed": 1, "error": "parameter-count mismatch"}
-
-        reg = get_registry()
-        ledger = quality.get_ledger(reg)
-        prefix = args.ckpt_prefix.rstrip("_") or None
-        dates = {}
-        for t, ts in enumerate(result.timesteps):
-            dates[ts.isoformat()] = {
-                "x_sha256": state_sha256(result.x_smoothed[t]),
-                "sigma_shrink": [
-                    round(v, 6) for v in result.sigma_shrink(t)
-                ],
-                "rederived": ts in result.rederived,
-            }
-            ledger.record_smoothed(
-                ts.date().isoformat(), result.sigma_shrink(t),
-                n_valid=n_pix, prefix=prefix,
-            )
-
-        written = 0
-        if args.outdir:
-            written = _write_outputs(args, result, params, prefix)
-
-        summary = {
-            "windows": t_total,
-            "n_pixels": n_pix,
-            "rederived": len(result.rederived),
-            "skipped": len(result.skipped),
-            "dates": dates,
-            "outputs_written": written,
-            "outdir": args.outdir,
-            "wall_s": round(time.time() - t0, 3),
-        }
-        reg.emit(
-            "smooth_done", windows=t_total, rederived=len(result.rederived),
-            skipped=len(result.skipped), outputs_written=written,
-        )
-        summary["telemetry_dir"] = reg.dump()
+            summary = _smooth(args, device, ck, t0)
+        finally:
+            slo.stop_engine()
+            live.stop_publisher()
+    if "error" in summary:
+        return summary
     print(json.dumps(summary))
+    return summary
+
+
+def _smooth(args, device, ck, t0) -> dict:
+    """The smoothing pass of :func:`main` inside its trace context: the
+    summary, or ``{"failed": 1, "error": ...}``."""
+    from ..telemetry import get_registry, quality
+
+    try:
+        result = smooth_checkpoints(
+            ck, q_diag=np.float32(args.q),
+            state_propagator=_PROPAGATORS[args.propagator],
+            device=device,
+        )
+    except SmootherError as exc:
+        print(f"kafka-smooth: {exc}", file=sys.stderr)
+        return {"failed": 1, "error": str(exc)}
+
+    t_total, n_pix, p = result.x_smoothed.shape
+    if args.params:
+        params = tuple(s for s in args.params.split(",") if s)
+    else:
+        params = tuple(_OPERATOR_PARAMS[args.operator])[:p]
+    if len(params) != p:
+        print(
+            f"kafka-smooth: chain stores {p} parameters but "
+            f"{len(params)} names were given ({params})",
+            file=sys.stderr,
+        )
+        return {"failed": 1, "error": "parameter-count mismatch"}
+
+    reg = get_registry()
+    ledger = quality.get_ledger(reg)
+    prefix = args.ckpt_prefix.rstrip("_") or None
+    dates = {}
+    for t, ts in enumerate(result.timesteps):
+        dates[ts.isoformat()] = {
+            "x_sha256": state_sha256(result.x_smoothed[t]),
+            "sigma_shrink": [
+                round(v, 6) for v in result.sigma_shrink(t)
+            ],
+            "rederived": ts in result.rederived,
+        }
+        ledger.record_smoothed(
+            ts.date().isoformat(), result.sigma_shrink(t),
+            n_valid=n_pix, prefix=prefix,
+        )
+
+    written = 0
+    if args.outdir:
+        written = _write_outputs(args, result, params, prefix)
+
+    summary = {
+        "windows": t_total,
+        "n_pixels": n_pix,
+        "rederived": len(result.rederived),
+        "skipped": len(result.skipped),
+        "dates": dates,
+        "outputs_written": written,
+        "outdir": args.outdir,
+        "wall_s": round(time.time() - t0, 3),
+    }
+    reg.emit(
+        "smooth_done", windows=t_total, rederived=len(result.rederived),
+        skipped=len(result.skipped), outputs_written=written,
+    )
+    summary["telemetry_dir"] = reg.dump()
     return summary
 
 

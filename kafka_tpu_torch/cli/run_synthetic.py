@@ -33,9 +33,13 @@ survivors finish its chunks; SIGTERM drains a worker).  The summary
 lines are the JAX driver's (``mode`` "chunked", "queue" or
 "queue-fleet").
 
-Not ported yet, and refused with a message naming the slice that brings
-them: the live HTTP endpoint (``--http-port``) and profiler capture
-(``--profile-windows``).
+The device plane as in the JAX driver: ``--http-port`` serves the live
+endpoint (``telemetry.httpd``: ``/metrics``, ``/healthz``, ``/statusz``,
+``/profilez``, ``/kernelz``, ``/meshz``, ...; a local fleet gives worker
+i port+i), ``--profile-windows N`` captures a ``torch.profiler`` trace of
+the first N assimilated windows into ``<telemetry-dir>/profile``, and a
+run with ``--telemetry-dir`` installs the flight recorder, publishes live
+snapshots and runs the SLO engine.
 """
 
 from __future__ import annotations
@@ -61,15 +65,6 @@ from ..obsops import IdentityOperator, TwoStreamOperator, WCMAux, WCMOperator
 from ..testing.fixtures import DEFAULT_GEO, make_pivot_mask
 from ..testing.synthetic import SyntheticObservations
 from . import add_device_arg, add_telemetry_arg, make_console
-
-#: flags of the JAX driver this port does not run yet, with the ROADMAP
-#: slice that brings each: (flag, is it set?, slice).
-UNPORTED = (
-    ("--http-port", lambda a: a.http_port > 0,
-     "slice 7 (device plane and telemetry)"),
-    ("--profile-windows", lambda a: a.profile_windows > 0,
-     "slice 7 (device plane and telemetry)"),
-)
 
 
 def build_operator(name: str, device):
@@ -182,9 +177,13 @@ def parse_args(argv=None):
                     help="degraded-date budget per filter run before "
                          "aborting")
     ap.add_argument("--http-port", type=int, default=0,
-                    help="(not ported yet) live metrics endpoint port")
+                    help="live metrics endpoint port (/metrics /healthz "
+                         "/statusz /profilez; 0 = disabled; fleet mode "
+                         "gives worker i port+i)")
     ap.add_argument("--profile-windows", type=int, default=0,
-                    help="(not ported yet) profiler capture of N windows")
+                    help="capture a torch.profiler trace of the first N "
+                         "assimilated windows into <telemetry-dir>/"
+                         "profile (0 = off; one capture at a time)")
     ap.add_argument("--scan-window", type=int, default=8,
                     help="temporal fusion: windows per fused block "
                          "(1 = unfused)")
@@ -192,10 +191,6 @@ def parse_args(argv=None):
     add_telemetry_arg(ap)
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    for flag, is_set, where in UNPORTED:
-        if is_set(args):
-            ap.error(f"{flag} is not ported to kafka_tpu_torch yet; "
-                     f"it comes with {where} (ROADMAP.md)")
     if args.queue and args.chunk_size <= 0:
         ap.error("--queue requires --chunk-size")
     return args
@@ -203,9 +198,14 @@ def parse_args(argv=None):
 
 def main(argv=None):
     from ..resilience import RetryPolicy, faults
-    from ..telemetry import configure, get_registry, tracing
+    from ..telemetry import (configure, flight_recorder, get_registry,
+                             install_compile_listeners, live, perf, slo,
+                             tracing)
+    from ..telemetry.httpd import maybe_start
+    from ..utils.compilation_cache import enable_compilation_cache
 
     raw_argv = list(sys.argv[1:] if argv is None else argv)
+    enable_compilation_cache()
     args = parse_args(raw_argv)
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING)
@@ -215,8 +215,19 @@ def main(argv=None):
         # children are single-worker copies of this command over the one
         # shared filesystem queue.
         return _run_fleet(args, raw_argv)
+    install_compile_listeners()
     if args.telemetry_dir:
         configure(args.telemetry_dir)
+    recorder = flight_recorder.install(args.telemetry_dir)
+    httpd = maybe_start(args.http_port, role="engine")
+    if args.profile_windows > 0:
+        # Windowed profiler capture (telemetry.perf): starts now, stops
+        # itself after N assimilated windows; the finally below is the
+        # safety net for runs shorter than N.
+        perf.start_windowed_capture(
+            args.profile_windows,
+            os.path.join(args.telemetry_dir or args.outdir, "profile"),
+        )
     # Fault injection: KAFKA_TPU_FAULTS scripts failures at the fault
     # points (resilience.faults).
     faults.install_from_env()
@@ -246,9 +257,24 @@ def main(argv=None):
 
     t0 = time.time()
     run = _run_chunked if args.chunk_size > 0 else _run_single
-    with tracing.push(run_id=tracing.new_run_id()):
-        summary = run(args, mask, geo, op, params, prior, truth, aux_fn,
-                      sigma, obs_dates, time_grid, read_policy, device)
+    # One trace context for the run; the recorder guard turns a mid-run
+    # death into a crash_<ts>.json next to the other telemetry artifacts.
+    with tracing.push(run_id=tracing.new_run_id()), recorder:
+        # Live heartbeat (no-op without --telemetry-dir) and the SLO
+        # evaluator over this run's registry.
+        live.start_publisher(
+            role="queue_worker" if args.queue else "engine")
+        slo.start_engine()
+        try:
+            summary = run(args, mask, geo, op, params, prior, truth,
+                          aux_fn, sigma, obs_dates, time_grid, read_policy,
+                          device)
+        finally:
+            perf.stop_windowed_capture()
+            slo.stop_engine()
+            live.stop_publisher()
+            if httpd is not None:
+                httpd.close()
     wall = time.time() - t0
 
     summary["operator"] = args.operator
@@ -426,7 +452,7 @@ def _run_fleet(args, raw_argv) -> dict:
     from ..shard.queue import queue_status
 
     child_argv = raw_argv
-    for flag in ("--num-workers", "--telemetry-dir"):
+    for flag in ("--num-workers", "--telemetry-dir", "--http-port"):
         child_argv = _strip_flag(child_argv, flag)
     from .drivers import child_env
 
@@ -441,6 +467,9 @@ def _run_fleet(args, raw_argv) -> dict:
         if args.telemetry_dir:
             cmd += ["--telemetry-dir",
                     os.path.join(args.telemetry_dir, f"worker_{i}")]
+        if args.http_port:
+            # One endpoint per worker process: ports cannot be shared.
+            cmd += ["--http-port", str(args.http_port + i)]
         procs.append(subprocess.Popen(cmd, env=env,
                                       stdout=subprocess.DEVNULL))
     rcs = [p.wait() for p in procs]

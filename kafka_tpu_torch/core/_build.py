@@ -7,6 +7,11 @@ checkout, keyed by a hash of the sources and flags, then loaded with
 ``ctypes``.  ``build_all`` compiles several sources in parallel, one
 ``nvcc`` each.  A missing ``nvcc`` or a failed compile raises
 with the compiler's output; nothing falls back.
+
+``BUILD_ROOT`` is the persistent kernel cache:
+``utils.compilation_cache.enable_compilation_cache`` points it elsewhere.
+Every build, cached or compiled, is reported to the callables in
+``BUILD_LISTENERS`` (``telemetry.compilemon``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ SOURCE_FLAGS = {
     "fused_update": ("-fmad=false",),
     "solve_rows": ("-fmad=false",),
 }
+#: callables ``(name, cached, seconds)`` told of every build.
+BUILD_LISTENERS: list = []
 
 _LOADED: dict = {}
 _LOAD_LOCK = threading.Lock()
@@ -84,6 +91,11 @@ def _source_hash(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _notify(name: str) -> None:
+    for listener in BUILD_LISTENERS:
+        listener(name, BUILDS[name]["cached"], BUILDS[name]["seconds"])
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact build exists; return
     the shared library's path."""
@@ -96,6 +108,7 @@ def build(name: str) -> Path:
     if lib.is_file():
         BUILDS[name] = {"path": str(lib), "seconds": 0.0, "cached": True,
                         "log": log.read_text() if log.is_file() else ""}
+        _notify(name)
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -114,6 +127,7 @@ def build(name: str) -> Path:
     os.replace(tmp, lib)
     BUILDS[name] = {"path": str(lib), "seconds": seconds, "cached": False,
                     "log": text}
+    _notify(name)
     return lib
 
 

@@ -55,8 +55,15 @@ As in the JAX engine:
   and the diagnostic records see the whole batch, gathered on the
   mesh's first device; ``run`` returns ``PixelShards``.
 
-Not ported: the performance gauges (``perf.record_window``), which come
-with the device-plane slice.
+- the device plane as in the JAX engine: the one packed diagnostic read
+  per date or fused block goes through ``telemetry.fetch_scalars``
+  (counted by ``kafka_engine_device_reads_total``); every window feeds
+  ``perf.record_window`` from that host record (no added read or
+  synchronisation); every window or fused block ticks
+  ``record_memory_watermark`` (the CUDA memory gauges and the allocator
+  census); a mesh registers with ``devprof.note_mesh``; and
+  ``run(..., profile_dir=...)`` captures a ``torch.profiler`` trace of
+  the whole run (``utils.profiling.trace``).
 """
 
 from __future__ import annotations
@@ -79,7 +86,10 @@ from ..core.time_grid import iterate_time_grid
 from ..core.types import BandBatch
 from ..resilience import (DEFAULT_READ_POLICY, TRANSIENT, DegradedDateError,
                           RetryPolicy, classify_failure, faults)
-from ..telemetry import get_registry, quality, span, tracing
+from ..telemetry import (devprof, fetch_scalars, get_registry, perf, quality,
+                         record_memory_watermark, span, tracing)
+from ..telemetry.device import use_device
+from ..utils.profiling import trace
 from .prefetch import ObservationPrefetcher
 from .protocols import DateObservation, ObservationSource, OutputWriter, Prior
 from .state import make_pixel_gather
@@ -135,6 +145,12 @@ class KalmanFilter:
             pad_multiple = int(np.lcm(int(pad_multiple),
                                       mesh.size * int(mesh_lane)))
         self.device = resolve_device(device)
+        use_device(self.device)
+        if mesh is not None:
+            for d in mesh.devices:
+                use_device(d)
+            # /meshz introspection: the mesh this engine splits over.
+            devprof.note_mesh(mesh)
         self.observations = observations
         self.output = output
         self.parameter_list = tuple(parameter_list)
@@ -442,7 +458,8 @@ class KalmanFilter:
                         self._window_verdicts, diags.health_verdicts)
                 )
             if self.diagnostics:
-                self._record_window(self._date_record(date, obs, diags, t0))
+                self._record_window(self._date_record(date, obs, diags, t0),
+                                    obs.operator)
         return x_a, p_a, p_inv_a
 
     def _hessian_forward(self, operator):
@@ -561,7 +578,7 @@ class KalmanFilter:
                 diags.nonfinite_count.float(),
             ]))
             parts.append(diags.clip_saturated_count.float())
-        packed = torch.cat(parts).cpu().numpy()
+        packed = fetch_scalars(torch.cat(parts))
         rec = {
             "date": date,
             "n_iterations": int(packed[0]),
@@ -585,10 +602,11 @@ class KalmanFilter:
                  rec["n_iterations"], rec["convergence_norm"], rec["wall_s"])
         return rec
 
-    def _record_window(self, rec: dict) -> None:
+    def _record_window(self, rec: dict, operator=None) -> None:
         """Keep one window's record and land it in the telemetry
         registry (the JAX package's metric names, help strings, labels
-        and buckets), from the host record alone: no device read."""
+        and buckets), from the host record alone: no device read.
+        ``operator`` names the solve route of the perf gauges."""
         self.diagnostics_log.append(rec)
         reg = get_registry()
         reg.counter(
@@ -596,7 +614,8 @@ class KalmanFilter:
         ).inc(mode="fused" if "fused" in rec else "single")
         reg.counter(
             "kafka_engine_pixels_total",
-            "valid pixels assimilated, summed over windows",
+            "valid pixels assimilated, summed over windows — the solver "
+            "SLO objective's denominator (telemetry.slo)",
         ).inc(self.gather.n_valid)
         reg.histogram(
             "kafka_engine_gn_iterations",
@@ -655,6 +674,18 @@ class KalmanFilter:
         )
         rec["quality_verdict"] = entry["verdict"]
         rec["quality_drift"] = entry["drift"]["active"]
+        # Performance attribution: the live throughput, device-fraction
+        # and roofline gauges, from this same host record.
+        perf.record_window(
+            rec,
+            n_valid=self.gather.n_valid,
+            n_pad=self.gather.n_pad,
+            n_params=self.n_params,
+            n_bands=len(rec["chi2_per_band"]),
+            solver_options=self.solver_options,
+            operator=operator,
+            registry=reg,
+        )
         reg.emit("solve", **{k: (str(v) if k == "date" else v)
                              for k, v in rec.items()})
 
@@ -704,7 +735,7 @@ class KalmanFilter:
             )
 
     def run(self, time_grid, x_forecast, p_forecast, p_forecast_inverse,
-            checkpointer=None, advance_first=False):
+            checkpointer=None, advance_first=False, profile_dir=None):
         """Full assimilation run (``LinearKalman.run``).  ``x_forecast``
         may be (n_pad, p) or the flat interleaved layout; arrays may be
         tensors or numpy and are placed on the filter's device.
@@ -712,7 +743,11 @@ class KalmanFilter:
         ``advance_first=True`` applies the state propagation/prior blend
         before the FIRST grid step too — required when resuming from a
         checkpoint, where the loaded state is an analysis whose advance
-        into the first resumed window hasn't happened yet."""
+        into the first resumed window hasn't happened yet.
+
+        ``profile_dir`` captures a ``torch.profiler`` trace of the whole
+        run into that directory, with the engine phases labelled by their
+        ``record_function`` spans."""
         f32 = torch.float32
 
         def on_device(a):
@@ -751,7 +786,7 @@ class KalmanFilter:
                                else None),
                 )
         try:
-            with tracing.push():
+            with trace(profile_dir), tracing.push():
                 return self._run_loop(
                     windows, x_forecast, p_forecast, p_forecast_inverse,
                     checkpointer, advance_first,
@@ -982,7 +1017,7 @@ class KalmanFilter:
                         wstats.quarantined_count.float(),
                         wstats.nonfinite_count.float(),
                         wstats.clip_saturated_count.float().reshape(-1)]
-        packed = torch.cat(scalars).cpu().numpy()
+        packed = fetch_scalars(torch.cat(scalars))
         wall = time.perf_counter() - t0
         chi0 = 4 * k
         h0 = chi0 + k * n_bands + (k if converged is not None else 0)
@@ -1010,7 +1045,7 @@ class KalmanFilter:
                 sat0 = h0 + 4 * k + j * p
                 rec["clip_saturated"] = [int(v)
                                          for v in packed[sat0:sat0 + p]]
-            self._record_window(rec)
+            self._record_window(rec, first.operator)
         LOG.info("Assimilated %d fused windows ending %s in %.2fs", k,
                  timesteps[-1], wall)
 
@@ -1078,6 +1113,7 @@ class KalmanFilter:
                                              == len(windows)),
                                 ))
                         idx += len(block)
+                        record_memory_watermark()
                         continue
                     if len(block) == 1:
                         # Hand the fetched observation to the unfused path.
@@ -1089,6 +1125,7 @@ class KalmanFilter:
                         is_last=(idx == len(windows) - 1),
                     ))
                 idx += 1
+                record_memory_watermark()
         return x_analysis, p_analysis, p_analysis_inverse
 
     def _run_one_window(self, window, x_analysis, p_analysis,

@@ -6,10 +6,12 @@ result cache, exposed by the ``kafka_serve`` daemon
 (``cli.kafka_serve``); compatible concurrent requests coalesce into one
 device round (``serve.batch``).
 
-Not ported yet: the router — ``HashRing``, ``RoutePolicy``,
-``TileRouter``, ``stable_hash`` (``serve/router.py``) and
-``cli/kafka_route.py`` — which heads ROADMAP.md's Queue 1 for the next
-slice.
+The daemon's fleet awareness (``ServeDaemon(fleet_dir=...)``: the
+dead-host gauge from the fleet's live snapshots) is here.  Not ported
+yet: the router — ``HashRing``, ``RoutePolicy``, ``TileRouter``,
+``FleetWatch``, ``stable_hash`` (``serve/router.py``) and
+``cli/kafka_route.py`` — item 16b of ROADMAP.md's Queue 1, which its
+failover reads those snapshots for.
 """
 
 from .admission import AdmissionController, AdmissionPolicy

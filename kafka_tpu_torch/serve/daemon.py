@@ -22,9 +22,10 @@ second SIGTERM terminates through the normal chain (flight recorder
 included).  SIGKILL is the crash path: the journal replays unanswered
 requests on the next start, resuming from the warm checkpoints.
 
-The fleet-awareness option (``fleet_dir``: the dead-host gauge read
-from the fleet's live snapshots) needs ``telemetry.aggregate``, which
-waits for the device-plane slice; setting it raises.
+Fleet awareness (``fleet_dir``): the daemon reads the fleet's live
+snapshots under that telemetry root and publishes the dead-host count
+as ``kafka_fleet_dead_hosts``, which admission sheds on
+(``AdmissionPolicy.max_dead_hosts``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import socket
 import threading
 import time
 from typing import Optional
@@ -133,11 +135,9 @@ class ServeDaemon:
         exit_when_idle: bool = False,
         idle_grace_s: float = 1.0,
         fleet_dir: Optional[str] = None,
+        fleet_refresh_s: float = 5.0,
+        fleet_ttl_s: Optional[float] = None,
     ):
-        if fleet_dir is not None:
-            raise NotImplementedError(
-                "fleet_dir needs telemetry.aggregate, which is not "
-                "ported yet (ROADMAP.md, Queue 1: the device plane)")
         self.service = service
         self.root = root
         self.inbox = os.path.join(root, INBOX_DIR)
@@ -146,6 +146,49 @@ class ServeDaemon:
         self.exit_when_idle = bool(exit_when_idle)
         self.idle_grace_s = float(idle_grace_s)
         self._drain = threading.Event()
+        #: fleet awareness (optional): a telemetry root holding the
+        #: workers' live_<host>_<pid>.json heartbeats.  The daemon
+        #: refreshes kafka_fleet_dead_hosts from it so admission can
+        #: shed when the fleet degrades (AdmissionPolicy.max_dead_hosts).
+        self.fleet_dir = fleet_dir
+        self.fleet_refresh_s = float(fleet_refresh_s)
+        self.fleet_ttl_s = fleet_ttl_s
+        self._fleet_next = 0.0
+
+    def _refresh_fleet_gauge(self) -> None:
+        """Read the live snapshots under ``fleet_dir`` and publish the
+        dead-host count as the admission gauge.  Runs inline on the poll
+        loop (bounded: a directory walk + a few json.loads), throttled
+        to ``fleet_refresh_s``."""
+        if not self.fleet_dir:
+            return
+        now = time.monotonic()
+        if now < self._fleet_next:
+            return
+        self._fleet_next = now + self.fleet_refresh_s
+        from ..telemetry.aggregate import (
+            load_live_snapshots, worker_liveness,
+        )
+
+        me = f"{socket.gethostname()}:{os.getpid()}"
+        liveness = worker_liveness(
+            load_live_snapshots(self.fleet_dir), ttl_s=self.fleet_ttl_s,
+        )
+        dead = sorted(
+            key for key, w in liveness.items()
+            if w["dead"] and key != me
+        )
+        reg = get_registry()
+        gauge = reg.gauge(
+            "kafka_fleet_dead_hosts",
+            "workers whose live-snapshot heartbeat went stale without a "
+            "clean-shutdown marker (the fleet view's dead-host count; "
+            "admission sheds on it via max_dead_hosts)",
+        )
+        prev = gauge.value()
+        gauge.set(len(dead))
+        if len(dead) != (prev or 0) and (dead or prev):
+            reg.emit("fleet_dead_hosts_changed", dead=dead)
 
     def drain(self) -> None:
         """Programmatic SIGTERM equivalent."""
@@ -202,6 +245,7 @@ class ServeDaemon:
         idle_since: Optional[float] = None
         try:
             while not self._drain.is_set():
+                self._refresh_fleet_gauge()
                 consumed = self._scan_inbox()
                 if consumed == 0 and self.service.pending() == 0:
                     if self.exit_when_idle:

@@ -4,7 +4,7 @@ in-process on the CPU on the same arguments: the same summary fields
 counts), the same files, the rasters within the JAX package's fusion
 budgets (state rasters atol 2e-3, sigma rasters rtol 1e-2 / atol 2e-3)
 and the QA bands equal; the port's fused run equal to its unfused run
-to the bit; and the flags that are not ported refused with a message.
+to the bit; and the device-plane flags leaving the outputs' bits alone.
 The chunked, queue and fleet modes are held to the JAX driver in
 tests/test_torch_distributed_drivers.py.
 
@@ -122,18 +122,45 @@ def test_checkpoint_flag_writes_resumable_state(tmp_path):
     assert summary["outputs_written"] == summary["n_timesteps"] * 15
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 @pytest.mark.parametrize("flags,slice_name", [
     (["--http-port", "9100"], "slice 7"),
     (["--profile-windows", "2"], "slice 7"),
 ])
-def test_unported_flags_exit_with_their_slice(tmp_path, capsys, flags,
-                                              slice_name):
-    with pytest.raises(SystemExit) as exc:
-        port.main(flags + ["--outdir", str(tmp_path), "--device", "cpu"])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and slice_name in err
-    assert not os.listdir(tmp_path)
+def test_unported_flags_exit_with_their_slice(tmp_path, flags, slice_name):
+    """Named for the refusal these flags met before their slice (the
+    device plane) was ported; now the live endpoint and the windowed
+    profiler capture run beside the engine and change none of its
+    outputs."""
+    from kafka_tpu_torch.telemetry import MetricsRegistry, use
+
+    flag = flags[0]
+    value = str(_free_port()) if flag == "--http-port" else flags[1]
+    base = _run_port(tmp_path / "base", CASES["identity"])
+    tel = tmp_path / "tel"
+    with use(MetricsRegistry()):
+        got = _run_port(tmp_path / "flag", CASES["identity"] + [
+            flag, value, "--telemetry-dir", str(tel)])
+    assert got["outputs_written"] == base["outputs_written"]
+    for name in sorted(os.listdir(tmp_path / "base")):
+        if name.endswith(".tif"):
+            a, _ = read_geotiff(str(tmp_path / "base" / name))
+            b, _ = read_geotiff(str(tmp_path / "flag" / name))
+            assert np.array_equal(a, b, equal_nan=True), name
+    if flag == "--profile-windows":
+        assert any(n.endswith(".trace.json.gz")
+                   for _, _, fs in os.walk(tel / "profile") for n in fs)
+    events = [json.loads(line)["event"]
+              for line in open(tel / "events.jsonl")]
+    assert ("httpd_started" if flag == "--http-port"
+            else "devprof_capture_parsed") in events
 
 
 def test_device_defaults_to_cuda(tmp_path, monkeypatch):

@@ -69,7 +69,15 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.shard.step, kafka_tpu_torch.shard.queue, "
         "kafka_tpu_torch.cli.chunk_worker, "
         "kafka_tpu_torch.cli.run_modis_distributed, "
-        "kafka_tpu_torch.testing.multiprocess_worker\n"
+        "kafka_tpu_torch.testing.multiprocess_worker, "
+        "kafka_tpu_torch.telemetry.device, kafka_tpu_torch.telemetry.devprof, "
+        "kafka_tpu_torch.telemetry.perf, kafka_tpu_torch.telemetry.compilemon, "
+        "kafka_tpu_torch.telemetry.health, kafka_tpu_torch.telemetry.slo, "
+        "kafka_tpu_torch.telemetry.aggregate, "
+        "kafka_tpu_torch.telemetry.httpd, "
+        "kafka_tpu_torch.telemetry.flight_recorder, kafka_tpu_torch.utils, "
+        "kafka_tpu_torch.utils.profiling, "
+        "kafka_tpu_torch.utils.compilation_cache\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"

@@ -335,10 +335,22 @@ def test_daemon_inbox_roundtrip_and_idle_exit(tmp_path):
 
 
 def test_daemon_refuses_the_fleet_option(tmp_path):
+    """Named for the refusal ``fleet_dir`` met before the device plane
+    was ported; now a stale heartbeat without a final marker under
+    ``fleet_dir`` counts as a dead host in ``kafka_fleet_dead_hosts``
+    (the JAX daemon's gauge)."""
+    fleet = tmp_path / "fleet"
+    fleet.mkdir()
+    snap = {"schema": 1, "ts": time.time() - 3600, "host": "h", "pid": 1,
+            "role": "serve", "seq": 3, "interval_s": 2.0, "final": False}
+    (fleet / "live_h_1.json").write_text(json.dumps(snap))
     svc = port_serve.AssimilationService({"t": StubSession()},
                                          str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_serve.ServeDaemon(svc, str(tmp_path), fleet_dir=str(tmp_path))
+    with port_telemetry.use(port_telemetry.MetricsRegistry()) as reg:
+        daemon = port_serve.ServeDaemon(svc, str(tmp_path),
+                                        fleet_dir=str(fleet))
+        daemon._refresh_fleet_gauge()
+        assert reg.value("kafka_fleet_dead_hosts") == 1
     svc.close()
 
 
@@ -365,16 +377,44 @@ def test_kafka_serve_cli_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--http-port", "8080"], ["--live-interval-s", "1"],
-    ["--fleet-dir", "x"], ["--max-dead-hosts", "1"], ["--shed-slo"],
+    ["--http-port", "0"], ["--live-interval-s", "1"],
+    ["--fleet-dir", "fleet"], ["--max-dead-hosts", "1"], ["--shed-slo"],
     ["--slo-fast-window-s", "60"], ["--slo-slow-window-s", "600"],
-    ["--slo-interval-s", "2"], ["--compile-cache-dir", "x"]])
-def test_kafka_serve_refuses_unported_flags(tmp_path, flag):
+    ["--slo-interval-s", "2"], ["--compile-cache-dir", "cache"]])
+def test_kafka_serve_refuses_unported_flags(tmp_path, monkeypatch, flag):
+    """Named for the refusal these flags met before the device plane was
+    ported; now each one runs the daemon: one request served, its
+    telemetry dir holding the final live snapshot."""
     from kafka_tpu_torch.cli import kafka_serve
+    from kafka_tpu_torch.core import _build
 
-    with pytest.raises(SystemExit, match="not ported"):
-        kafka_serve.main(["--root", str(tmp_path), "--device", "cpu",
-                          *flag])
+    # --compile-cache-dir re-points the build root: restore it after.
+    monkeypatch.setattr(_build, "BUILD_ROOT", _build.BUILD_ROOT)
+
+    root, tel = str(tmp_path / "root"), str(tmp_path / "tel")
+    flag = [str(tmp_path / v) if v in ("fleet", "cache") else v
+            for v in flag]
+    if flag[0] == "--http-port":
+        flag = ["--http-port", str(_free_port())]
+    port_serve.submit_request(root, {"request_id": "r0", "tile": "tile0",
+                                     "date": DATES[1].isoformat()})
+    with port_telemetry.use(port_telemetry.MetricsRegistry()):
+        summary = kafka_serve.main([
+            "--root", root, "--ny", "8", "--nx", "8", "--no-aot",
+            "--exit-when-idle", "--idle-grace-s", "0.1", "--device", "cpu",
+            "--telemetry-dir", tel, *flag])
+    assert summary["admitted"] == 1 and summary["errors"] == 0
+    assert port_serve.read_response(root, "r0")["status"] == "ok"
+    snaps = [n for n in os.listdir(tel) if n.startswith("live_")]
+    assert snaps and json.load(open(os.path.join(tel, snaps[0])))["final"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def test_kafka_serve_sigterm_drains(tmp_path):

@@ -37,8 +37,8 @@ def test_root_and_core_reexport_the_jax_names():
 @pytest.mark.parametrize("package", ["serve", "smoother", "telemetry"])
 def test_slice_packages_export_the_jax_names(package):
     """``serve``, ``smoother`` and ``telemetry`` export the JAX package's
-    names; each one left out (the router's, the device plane's) is named
-    in the port package's docstring."""
+    names; each one left out (the router's) is named in the port
+    package's docstring."""
     import importlib
 
     jax_mod = importlib.import_module(f"kafka_tpu.{package}")
@@ -49,9 +49,7 @@ def test_slice_packages_export_the_jax_names(package):
     expected = {
         "serve": {"HashRing", "RoutePolicy", "TileRouter", "stable_hash"},
         "smoother": set(),
-        "telemetry": {"devprof", "fetch_scalars", "flight_recorder",
-                      "install_compile_listeners", "perf",
-                      "record_memory_watermark", "slo"},
+        "telemetry": set(),
     }[package]
     assert missing == expected, missing
 

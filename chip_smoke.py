@@ -128,17 +128,18 @@ one JSON line:
    ``build/chip_smoke_cli`` and are removed after;
 17. cli_mod09 — the torch ``run_mod09`` driver over a MOD09GA tree
    written on disk (the 2400 x 2400 500 m tile, its 1 km QA and angle
-   rasters, 8 daily dates from 2017-06-01) under phase main's land mask
+   rasters, 4 daily dates from 2017-06-01) under phase main's land mask
    in four 1200 x 1200 chunks: the 21-parameter Ross-Li kernel-weight
    state on the dense large-p solve (torch.linalg Cholesky) under the
-   exact information filter.  Gates: 4 chunks and 32 chunk-dates run, 0
+   exact information filter.  Gates: 4 chunks and 16 chunk-dates run, 0
    hand-kernel launches, every GeoTIFF present and finite on the mask,
    the median b1_iso of the last window within 0.02 of the truth, a
    restart that skips all 4 chunks and writes nothing, the first chunk
    run alone unfused equal to the fused run bit for bit; the dense
    update split into assembly, Cholesky and triangular solves on a kept
-   chunk date, and the propagation.  Reduced: 8 of the config's 30
-   days, 1200 x 1200 chunks instead of 256 x 256;
+   chunk date, and the propagation.  Reduced: 4 of the config's 30
+   days (8 until the fleet phases were added), 1200 x 1200 chunks
+   instead of 256 x 256;
 18. per_pixel — phase main's tile run with per_pixel_convergence: (7, 2)
    fused-update launches equal the iterations, the converged fraction
    and its gauge equal the frozen mask's mean, held to the plain loop
@@ -213,7 +214,7 @@ one JSON line:
    rasters equal the static run's bit for bit; then one chunk through
    the chunk_worker subprocess, rc 0 and its rasters equal phase
    distributed's;
-28. device_plane (last) — ``run_synthetic`` over phase cli's tile and
+28. device_plane — ``run_synthetic`` over phase cli's tile and
    mask (4 windows, no checkpoint) plain and with ``--telemetry-dir``,
    ``--http-port`` and ``--profile-windows 2`` while a thread scrapes
    the live endpoint: the same bits, device reads equal to the
@@ -226,9 +227,30 @@ one JSON line:
    process (healthy on its first reading); a real CUDA OOM
    under a flight recorder (forensics in the crash dump) and a fused_gn
    launch after it held to its plain version; a ``/profilez`` capture
-   taken on a handler thread holding this thread's kernels; ``kafka_serve`` with the
+   asked on a handler thread, its tracing switched on and off by this
+   (the launching) thread, holding this thread's kernels; ``kafka_serve`` with the
    fleet-plane flags answering phase serve's cold, cache and warm
-   requests with phase serve's digests, nothing shed.
+   requests with phase serve's digests, nothing shed;
+29. batch_modes (after serve_batch) — the coalesced round under
+   per-pixel convergence at full width: the two serve tiles' first
+   dates (pivot masks of 1,229,279 and 1,254,911 px, the smaller padded
+   with unobserved pixels to the larger's 1,254,912), each solo and then
+   as one ``assimilate_date_batch`` round: every member the bits of its
+   solo solve, the round's (7, 2) launches equal to the larger member's
+   step count, no plain-version call; then the dense p = 21 path on two
+   seeded members of 2^20 px: the same bits, one stacked dense solve a
+   step, and whether ``cholesky_ex`` and the triangular solves each keep
+   a member's bits over the stacked matrices;
+30. route (last) — the fleet: three ``kafka_serve`` replica processes
+   (``route_replica``) at phase serve's width behind ``python -m
+   kafka_tpu_torch.cli.kafka_route``, phase serve's requests for both
+   tiles through the router's inbox, the tile0 owner SIGKILLed after its
+   first tile0 answer: every request answered once, ok, with phase
+   serve's digest, the re-routed ones resumed warm by a survivor; the
+   victim alone flagged dead within TTL + refresh + one poll; the nine
+   ``kafka_route_*`` families on the router's /metrics; the survivors
+   on fused_gn, never its plain version; front-door latency, failover
+   time, start-up seconds and peak device bytes per replica.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -245,6 +267,8 @@ import sys
 import time
 
 import numpy as np
+
+_T0 = time.perf_counter()
 
 # How the kernel is held to its plain version.  The float32 Gauss-Newton
 # solve is ill-conditioned on about 1 % of a tile date's pixels: moving
@@ -399,9 +423,10 @@ UPDATE_PATHS = {(10, 10): "main_s2", (7, 2): "reference_s2 (tip_rowloop)",
 #: from 2017-06-01 on the driver's daily grid cut to CLI_MOD09_END (its
 #: windows are [t, t + 1 day), so one date per window), in
 #: CLI_MOD09_CHUNK x CLI_MOD09_CHUNK chunks; the dense update's inputs
-#: are kept on this 0-based date of the run.
-CLI_MOD09_DATES = 8
-CLI_MOD09_END = datetime.datetime(2017, 6, 9)
+#: are kept on this 0-based date of the run.  Reduced from 8 dates to
+#: 4 to keep the whole smoke inside its time limit as phases were added.
+CLI_MOD09_DATES = 4
+CLI_MOD09_END = datetime.datetime(2017, 6, 5)
 CLI_MOD09_CHUNK = 1200
 CLI_MOD09_KEEP_DATE = 1
 #: the median b1_iso of the last window within this of the truth (the
@@ -459,6 +484,10 @@ CHILD_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase record gains ``smoke_s``, the seconds
+    since this module was imported (where the time of the run goes)."""
+    if "phase" in obj:
+        obj = dict(obj, smoke_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -2107,16 +2136,16 @@ UPDATE_ROW_NAMES = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
 
 
 class UpdateKeeper:
-    """Wraps ``solvers.iterated_solve``, ``solvers.kalman_update`` and the
-    fused update's two routes (``_launch_cuda`` and
+    """Wraps ``solvers.iterated_solve``, ``solvers.build_normal_equations``
+    and the fused update's two routes (``_launch_cuda`` and
     ``fused_update_raw_plain``, which ``fused_update_rows`` reaches by
     device) for one run: counts the dates, records each date's peak
     device bytes (and the peak between dates, ``run_peak``) and its
     per-pixel frozen mask (``frozen``, on the host; None without
     per-pixel convergence), and keeps (clones) the fused update's inputs
     of the first iteration on date ``keep[(p, n_bands)]`` of each
-    instance, and ``kalman_update``'s inputs (the dense update's, at
-    p > 16) of the first iteration on date ``keep["dense"]``.  The
+    instance, and the dense update's inputs (``build_normal_equations``,
+    at p > 16) of the first iteration on date ``keep["dense"]``.  The
     solver's calls go through unchanged."""
 
     def __init__(self, device, keep: dict):
@@ -2132,9 +2161,9 @@ class UpdateKeeper:
         from kafka_tpu_torch.core import solvers
 
         self._solvers, self._fu = solvers, fu_mod
-        self._real = (solvers.iterated_solve, solvers.kalman_update,
+        self._real = (solvers.iterated_solve, solvers.build_normal_equations,
                       fu_mod._launch_cuda, fu_mod.fused_update_raw_plain)
-        real_solve, real_kalman = self._real[:2]
+        real_solve, real_dense = self._real[:2]
         cuda = self.device.type == "cuda"
 
         def date_wrap(*args, **kwargs):
@@ -2153,14 +2182,13 @@ class UpdateKeeper:
             self.frozen.append(None if mask is None else mask.cpu())
             return res
 
-        def keep_kalman(lin, obs, x_lin, x_f, p_inv, *args, **kwargs):
+        def keep_dense(lin, obs, x_lin, x_f, p_inv):
             if self.keep.get("dense") == self.date and \
                     "dense" not in self.kept:
                 self.kept["dense"] = dict(
                     lin=lin, obs=obs, x_lin=x_lin.clone(), x_f=x_f.clone(),
                     p_inv=p_inv.clone())
-            return real_kalman(lin, obs, x_lin, x_f, p_inv, *args,
-                               **kwargs)
+            return real_dense(lin, obs, x_lin, x_f, p_inv)
 
         def keeping(route):
             def keep(*args):
@@ -2169,21 +2197,22 @@ class UpdateKeeper:
                         inst not in self.kept:
                     rows = {k: None if v is None else v.clone()
                             for k, v in zip(UPDATE_ROW_NAMES, args)}
-                    # kalman_update's fused step passes no escalation row.
+                    # The generic loop's fused step passes no escalation
+                    # row.
                     if rows.get("esc_row") is None:
                         rows["esc_row"] = torch.zeros_like(rows["h0"][:1])
                     self.kept[inst] = rows
                 return route(*args)
             return keep
 
-        solvers.iterated_solve, solvers.kalman_update = date_wrap, \
-            keep_kalman
+        solvers.iterated_solve, solvers.build_normal_equations = \
+            date_wrap, keep_dense
         fu_mod._launch_cuda = keeping(self._real[2])
         fu_mod.fused_update_raw_plain = keeping(self._real[3])
         return self
 
     def __exit__(self, *exc):
-        (self._solvers.iterated_solve, self._solvers.kalman_update,
+        (self._solvers.iterated_solve, self._solvers.build_normal_equations,
          self._fu._launch_cuda, self._fu.fused_update_raw_plain) = \
             self._real
 
@@ -2929,8 +2958,8 @@ def tip_tile_run(device, ny: int, nx: int, seed: int, solver_options=None,
 
 def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     """phase main's tile run (6 dates) with per_pixel_convergence (and
-    ONE_BLOCK linearisation): every Gauss-Newton step is one
-    kalman_update, the fused update at (7, 2).
+    ONE_BLOCK linearisation): every Gauss-Newton step is one launch of
+    the fused update at (7, 2).
     Gates: (7, 2) launches equal the summed iterations, nothing else
     launched; outputs finite; each date's converged_frac and the
     kafka_engine_converged_frac gauge equal the frozen mask's mean over
@@ -4908,8 +4937,9 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
        card) under a flight recorder: the crash dump carries the
        forensics (memory stats, a non-empty allocator census), and a
        fused_gn launch after it still holds to its plain version.  Then
-       ``/profilez?seconds=1`` asked while this thread launches fused_gn:
-       the capture, taken on a handler thread, holds those kernels.
+       ``/profilez?seconds=1`` asked on a handler thread while this
+       thread launches fused_gn: this thread switches the capture's
+       tracing on and off, and the capture holds those kernels.
     c. ``kafka_serve`` (phase serve's tiles and grid) with the fleet-plane
        flags, answering phase serve's cold, cache and warm requests:
        every ``x_sha256`` equal to phase serve's (``serve_shas``), live
@@ -5182,9 +5212,10 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     if not after_oom["finite"] or after_oom["f64_quantile_rule"] or \
             after_oom["groups_differing"] or after_oom["verdicts_differing"]:
         failures.append(f"fused_gn after the OOM: {after_oom}")
-    # /profilez: the profiler started on an endpoint handler thread while
-    # this thread launches fused_gn; the capture must hold those kernels
-    # (CUDA tracing records every thread's GPU work once set up).
+    # /profilez: asked on an endpoint handler thread while this thread
+    # launches fused_gn; this thread switches the CUDA tracing on and off
+    # just after a launch (perf._on_launching_thread), and the capture
+    # must hold those kernels.
     pz = {}
     with use(MetricsRegistry(os.path.join(workdir, "dp_profilez"))) as preg:
         httpd = TelemetryHTTPd(port=0, registry=preg).start()
@@ -5201,13 +5232,19 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     pz_summary = devprof.kernel_summary(preg)
     pz_row = next((k for k in pz_summary["kernels"]
                    if FUSED_GN_KERNEL in k["name"]), None)
+    pz_switched = next((e.get("switched_on") for e in preg.events
+                        if e["event"] == "profile_capture"), None)
     if (pz.get("answer") or (None,))[0] != 200 or \
             (device.type == "cuda" and pz_row is None):
         failures.append(
             f"/profilez {pz.get('answer')}: no fused_gn row in "
             f"{[(k['name'][:60], k['count']) for k in pz_summary['kernels'][:5]]}"
             f" ({pz_summary['captures_parsed']} parsed, parse failures "
-            f"{preg.value('kafka_devprof_parse_failures_total')})")
+            f"{preg.value('kafka_devprof_parse_failures_total')}, "
+            f"switched on {pz_switched})")
+    elif device.type == "cuda" and pz_switched != ["MainThread"] * 2:
+        failures.append(f"/profilez tracing switched on {pz_switched}, "
+                        "not by the launching thread")
 
     # -- c. the server with the fleet plane -----------------------------
     t_c = time.perf_counter()
@@ -5311,6 +5348,7 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
             "n_pix", "finite", "f64_quantile_rule", "groups_differing",
             "verdicts_differing")},
         "profilez_thread_fused_gn": pz_row,
+        "profilez_switched_on": pz_switched,
         "serve": {"wall_s": serve_s, "summary": {
             k: summary.get(k) for k in ("admitted", "rejected", "errors",
                                         "http_port")},
@@ -5329,6 +5367,708 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     emit(rec)
     if failures:
         raise AssertionError("device_plane: " + "; ".join(failures))
+    return rec
+
+
+# -- phases batch_modes and route ----------------------------------------
+
+#: phase batch_modes: the serve tiles' observation seeds (their pivot
+#: masks of 1,229,279 and 1,254,911 px at 2400 x 2400), the first
+#: observation date of their grid, and the dense case's seeded members
+#: (the p = 21 Ross-Li state, 7 bands).
+BATCH_MODES_SEEDS = (0, 1)
+BATCH_MODES_DENSE_PX = 1 << 20
+BATCH_MODES_DENSE_RELAX = (0.6, 0.9)
+#: phase route: the replica ids, the live heartbeat cadence of each
+#: replica (TTL = 3 x 0.5 s = 1.5 s), the router's fleet-view refresh and
+#: inbox/response poll.
+ROUTE_REPLICAS = ("rep0", "rep1", "rep2")
+ROUTE_LIVE_INTERVAL_S = 0.5
+ROUTE_REFRESH_S = 0.2
+ROUTE_POLL_S = 0.05
+#: tile -> the JAX package's ring walk over ROUTE_REPLICAS
+#: (``kafka_tpu.serve.router.HashRing``, 64 vnodes), pinned here because
+#: this script imports no JAX; tests/test_torch_chip_smoke_route.py holds
+#: it to the JAX ring.
+ROUTE_JAX_PREFERENCE = {"tile0": ("rep0", "rep2", "rep1"),
+                        "tile1": ("rep1", "rep2", "rep0")}
+#: the nine router metric families the router's /metrics must carry.
+ROUTE_NAMES = (
+    "kafka_route_forwarded_total", "kafka_route_inflight",
+    "kafka_route_latency_seconds", "kafka_route_rebalanced_total",
+    "kafka_route_rejected_total", "kafka_route_relayed_total",
+    "kafka_route_replayed_total", "kafka_route_replicas_routable",
+    "kafka_route_rerouted_total")
+ROUTE_CHILD_TIMEOUT_S = 600
+
+
+def _capture_date(device, seed: int, ny: int, nx: int):
+    """The first observation date's ``assimilate_date`` arguments of the
+    serve tile of ``seed`` (phase serve's tile at this size): the
+    filter's date dispatcher records them and stops the run."""
+    import tempfile
+
+    from kafka_tpu_torch.serve import make_synthetic_tile, synthetic_dates
+    from kafka_tpu_torch.serve.synthetic import DEFAULT_BASE_DATE
+
+    class _Captured(Exception):
+        pass
+
+    spec = make_synthetic_tile(
+        f"tile{seed}", tempfile.mkdtemp(prefix="bm_ckpt_"),
+        operator="twostream", ny=ny, nx=nx, days=SERVE_DAYS, step_days=4,
+        obs_every=2, seed=seed, device=device)
+    kf, x0, p_inv0, _ = spec.make_filter()
+    first = synthetic_dates(DEFAULT_BASE_DATE, SERVE_DAYS, 2)[0]
+    got = {}
+
+    def dispatch(linearize, bands, x, p_inv, aux, opts, hessian):
+        # As the engine hands them: the first date's prior broadcast
+        # over the batch.
+        got.update(linearize=linearize, bands=bands, x=x, p_inv=p_inv,
+                   aux=aux, opts=dict(opts or {}),
+                   n_valid=int(kf.gather.n_valid))
+        raise _Captured
+
+    kf.date_dispatcher = dispatch
+    try:
+        kf.run(spec.grid_through(first), x0, None, p_inv0)
+    except _Captured:
+        pass
+    return got
+
+
+def _pad_member(m: dict, n: int) -> dict:
+    """A member padded to ``n`` pixels with unobserved copies of its last
+    pixel (the batch stacks members of one pixel count)."""
+    import torch
+
+    from kafka_tpu_torch.core.types import BandBatch
+
+    extra = n - m["x"].shape[0]
+    if extra == 0:
+        return m
+
+    def tail(t, dim, zero=False):
+        fill = t.narrow(dim, t.shape[dim] - 1, 1).repeat(
+            *[extra if d == dim else 1 for d in range(t.ndim)])
+        return torch.cat([t, torch.zeros_like(fill) if zero else fill],
+                         dim=dim)
+
+    b = m["bands"]
+    bands = BandBatch(*(tail(getattr(b, f), 1, zero=True)
+                        for f in BandBatch._fields))
+    return dict(m, bands=bands, x=tail(m["x"], 0), p_inv=tail(m["p_inv"], 0))
+
+
+def _outputs_equal(a, b) -> bool:
+    """Exact equality, NaN equal to NaN."""
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(torch.equal(a.isnan(), b.isnan())
+                    and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    return bool(torch.equal(a, b))
+
+
+def _batch_vs_solo(device, linearize, members, opts_list, aux=None):
+    """Each member's solo ``assimilate_date`` (launches counted per
+    member), then ``assimilate_date_batch`` over all of them (launches
+    counted for the round): the fields that differ per member, the
+    iterations, the launches and the walls."""
+    import torch
+
+    from kafka_tpu_torch.core import solvers
+    from kafka_tpu_torch.core.types import BandBatch
+
+    solo, solo_launches, solo_ms = [], [], []
+    for k, m in enumerate(members):
+        reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        solo.append(solvers.assimilate_date(
+            linearize, m["bands"], m["x"], m["p_inv"],
+            None if aux is None else aux[k], opts_list[k],
+            device=device))
+        _sync(device)
+        solo_ms.append((time.perf_counter() - t0) * 1e3)
+        solo_launches.append(launch_counts())
+    stacked = BandBatch(*(torch.stack([getattr(m["bands"], f)
+                                       for m in members])
+                          for f in BandBatch._fields))
+    reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    xb, pib, diags = solvers.assimilate_date_batch(
+        linearize, stacked, torch.stack([m["x"] for m in members]),
+        torch.stack([m["p_inv"] for m in members]),
+        None if aux is None else solvers.stack_aux(aux),
+        solvers.stack_solver_options(opts_list), device=device)
+    _sync(device)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    batch_launches = launch_counts()
+    differing = []
+    for k, (x, p_inv, d) in enumerate(solo):
+        if not _outputs_equal(xb[k], x):
+            differing.append(f"member {k} x")
+        if not _outputs_equal(pib[k], p_inv):
+            differing.append(f"member {k} p_inv")
+        got = solvers.diagnostics_at(diags, k)
+        for field in d._fields:
+            a, b = getattr(got, field), getattr(d, field)
+            if (a is None) != (b is None) or (
+                    b is not None and not _outputs_equal(a, b)):
+                differing.append(f"member {k} {field}")
+    iters = [int(d.n_iterations) for _, _, d in solo]
+    return {"iterations": iters, "solo_launches": solo_launches,
+            "batch_launches": batch_launches, "solo_ms": solo_ms,
+            "batch_ms": batch_ms, "fields_differing": differing,
+            "frozen_fraction": [
+                None if d.converged_mask is None
+                else float(d.converged_mask.float().mean())
+                for _, _, d in solo]}
+
+
+def dense_members(device, n: int, seeds=(21, 22)):
+    """Seeded members of the p = 21 Ross-Li kernel-weight state (7
+    bands): per-pixel kernels, a truth near the prior, noisy
+    reflectances, 20 % of the band entries masked with zero nodata."""
+    import torch
+
+    from kafka_tpu_torch.core.types import BandBatch
+    from kafka_tpu_torch.obsops.kernels import KernelsAux
+
+    p, nb = 21, 7
+    members, aux = [], []
+    for seed in seeds:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+
+        def u(lo, hi, *shape):
+            return lo + (hi - lo) * torch.rand(*shape, generator=g)
+
+        k_vol, k_geo = u(-0.1, 0.4, n), u(-1.5, -0.5, n)
+        prior = torch.tensor([0.15, 0.05, 0.02] * nb)
+        truth = torch.tensor([0.12, 0.05, 0.02] * nb) \
+            + 0.02 * torch.randn(n, p, generator=g)
+        w = truth.reshape(n, nb, 3)
+        y = (w[..., 0] + k_vol[:, None] * w[..., 1]
+             + k_geo[:, None] * w[..., 2]).T
+        y = y + 0.005 * torch.randn(y.shape, generator=g)
+        mask = torch.rand(y.shape, generator=g) > 0.2
+        bands = BandBatch(
+            y=torch.where(mask, y, 0.0).to(device),
+            r_inv=torch.where(mask, 1.0 / 0.005 ** 2, 0.0).to(device),
+            mask=mask.to(device))
+        members.append({
+            "bands": bands, "x": prior.expand(n, p).contiguous().to(device),
+            "p_inv": (torch.eye(p) / 0.2 ** 2).expand(n, p, p)
+            .contiguous().to(device)})
+        aux.append(KernelsAux(k_vol.to(device), k_geo.to(device)))
+    return members, aux
+
+
+def dense_calls(device, members, aux) -> dict:
+    """Which library call of the dense update keeps a member's bits when
+    the members' matrices are stacked: the first step's normal equations
+    of each member through ``cholesky_ex`` (``linalg.cholesky_dense``)
+    and the two triangular solves, once per member and once over the
+    stacked batch."""
+    import torch
+
+    from kafka_tpu_torch.core import linalg
+    from kafka_tpu_torch.core.solvers import build_normal_equations
+    from kafka_tpu_torch.obsops.kernels import KernelsOperator
+
+    op = KernelsOperator()
+    eqs = [build_normal_equations(op.linearize(a, m["x"]), m["bands"],
+                                  m["x"], m["x"], m["p_inv"])
+           for m, a in zip(members, aux)]
+    sizes = [e[1].shape[0] for e in eqs]
+    chol = [linalg.cholesky_dense(a) for a, _ in eqs]
+    chol_cat = linalg.cholesky_dense(torch.cat([a for a, _ in eqs]))
+    x = [linalg._solve_chol_dense(c, b[..., None])[..., 0]
+         for c, (_, b) in zip(chol, eqs)]
+    # The stacked factor in the layout cholesky_ex gives it (the solves'
+    # bits depend on the factor's memory layout, as the round runs them).
+    x_cat = linalg._solve_chol_dense(
+        chol_cat, torch.cat([b for _, b in eqs])[..., None])[..., 0]
+    _sync(device)
+    return {
+        "cholesky_ex": _outputs_equal(chol_cat, torch.cat(chol)),
+        "solve_triangular": _outputs_equal(x_cat, torch.cat(x)),
+        "matrices": sizes}
+
+
+def phase_batch_modes(device, ny: int = TILE, nx: int = TILE,
+                      dense_px: int = BATCH_MODES_DENSE_PX):
+    """The coalesced round under per-pixel convergence at full width: the
+    two serve tiles' first dates (their pivot masks, the TIP prior; the
+    smaller member padded with unobserved pixels to the larger's count)
+    with ``per_pixel_convergence`` in one linearisation block, each solo
+    and then as one ``assimilate_date_batch`` round.  Gates: each
+    member's x, P^-1 and every diagnostic the bits of its solo solve;
+    the round's (7, 2) fused-update launches equal to the larger
+    member's step count (each solo run's to its own); the plain version
+    never called.  Then the dense p = 21 path on two seeded members of
+    ``dense_px`` pixels (global norm over sqrt(dense_px), relaxations
+    0.6 and 0.9, so they stop at different steps): the round (one
+    stacked dense solve per step) the same bits as their solo solves,
+    and which library call keeps a member's bits when their matrices
+    are stacked (``dense_calls``)."""
+    from kafka_tpu_torch.core import fused_update
+    from kafka_tpu_torch.obsops.kernels import KernelsOperator
+
+    t_phase = time.perf_counter()
+    failures = []
+    members = [_capture_date(device, s, ny, nx) for s in BATCH_MODES_SEEDS]
+    n = max(m["x"].shape[0] for m in members)
+    n_pads = [int(m["x"].shape[0]) for m in members]
+    n_valid = [m["n_valid"] for m in members]
+    members = [_pad_member(m, n) for m in members]
+    opts = [dict(m["opts"], per_pixel_convergence=True,
+                 linearize_block=ONE_BLOCK) for m in members]
+    plain = []
+    real_plain = fused_update.fused_update_raw_plain
+
+    def counted_plain(*args, **kwargs):
+        plain.append(None)
+        return real_plain(*args, **kwargs)
+
+    with patched((fused_update, "fused_update_raw_plain", counted_plain)):
+        pp = _batch_vs_solo(device, members[0]["linearize"], members, opts)
+    if pp["fields_differing"]:
+        failures.append(f"per_pixel: batched members differ from solo: "
+                        f"{pp['fields_differing']}")
+    want = {"7x2": max(pp["iterations"])}
+    if pp["batch_launches"]["fused_update_by_instance"] != want:
+        failures.append(f"per_pixel: round launches "
+                        f"{pp['batch_launches']['fused_update_by_instance']}"
+                        f", expected {want}")
+    for k, it in enumerate(pp["iterations"]):
+        if pp["solo_launches"][k]["fused_update_by_instance"] != \
+                {"7x2": it}:
+            failures.append(f"per_pixel: solo member {k} launches "
+                            f"{pp['solo_launches'][k]}, {it} steps")
+    if device.type == "cuda" and plain:
+        failures.append(f"{len(plain)} calls of the plain version on the "
+                        "card")
+    del members
+    t_dense = time.perf_counter()
+    dense, aux = dense_members(device, dense_px)
+    calls = dense_calls(device, dense, aux)
+    # The norm per sqrt(pixel): the members stop at different steps at
+    # any size (6 and 3 on these seeds).
+    dopts = [{"relaxation": r, "norm_denominator": float(dense_px) ** 0.5}
+             for r in BATCH_MODES_DENSE_RELAX]
+    dn = _batch_vs_solo(device, KernelsOperator().linearize, dense, dopts,
+                        aux=aux)
+    del dense, aux
+    if dn["fields_differing"]:
+        failures.append(f"dense: batched members differ from solo: "
+                        f"{dn['fields_differing']} (stacked calls: "
+                        f"{calls})")
+    if any(v["fused_update"] or v["fused_gn"] for v in
+           [dn["batch_launches"]] + dn["solo_launches"]):
+        failures.append("dense: a hand kernel launched on the dense path")
+    if len(set(dn["iterations"])) < 2:
+        failures.append(f"dense: the members stopped together "
+                        f"{dn['iterations']}: no member dropped out")
+    rec = {
+        "phase": "batch_modes", "tile": [ny, nx],
+        "per_pixel": {"n_valid": n_valid, "n_pad": n_pads, "n_batch": n,
+                      **pp},
+        "dense": {"n_pix": dense_px, "stacked_calls_identical": calls,
+                  **dn},
+        "plain_calls": len(plain),
+        "seconds": {"phase": time.perf_counter() - t_phase,
+                    "dense": time.perf_counter() - t_dense},
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("batch_modes: " + "; ".join(failures))
+    return rec
+
+
+def route_replica() -> None:
+    """Phase route's replica process: ``kafka_serve.main`` over the
+    arguments after ``-c``, with the launch counts reset first and the
+    plain versions' calls counted (``--count-plain-as-launches``, for a
+    rehearsal on the CPU, also counts them as launches).  On its way out
+    it prints one JSON line: its launches by kernel, its plain-version
+    calls and its peak device bytes."""
+    import torch
+
+    from kafka_tpu_torch.cli import kafka_serve
+    from kafka_tpu_torch.core import _build, fused_gn, fused_update
+
+    argv = list(sys.argv[1:])
+    as_launches = "--count-plain-as-launches" in argv
+    if as_launches:
+        argv.remove("--count-plain-as-launches")
+    plain = {"fused_gn": 0, "fused_update": 0}
+    real_gn = fused_gn.fused_gn_raw_plain
+    real_upd = fused_update.fused_update_raw_plain
+
+    def gn(*args, **kwargs):
+        plain["fused_gn"] += 1
+        if as_launches:
+            _build.count_launch(fused_gn.fused_gn_rows)
+        return real_gn(*args, **kwargs)
+
+    def upd(*args, **kwargs):
+        plain["fused_update"] += 1
+        if as_launches:
+            rows = dict(zip(UPDATE_ROW_NAMES, args), **kwargs)
+            _build.count_launch(fused_update.fused_update_rows,
+                                (rows["xf_rows"].shape[0],
+                                 rows["h0"].shape[0]))
+        return real_upd(*args, **kwargs)
+
+    fused_gn.fused_gn_raw_plain = gn
+    fused_update.fused_update_raw_plain = upd
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = kafka_serve.main(argv)
+    cuda = torch.cuda.is_available() and "--device" not in argv
+    print(json.dumps({
+        "route_replica": True, "serve_s": time.perf_counter() - t0,
+        "launches": launch_counts(), "plain_calls": plain,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()
+        if cuda else None,
+        "summary": {k: summary.get(k) for k in (
+            "admitted", "rejected", "errors", "drained")}}), flush=True)
+
+
+def _last_json(text: str):
+    for line in reversed((text or "").strip().splitlines()):
+        try:
+            return json.loads(line)
+        except ValueError:
+            continue
+    return None
+
+
+def _events(path: str, names) -> list:
+    out = []
+    try:
+        with open(path) as f:
+            for line in f:
+                try:
+                    e = json.loads(line)
+                except ValueError:
+                    continue
+                if e.get("event") in names:
+                    out.append(e)
+    except OSError:
+        pass
+    return out
+
+
+def phase_route(device, workdir: str, serve_shas=None, ny: int = TILE,
+                nx: int = TILE, days: int = SERVE_DAYS, tiles: int = 2,
+                count_plain: bool = False):
+    """The fleet on the card: three ``kafka_serve`` replica processes
+    (``route_replica``) at phase serve's width, sharing one checkpoint
+    root, each heartbeating into ``<fleet>/<rid>`` every 0.5 s, behind
+    ``python -m kafka_tpu_torch.cli.kafka_route --fleet-dir <fleet>
+    --refresh-s 0.2 --http-port <port>``.  Once every replica has
+    published its first snapshot, phase serve's ``serve_ladder`` requests
+    of both tiles go into the router's inbox; the ring's tile0 owner
+    (checked against the JAX ring's pinned walk) is SIGKILLed as soon as
+    it has answered its first tile0 request with a further one forwarded
+    to it.  Gates: every request answered exactly once, ok, with phase
+    serve's x_sha256 for its tile and date (``serve_shas``), the
+    re-routed ones included, and at least one re-routed; the victim
+    flagged dead within TTL + refresh + one poll of the kill and no other
+    replica ever flagged; the nine ``kafka_route_*`` families on the
+    router's /metrics; each survivor launched fused_gn and called no
+    plain version; every child exits as it should.  Records the
+    front-door latency (router inbox -> relayed answer) beside the
+    replica's own wall_ms, the failover time (kill -> first re-routed
+    answer), each replica's start-up seconds and peak device bytes, and
+    the phase's wall."""
+    import signal
+
+    import torch
+
+    from kafka_tpu_torch.cli import drivers
+    from kafka_tpu_torch.serve import (HashRing, read_response,
+                                       submit_request, synthetic_dates)
+    from kafka_tpu_torch.serve.synthetic import DEFAULT_BASE_DATE
+
+    t_phase = time.perf_counter()
+    failures = []
+    if device.type == "cuda":
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    fleet = os.path.join(workdir, "route_fleet")
+    ckpt = os.path.join(workdir, "route_ckpt")
+    front = os.path.join(workdir, "route_front")
+    roots = {rid: os.path.join(workdir, f"route_{rid}")
+             for rid in ROUTE_REPLICAS}
+    ring = HashRing(roots)
+    preference = {f"tile{t}": tuple(ring.preference(f"tile{t}"))
+                  for t in range(tiles)}
+    if any(preference[t] != ROUTE_JAX_PREFERENCE.get(t)
+           for t in preference):
+        raise AssertionError(f"route: ring walk {preference} differs from "
+                             f"the JAX ring's {ROUTE_JAX_PREFERENCE}")
+    victim_rid = preference["tile0"][0]
+    env = drivers.child_env()
+    env["KAFKA_TPU_LIVE_INTERVAL_S"] = str(ROUTE_LIVE_INTERVAL_S)
+    here = os.path.dirname(os.path.abspath(__file__))
+    serve_argv = ["--tiles", str(tiles), "--ckpt-root", ckpt,
+                  "--operator", "twostream", "--ny", str(ny), "--nx",
+                  str(nx), "--days", str(days), "--step", "4",
+                  "--obs-every", "2", "--fleet-dir", fleet]
+    if device.type != "cuda":
+        serve_argv += ["--device", str(device)]
+    if count_plain:
+        serve_argv.append("--count-plain-as-launches")
+    procs, started, first_beat = {}, {}, {}
+    router = None
+    logs = {}
+    try:
+        for rid, root in roots.items():
+            tel = os.path.join(fleet, rid)
+            logs[rid] = open(os.path.join(workdir, f"{rid}.log"), "w+")
+            started[rid] = time.perf_counter()
+            procs[rid] = subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke; chip_smoke.route_replica()",
+                 "--root", root, "--telemetry-dir", tel, *serve_argv],
+                cwd=here, env=env, stdout=logs[rid],
+                stderr=subprocess.STDOUT, text=True)
+        deadline = time.monotonic() + ROUTE_CHILD_TIMEOUT_S
+        while len(first_beat) < len(roots):
+            for rid in roots:
+                tel = os.path.join(fleet, rid)
+                if rid not in first_beat and os.path.isdir(tel) and any(
+                        nm.startswith("live_") for nm in os.listdir(tel)):
+                    first_beat[rid] = time.perf_counter() - started[rid]
+                if procs[rid].poll() is not None:
+                    raise AssertionError(
+                        f"route: replica {rid} exited "
+                        f"{procs[rid].returncode} before its first "
+                        "heartbeat")
+            if time.monotonic() > deadline:
+                raise AssertionError("route: a replica never heartbeat")
+            time.sleep(0.05)
+        port = _free_port()
+        router_tel = os.path.join(fleet, "router")
+        router = subprocess.Popen(
+            [sys.executable, "-m", "kafka_tpu_torch.cli.kafka_route",
+             "--root", front, "--replicas",
+             ",".join(f"{rid}={root}" for rid, root in roots.items()),
+             "--fleet-dir", fleet, "--refresh-s", str(ROUTE_REFRESH_S),
+             "--poll-interval-s", str(ROUTE_POLL_S), "--http-port",
+             str(port), "--telemetry-dir", router_tel],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        url = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                if http_get(url + "/healthz", timeout=2.0)[0] in (200, 503):
+                    break
+            except OSError:
+                pass
+            if router.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("route: the router never answered "
+                                     f"/healthz ({router.poll()})")
+            time.sleep(0.05)
+
+        dates = synthetic_dates(DEFAULT_BASE_DATE, days, 2)
+        ladder = serve_ladder(dates)
+        rids, submitted = {}, {}
+        for k, (label, date, smoothed, _) in enumerate(ladder):
+            for t in range(tiles):
+                rid = f"r{k:02d}_tile{t}_{label}"
+                rids[rid] = (f"tile{t}", label)
+                submitted[rid] = time.time()
+                submit_request(front, {"request_id": rid,
+                                       "tile": f"tile{t}",
+                                       "date": date.isoformat(),
+                                       "smoothed": smoothed})
+        first_t0 = next(r for r in rids if rids[r][0] == "tile0")
+        victim_root = roots[victim_rid]
+        relayed_at, kill_ts = {}, None
+        deadline = time.monotonic() + ROUTE_CHILD_TIMEOUT_S
+        while len(relayed_at) < len(rids):
+            for rid in rids:
+                if rid not in relayed_at and \
+                        read_response(front, rid) is not None:
+                    relayed_at[rid] = time.time()
+            if kill_ts is None and \
+                    read_response(victim_root, first_t0) is not None:
+                journal = os.path.join(victim_root, "requests.jsonl")
+                text = open(journal).read() \
+                    if os.path.exists(journal) else ""
+                if any(r != first_t0 and rids[r][0] == "tile0"
+                       and r in text for r in rids):
+                    procs[victim_rid].send_signal(signal.SIGKILL)
+                    kill_ts = time.time()
+            for rid, proc in procs.items():
+                if rid != victim_rid and proc.poll() is not None:
+                    raise AssertionError(f"route: survivor {rid} exited "
+                                         f"{proc.returncode}")
+            if router.poll() is not None:
+                raise AssertionError(f"route: the router exited "
+                                     f"{router.returncode}")
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"route: {len(rids) - len(relayed_at)} requests "
+                    f"unanswered after {ROUTE_CHILD_TIMEOUT_S} s")
+            time.sleep(0.002)
+        metrics = http_get(url + "/metrics", timeout=30.0)[1]
+        statusz = http_get(url + "/statusz", timeout=30.0)
+        router.send_signal(signal.SIGTERM)
+        r_out, r_err = router.communicate(timeout=120)
+        router_summary = _last_json(r_out) or {}
+        for rid, proc in procs.items():
+            if rid != victim_rid:
+                proc.send_signal(signal.SIGTERM)
+        rcs = {rid: proc.wait(timeout=ROUTE_CHILD_TIMEOUT_S)
+               for rid, proc in procs.items()}
+    finally:
+        for proc in list(procs.values()) + [router]:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    children = {}
+    for rid, f in logs.items():
+        f.seek(0)
+        text = f.read()
+        f.close()
+        children[rid] = _last_json(text) if rid != victim_rid else None
+        if rid != victim_rid and (children[rid] is None or
+                                  not children[rid].get("route_replica")):
+            failures.append(f"replica {rid} printed no result: "
+                            f"{text[-1500:]}")
+
+    # -- the answers ------------------------------------------------------
+    responses = {rid: read_response(front, rid) or {} for rid in rids}
+    rerouted, sha_diff, not_ok = [], [], []
+    latency = {}
+    for rid, (tile, label) in rids.items():
+        r = responses[rid]
+        if r.get("status") != "ok":
+            not_ok.append(f"{rid}: {r.get('status')} "
+                          f"{r.get('error') or r.get('reason')}")
+            continue
+        if serve_shas is not None and \
+                r.get("x_sha256") != serve_shas.get(f"{tile}:{label}"):
+            sha_diff.append(rid)
+        trace = r.get("trace") or {}
+        if trace.get("reroutes"):
+            rerouted.append(rid)
+        latency[rid] = {
+            "front_door_ms": (relayed_at[rid] - submitted[rid]) * 1e3,
+            "replica_wall_ms": r.get("wall_ms"),
+            "replica": r.get("replica"),
+            "served_from": r.get("served_from"),
+            "failover_ms": (trace.get("phases") or {}).get("failover_ms")}
+    if not_ok:
+        failures.append(f"answers not ok: {not_ok}")
+    if sha_diff:
+        failures.append(f"x_sha256 differ from phase serve: {sha_diff}")
+    if not rerouted:
+        failures.append("no request was re-routed to a survivor")
+    if any(latency.get(r, {}).get("replica") == victim_rid
+           for r in rerouted):
+        failures.append("a re-routed request was answered by the victim")
+    if latency.get(first_t0, {}).get("replica") != victim_rid:
+        failures.append(f"{first_t0} was not answered by the victim")
+    # Exactly once: one relay per request, one router request_log row.
+    relayed = router_summary.get("relayed")
+    if relayed != len(rids):
+        failures.append(f"router relayed {relayed}, expected {len(rids)}")
+    route_rows = {}
+    rows_path = os.path.join(router_tel, "request_log.jsonl")
+    if os.path.exists(rows_path):
+        with open(rows_path) as f:
+            for line in f:
+                try:
+                    row = json.loads(line)
+                except ValueError:
+                    continue
+                if row.get("role") == "route":
+                    route_rows[row["request_id"]] = \
+                        route_rows.get(row["request_id"], 0) + 1
+    if route_rows != {rid: 1 for rid in rids}:
+        failures.append(f"router request_log rows {route_rows}")
+    # -- failover ---------------------------------------------------------
+    events = _events(os.path.join(router_tel, "events.jsonl"),
+                     ("route_rebalanced", "route_failover"))
+    left = sorted({rid for e in events if e["event"] == "route_rebalanced"
+                   for rid in e.get("left") or ()})
+    if left != [victim_rid]:
+        failures.append(f"replicas flagged dead {left}, expected only "
+                        f"{victim_rid}")
+    ttl = 3.0 * ROUTE_LIVE_INTERVAL_S
+    limit = ttl + ROUTE_REFRESH_S + ROUTE_POLL_S
+    flagged = next((e["ts"] for e in events
+                    if e["event"] == "route_rebalanced"
+                    and victim_rid in (e.get("left") or ())), None)
+    detect_s = None if flagged is None or kill_ts is None \
+        else flagged - kill_ts
+    if detect_s is None or detect_s > limit:
+        failures.append(f"victim flagged dead {detect_s} s after the kill "
+                        f"(limit {limit} s)")
+    first_rerouted = min((relayed_at[r] for r in rerouted), default=None)
+    failover_s = None if first_rerouted is None or kill_ts is None \
+        else first_rerouted - kill_ts
+    missing = sorted(set(ROUTE_NAMES) - prom_names(metrics))
+    if missing:
+        failures.append(f"router /metrics lacks {missing}")
+    if not router_summary.get("rerouted") or \
+            not router_summary.get("rebalanced"):
+        failures.append(f"router summary {router_summary}")
+    if rcs.get(victim_rid) != -signal.SIGKILL:
+        failures.append(f"victim rc {rcs.get(victim_rid)}")
+    if router.returncode != 0:
+        failures.append(f"router rc {router.returncode}: {r_err[-1500:]}")
+    for rid, child in children.items():
+        if child is None:
+            continue
+        if rcs[rid] != 0:
+            failures.append(f"survivor {rid} rc {rcs[rid]}")
+        if child["launches"]["fused_gn"] <= 0:
+            failures.append(f"survivor {rid} launched no fused_gn")
+        if device.type == "cuda" and child["plain_calls"]["fused_gn"]:
+            failures.append(f"survivor {rid} called the plain version "
+                            f"{child['plain_calls']} times")
+        if child["summary"].get("errors") or \
+                child["summary"].get("rejected"):
+            failures.append(f"survivor {rid} summary {child['summary']}")
+    rec = {
+        "phase": "route", "tile": [ny, nx], "tiles": tiles, "days": days,
+        "replicas": list(ROUTE_REPLICAS), "preference": preference,
+        "victim": victim_rid, "requests": len(rids),
+        "rerouted": rerouted, "latency": latency,
+        "kill_to_flagged_dead_s": detect_s, "flag_limit_s": limit,
+        "failover_s": failover_s, "flagged_dead": left,
+        "replica_startup_s": first_beat,
+        "replicas_out": children, "rcs": rcs,
+        "router_summary": router_summary,
+        "router_statusz": statusz[0],
+        "router_metric_families": sorted(
+            set(ROUTE_NAMES) & prom_names(metrics)),
+        "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
+        "seconds": {"phase": time.perf_counter() - t_phase},
+        "failures": failures,
+    }
+    if days != SERVE_DAYS:
+        rec["reduced"] = {"days": f"{days} of {SERVE_DAYS}"}
+    emit(rec)
+    if failures:
+        raise AssertionError("route: " + "; ".join(failures))
     return rec
 
 
@@ -5508,6 +6248,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     batch_gn, batch_upd = serve_batch_kernels(device, batch_rec, batch_kept)
     del batch_kept
+    modes_rec = phase_batch_modes(device)
     os.makedirs(workdir)
     try:
         dp_rec = phase_device_plane(device, workdir,
@@ -5515,6 +6256,14 @@ def main() -> int:
                                     serve_shas=serve_rec["x_sha256"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        route_rec = phase_route(device, workdir,
+                                serve_shas=serve_rec["x_sha256"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    route_gn = sum(c["launches"]["fused_gn"]
+                   for c in route_rec["replicas_out"].values() if c)
     path_launches = {
         (10, 10): s2_rec["kernel_launches"]["fused_update"],
         (7, 2): ref_s2["tip_rowloop"]["launches"],
@@ -5588,7 +6337,8 @@ def main() -> int:
                    "device_plane": dp_rec["engine"]["device_plane"]
                    ["engine_fused_gn_launches"],
                    "device_plane_serve": dp_rec["serve"]
-                   ["kernel_launches"]["fused_gn"]},
+                   ["kernel_launches"]["fused_gn"],
+                   "route_survivors": route_gn},
             at_serve_batch_round={
                 **at(batch_gn),
                 "path": "phase serve_batch: a coalesced round of two "
@@ -5631,7 +6381,9 @@ def main() -> int:
                       for name, r in fleet_rec["runs"].items()},
                    "smooth": smooth_rec["kernel_launches"]["fused_update"],
                    "serve_batch": batch_rec["runs"]["identity"]
-                   ["launches"]["fused_update"]},
+                   ["launches"]["fused_update"],
+                   "batch_modes": modes_rec["per_pixel"]["batch_launches"]
+                   ["fused_update"]},
             at_serve_batch_round={
                 **at(batch_upd),
                 "path": "phase serve_batch: a coalesced round of two "

@@ -1,7 +1,8 @@
 """Command-line drivers and tools of the port: run_synthetic, the
 real-sensor drivers (run_s2, run_modis, run_mod09, run_s1, run_joint and
 run_modis_distributed, over ``drivers.run_config``), the subprocess
-chunk_worker, mosaic, import_emulators, kafka_smooth and kafka_serve."""
+chunk_worker, mosaic, import_emulators, kafka_smooth, kafka_serve and
+kafka_route."""
 
 from __future__ import annotations
 

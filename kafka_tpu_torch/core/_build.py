@@ -175,12 +175,36 @@ def on_device(dev):
 def count_launch(wrapper, key=None, by: str = "launches_by_instance"
                  ) -> None:
     """Add one to ``wrapper.launches`` (and to ``getattr(wrapper,
-    by)[key]`` when ``key`` is given), under a lock."""
+    by)[key]`` when ``key`` is given), under a lock; then run the jobs
+    queued by :func:`after_next_launch` on this thread."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         if key is not None:
             by_key = getattr(wrapper, by)
             by_key[key] = by_key.get(key, 0) + 1
+        jobs = _AFTER_LAUNCH[:]
+        del _AFTER_LAUNCH[:]
+    for job in jobs:
+        job()
+
+
+#: one-shot jobs for the next thread that launches a kernel.
+_AFTER_LAUNCH: list = []
+
+
+def after_next_launch(job) -> None:
+    """Queue ``job()`` to run once, on the next thread that launches one
+    of the package's kernels, just after its launch returned: a point
+    where that thread is inside no CUDA call.  ``job`` must not raise."""
+    with _COUNT_LOCK:
+        _AFTER_LAUNCH.append(job)
+
+
+def discard_launch_job(job) -> None:
+    """Unqueue ``job`` if no launch has run it yet."""
+    with _COUNT_LOCK:
+        if job in _AFTER_LAUNCH:
+            _AFTER_LAUNCH.remove(job)
 
 
 def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -126,12 +126,13 @@ def step_norm(step: torch.Tensor, numel_t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(all_reduce((step * step).sum())) / numel_t
 
 
-def all_true(flags: torch.Tensor) -> bool:
-    """``bool(flags.all())`` over every shard's pixels."""
+def all_true_flag(flags: torch.Tensor) -> torch.Tensor:
+    """``flags.all()`` over every shard's pixels, as a device bool: the
+    caller decides when the host reads it."""
     ok = flags.all()
     if current() is None:
-        return bool(ok)
-    return bool(all_reduce(ok.to(torch.int32), "min"))
+        return ok
+    return all_reduce(ok.to(torch.int32), "min") != 0
 
 
 def transforms():

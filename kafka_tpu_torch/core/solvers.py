@@ -296,7 +296,7 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
         from .fused_gn import fused_gn_shard
 
         return _gn_rows_result(fused_gn_shard(*args, corrupt=cor))
-    return run_row_loops([_row_loop(
+    return run_loops([_row_loop(
         linearize, obs, x_forecast, p_inv_forecast, operator_params, tol,
         min_iterations, max_iterations, relaxation, state_bounds,
         norm_denominator, linearize_block, corrupt)])[0]
@@ -307,13 +307,26 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
 _LOOP_CONSTANT_ARGS = (2, 3, 4, 6, 7)
 
 
-def run_row_loops(loops):
-    """Run row-loop generators (``_row_loop``) in lockstep and return
-    their results: each round, ONE ``fused_update_rows`` launch over
-    every problem still iterating, their pixel axes concatenated (the
-    kernel is per pixel, so each problem's pixels get the bits a launch
-    of its own would give).  A finished problem drops out and keeps its
-    bytes; everything else each problem computes on its own slice."""
+def run_loops(loops):
+    """Run solver-loop generators (``_row_loop``, ``_generic_loop``) in
+    lockstep and return their results.  A loop yields one of three
+    requests and is sent its answer:
+
+    - ``("sync", flag)``: its loop condition, a device bool; every
+      member's flag of the round is read in ONE host transfer;
+    - ``("update", args)``: the arguments of ``fused_update_rows``; ONE
+      launch over every member asking, their pixel axes concatenated
+      (the kernel is per pixel, so each member's pixels get the bits a
+      launch of its own would give);
+    - ``("dense", a, b)``: a dense p > 16 update; ONE
+      ``solve_spd_batched`` (one ``cholesky_ex``, one pair of triangular
+      solves) over the members' stacked matrices.  Each member's x must
+      be the bits of a call of its own: the CPU tests hold that, and
+      ``chip_smoke.py``'s phase batch_modes on the card, where cuSOLVER
+      could pick another algorithm for another batch size.
+
+    A finished loop drops out and keeps its bytes; everything else each
+    loop computes on its own slice."""
     results = [None] * len(loops)
     pending = {}
 
@@ -328,41 +341,68 @@ def run_row_loops(loops):
     joined, joined_for = {}, None
     while pending:
         keys = sorted(pending)
-        if keys != joined_for:  # a member finished: rejoin the rest
-            joined, joined_for = {}, keys
-        args = [pending.pop(k) for k in keys]
-        if len(args) == 1:
-            outs = [fused_update_rows(*args[0])]
-        else:
-            widths = [a[5].shape[1] for a in args]
-            cat = []
-            for i in range(len(args[0])):
-                if i in _LOOP_CONSTANT_ARGS:
-                    if i not in joined:
-                        joined[i] = torch.cat([a[i] for a in args], -1)
-                    cat.append(joined[i])
-                else:
-                    cat.append(torch.cat([a[i] for a in args], dim=-1))
-            raw = fused_update_rows(*cat)
-            parts = [torch.split(t, widths, dim=-1) for t in raw]
-            outs = [tuple(part[m].contiguous() for part in parts)
-                    for m in range(len(args))]
-        for k, out in zip(keys, outs):
-            advance(k, out)
+        by_kind = {}
+        for k in keys:
+            by_kind.setdefault(pending[k][0], []).append(k)
+        if "sync" in by_kind:
+            ks = by_kind["sync"]
+            flags = [pending.pop(k)[1] for k in ks]
+            values = [bool(flags[0])] if len(flags) == 1 \
+                else torch.stack(flags).tolist()
+            for k, v in zip(ks, values):
+                advance(k, bool(v))
+            continue
+        if "update" in by_kind:
+            ks = by_kind["update"]
+            if ks != joined_for:  # a member finished: rejoin the rest
+                joined, joined_for = {}, ks
+            outs = _joint_update([pending.pop(k)[1] for k in ks], joined)
+            for k, out in zip(ks, outs):
+                advance(k, out)
+        if "dense" in by_kind:
+            ks = by_kind["dense"]
+            reqs = [pending.pop(k) for k in ks]
+            a, b = ((torch.cat([r[i] for r in reqs]) if len(reqs) > 1
+                     else reqs[0][i]) for i in (1, 2))
+            outs = torch.split(solve_spd_batched(a, b),
+                               [r[2].shape[0] for r in reqs])
+            for k, out in zip(ks, outs):
+                advance(k, out)
     return results
+
+
+def _joint_update(args, joined):
+    """One ``fused_update_rows`` launch over the members' row arguments
+    (``joined`` caches the concatenated loop-constant rows); each
+    member's outputs back on its own slice."""
+    if len(args) == 1:
+        return [fused_update_rows(*args[0])]
+    widths = [a[5].shape[1] for a in args]
+    cat = []
+    for i in range(len(args[0])):
+        if i in _LOOP_CONSTANT_ARGS:
+            if i not in joined:
+                joined[i] = torch.cat([a[i] for a in args], -1)
+            cat.append(joined[i])
+        else:
+            cat.append(torch.cat([a[i] for a in args], dim=-1))
+    raw = fused_update_rows(*cat)
+    parts = [torch.split(t, widths, dim=-1) for t in raw]
+    return [tuple(part[m].contiguous() for part in parts)
+            for m in range(len(args))]
 
 
 def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
               tol, min_iterations, max_iterations, relaxation, state_bounds,
               norm_denominator, linearize_block=None, corrupt=None):
     """The out-of-kernel row loop of one problem, as a generator driven
-    by ``run_row_loops``: P_f^-1 is packed to (tri(p), n) rows once, the
-    iterate is carried as (p, n) rows, and each iteration linearises (in
-    blocks when ``linearize_block`` is smaller than the batch), YIELDS
-    the fused update's arguments and receives its outputs; the LM
-    retreat, damped relaxation and bounds projection run around it, and
-    the loop keeps the while loop's post-increment cap.  Returns the
-    row path's result tuple."""
+    by ``run_loops``: P_f^-1 is packed to (tri(p), n) rows once, the
+    iterate is carried as (p, n) rows, and each iteration yields its
+    loop condition, linearises (in blocks when ``linearize_block`` is
+    smaller than the batch), YIELDS the fused update's arguments and
+    receives its outputs; the LM retreat, damped relaxation and bounds
+    projection run around it, and the loop keeps the while loop's
+    post-increment cap.  Returns the row path's result tuple."""
     f32 = torch.float32
     n_pix, p = x_forecast.shape
     n_bands = obs.y.shape[0]
@@ -391,9 +431,9 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
     n_done = 0
     norm = torch.tensor(float("inf"), dtype=f32, device=dev)
     while True:
-        # One host sync per iteration: the while loop's condition.
-        converged = bool(norm < tol_t) and n_done >= min_iterations
-        if converged or n_done > max_iterations:
+        # The while loop's condition: one host read per round.
+        below = yield "sync", norm < tol_t
+        if (below and n_done >= min_iterations) or n_done > max_iterations:
             break
         x_cols = x_rows.T
         if use_block:
@@ -407,7 +447,7 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
         h0 = h0.contiguous()
         jac_rows = jac_to_rows(lin.jac.to(f32))
         del lin
-        x_raw, a_rows, inn, hb = yield (
+        x_raw, a_rows, inn, hb = yield "update", (
             jac_rows, h0, y, w, mask_f, x_rows, xf_rows, pf_rows,
             esc[None, :].contiguous())
         step_bad = hb[0] > 0
@@ -552,20 +592,43 @@ def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
                             min_iterations, max_iterations, relaxation,
                             state_bounds, numel, use_fused,
                             per_pixel_convergence):
-    """The JAX package's generic while loop (no solve health): one
-    ``kalman_update`` per step (``use_fused``: the fused update), a
-    damped, bounds-projected step, and either the global norm or the
-    per-pixel freeze.  Returns ``(x, A, fwd, innovations, n_done, norm,
-    frozen)`` with ``frozen`` None in global-norm mode.
+    """The JAX package's generic while loop (no solve health) of one
+    problem: ``_generic_loop`` driven alone.  Returns ``(x, A, fwd,
+    innovations, n_done, norm, frozen)`` with ``frozen`` None in
+    global-norm mode."""
+    return run_loops([_generic_loop(
+        one_lin, obs, x_forecast, p_inv_forecast, tol, min_iterations,
+        max_iterations, relaxation, state_bounds, numel, use_fused,
+        per_pixel_convergence)])[0]
+
+
+def _generic_loop(one_lin, obs, x_forecast, p_inv_forecast, tol,
+                  min_iterations, max_iterations, relaxation, state_bounds,
+                  numel, use_fused, per_pixel_convergence):
+    """The generic while loop as a generator driven by ``run_loops``: one
+    ``kalman_update`` per step (``use_fused``: the fused update, whose
+    row arguments it YIELDS; the dense p > 16 update yields its normal
+    equations), a damped, bounds-projected step, and either the global
+    norm or the per-pixel freeze.  Each step first yields its loop
+    condition.
 
     Per-pixel mode freezes a pixel after TWO consecutive steps with
     ``||dx_i||_2 / p < tol`` (an oscillating pixel's step dips below tol
     at each turn), counts only unfrozen steps in the norm, and stops
-    once every pixel froze (after ``min_iterations``) or past the cap."""
+    once every pixel froze (after ``min_iterations``) or past the cap.
+    Every pixel, frozen or not, rides every update: its bits are those
+    of a solve of its own."""
     f32 = torch.float32
     n_pix, p = x_forecast.shape
     n_bands = obs.y.shape[0]
     dev = x_forecast.device
+    packed = p <= UNROLL_MAX_P and n_bands <= 32
+    # One memory layout whatever the caller hands in (a prior broadcast
+    # over the batch, a slice of a stacked round): the norm's reductions
+    # and the library solves follow the layout, and a coalesced member
+    # must get the bits of its solo solve.
+    x_forecast = x_forecast.to(f32).contiguous()
+    p_inv_forecast = p_inv_forecast.to(f32).contiguous()
     tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
     numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
     relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
@@ -573,7 +636,10 @@ def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
     if state_bounds is not None:
         lo, hi = (torch.as_tensor(v, dtype=f32, device=dev)
                   for v in state_bounds)
-    x = x_forecast.to(f32)
+    if use_fused and packed:
+        y, w, mask_f, xf_rows, pf_rows, _ = _gn_rows_inputs(
+            obs, x_forecast, p_inv_forecast, None)
+    x = x_forecast
     a = torch.zeros((n_pix, p, p), dtype=f32, device=dev)
     h0 = torch.zeros((n_bands, n_pix), dtype=f32, device=dev)
     jac = torch.zeros((n_bands, n_pix, p), dtype=f32, device=dev)
@@ -584,17 +650,29 @@ def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
     n_done = 0
     norm = torch.tensor(float("inf"), dtype=f32, device=dev)
     while True:
-        # One host sync per iteration: the while loop's condition.
+        # The while loop's condition: one host read per round.
         if per_pixel_convergence:
-            done = collective.all_true(frozen) and n_done >= min_iterations
+            flag = collective.all_true_flag(frozen)
         else:
-            done = bool(norm < tol_t) and n_done >= min_iterations
+            flag = norm < tol_t
+        done = (yield "sync", flag) and n_done >= min_iterations
         if done or n_done > max_iterations:
             break
         x_prev = x
         lin = one_lin(x_prev)
-        x_new, a = kalman_update(lin, obs, x_prev, x_forecast,
-                                 p_inv_forecast, use_pallas=use_fused)
+        if use_fused and packed:
+            x_rows, a_rows, _inn, _hb = yield "update", (
+                jac_to_rows(lin.jac.to(f32)), lin.h0.to(f32).contiguous(),
+                y, w, mask_f, x_prev.T.to(f32).contiguous(), xf_rows,
+                pf_rows)
+            x_new, a = x_rows.T, unpack_rows(a_rows)
+        elif not packed and not use_fused:
+            a, b = build_normal_equations(lin, obs, x_prev, x_forecast,
+                                          p_inv_forecast)
+            x_new = yield "dense", a, b
+        else:
+            x_new, a = kalman_update(lin, obs, x_prev, x_forecast,
+                                     p_inv_forecast, use_pallas=use_fused)
         x_new = x_prev + relax_t * (x_new - x_prev)
         if lo is not None:
             x_new = torch.minimum(torch.maximum(x_new, lo), hi)
@@ -623,6 +701,27 @@ def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
     return x, a, fwd, innovations, n_done_t, norm, frozen
 
 
+def _linearizer(linearize, operator_params, linearize_block, corrupt,
+                n_pix: int):
+    """``x -> Linearization`` of one problem: blocked when
+    ``linearize_block`` is smaller than the batch, the planted
+    ``solver.pixel`` mask applied to H0."""
+    use_block = linearize_block is not None \
+        and 0 < int(linearize_block) < n_pix
+
+    def one_lin(x_prev):
+        if use_block:
+            lin = _blocked_linearize(linearize, operator_params, x_prev,
+                                     int(linearize_block))
+        else:
+            lin = _call_linearize(linearize, operator_params, x_prev)
+        if corrupt is not None:
+            lin = lin._replace(h0=solver_health.corrupt_h0(lin.h0, corrupt))
+        return lin
+
+    return one_lin
+
+
 def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
                    p_inv_forecast, operator_params: Any = None,
                    tol: float = CONVERGENCE_TOL,
@@ -642,19 +741,8 @@ def iterated_solve(linearize: LinearizeFn, obs: BandBatch, x_forecast,
     n_bands = obs.y.shape[0]
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
     packed = p <= UNROLL_MAX_P and n_bands <= 32
-    use_block = linearize_block is not None \
-        and 0 < int(linearize_block) < n_pix
-
-    def one_lin(x_prev):
-        if use_block:
-            lin = _blocked_linearize(linearize, operator_params, x_prev,
-                                     int(linearize_block))
-        else:
-            lin = _call_linearize(linearize, operator_params, x_prev)
-        if corrupt is not None:
-            lin = lin._replace(h0=solver_health.corrupt_h0(lin.h0, corrupt))
-        return lin
-
+    one_lin = _linearizer(linearize, operator_params, linearize_block,
+                          corrupt, n_pix)
     frozen = health = None
     if packed and not per_pixel_convergence:
         if use_pallas is None or use_pallas:
@@ -1052,13 +1140,23 @@ def assimilate_date_batch(linearize: LinearizeFn, obs: BandBatch,
     - the in-kernel ``fused_gn`` path: ONE launch over ``K * n_pad``
       pixels (``_fused_gn_fold``; members whose kernel scalars differ
       take one launch per distinct set);
-    - the out-of-kernel row loop: one ``fused_update_rows`` launch per
-      iteration over every member still iterating (``run_row_loops``;
-      a finished member drops out with its bytes);
-    - the plain loop (``use_pallas: False``), per-pixel convergence and
-      the dense p > 16 path: member after member inside the round, the
-      solo code on each (nothing is launched there that members could
-      share).
+    - the out-of-kernel row loop and per-pixel convergence: the
+      members' loops in lockstep (``run_loops``), each step ONE
+      ``fused_update_rows`` launch over every member still iterating,
+      all its pixels (frozen ones included, as in its solo loop), and
+      one host read of every member's loop condition; each member keeps
+      its freeze mask, its norm over its own unfrozen steps, its step
+      count and its iteration bounds, and a finished member drops out
+      with its bytes;
+    - the dense p > 16 path (global norm or per pixel): the same
+      lockstep, each step one ``solve_spd_batched`` over the members'
+      stacked normal equations;
+    - the plain loop (``use_pallas: False`` on the packed path): member
+      after member inside the round, the solo code on each (nothing is
+      launched there that members could share).
+
+    Linearisation stays per member (each has its own
+    ``operator_params``).
 
     Returns ``(x (K, n, p), p_inv (K, n, p, p), diagnostics)`` with every
     diagnostics field stacked on the member axis (None stays None;
@@ -1144,7 +1242,23 @@ def assimilate_date_batch(linearize: LinearizeFn, obs: BandBatch,
                           kw[m]["norm_denominator"], block,
                           members[m][3])
                 for m in range(k_members)]
-            results = run_row_loops(loops)
+            results = run_loops(loops)
+    frozen = [None] * k_members
+    if (per_pixel or not packed) and not extra:
+        use_fused = packed if use_pallas is None else bool(use_pallas)
+        loops = [
+            _generic_loop(
+                _linearizer(linearize, params[m], block, members[m][3],
+                            n_pix),
+                members[m][0], members[m][1], members[m][2], kw[m]["tol"],
+                kw[m]["min_iterations"], kw[m]["max_iterations"],
+                kw[m]["relaxation"], kw[m]["state_bounds"],
+                (n_pix * p) if kw[m]["norm_denominator"] is None
+                else kw[m]["norm_denominator"], use_fused, per_pixel)
+            for m in range(k_members)]
+        for m, res in enumerate(run_loops(loops)):
+            results[m] = res[:6] + (None,)
+            frozen[m] = res[6]
     out = []
     for m in range(k_members):
         obs_m, x_m, p_inv_m, cor = members[m]
@@ -1159,8 +1273,8 @@ def assimilate_date_batch(linearize: LinearizeFn, obs: BandBatch,
         x, a, fwd, innovations, n_done, norm, health = results[m]
         out.append(_finish_solve(
             x, a, fwd, innovations, n_done, norm, obs_m,
-            kw[m]["state_bounds"], health, hessian_forward=hessian_forward,
-            operator_params=params[m]))
+            kw[m]["state_bounds"], health, frozen=frozen[m],
+            hessian_forward=hessian_forward, operator_params=params[m]))
     return (torch.stack([o[0] for o in out]),
             torch.stack([o[1] for o in out]),
             _stack_diagnostics([o[2] for o in out]))

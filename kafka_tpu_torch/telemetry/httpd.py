@@ -138,8 +138,10 @@ class TelemetryHTTPd:
     def start(self) -> "TelemetryHTTPd":
         # /profilez starts torch.profiler on a handler thread, which
         # records no GPU kernel unless the profiler was first set up on
-        # the main thread (measured on the H100: an empty capture).
-        perf.prepare_profiler()
+        # the main thread (measured on the H100: an empty capture).  The
+        # router launches no kernel: it opens no CUDA context for this.
+        if self.role != "route":
+            perf.prepare_profiler()
         self._thread.start()
         self._reg().emit(
             "httpd_started", host=self.host, port=self.port,

@@ -364,6 +364,11 @@ MAX_CAPTURE_S = 60.0
 #: Evictions are counted and evented, never silent.
 CAPTURE_KEEP = 8
 
+#: seconds a capture waits for a kernel launch to switch its CUDA
+#: tracing on or off on the launching thread (``_on_launching_thread``)
+#: before the asking thread switches it itself.
+LAUNCH_WAIT_S = 2.0
+
 _capture_lock = threading.Lock()
 _windowed = {"remaining": 0, "directory": None}
 _windowed_lock = threading.Lock()
@@ -418,21 +423,39 @@ def _start_trace(directory: str) -> None:
     _session.update(prof=prof, directory=directory, epoch=epoch)
 
 
+def _halt_trace() -> None:
+    """Stop the running session's tracing and keep the session for
+    :func:`_stop_trace` to write; a failure is kept for it to event."""
+    prof = _session.get("prof")
+    if prof is None or "halted" in _session:
+        return
+    try:
+        prof.stop()
+        _session["halted"] = None
+    except Exception as exc:  # noqa: BLE001 — evented by _stop_trace
+        _session["halted"] = exc
+
+
 def _stop_trace() -> bool:
-    """Stop the running session and write it as a capture session
-    (``devprof.export_profile``); returns whether the session traced
-    CUDA activity.  A failure is evented, not raised: the stop runs in a
-    driver's ``finally``, where it must not mask the run's own outcome;
-    the missing capture then counts as a parse failure."""
+    """Stop the running session (unless :func:`_halt_trace` did) and
+    write it as a capture session (``devprof.export_profile``); returns
+    whether the session traced CUDA activity.  A failure is evented, not
+    raised: the stop runs in a driver's ``finally``, where it must not
+    mask the run's own outcome; the missing capture then counts as a
+    parse failure."""
     from . import devprof
 
     prof = _session.pop("prof", None)
     directory = _session.pop("directory", None)
     epoch = _session.pop("epoch", None)
+    halted = _session.pop("halted", False)
     if prof is None:
         return False
     try:
-        prof.stop()
+        if halted is False:
+            prof.stop()
+        elif halted is not None:
+            raise halted
         devprof.export_profile(prof, directory, epoch)
     except Exception as exc:  # noqa: BLE001 — evented; see docstring
         get_registry().emit("profile_stop_failed", directory=directory,
@@ -440,24 +463,76 @@ def _stop_trace() -> bool:
     return devprof.traced_cuda(prof)
 
 
+def _on_launching_thread(fn, *args) -> Tuple[object, str]:
+    """``fn(*args)`` on the next thread that launches one of the
+    package's kernels, just after its launch returned
+    (``core._build.after_next_launch``), or on this thread when none
+    launches within LAUNCH_WAIT_S.  Returns ``fn``'s value and the name
+    of the thread that ran it; raises what ``fn`` raised.
+
+    CUDA tracing switched on or off by one thread while another is
+    inside a CUDA call can lose that other thread's GPU records for the
+    rest of the process.  On the H100 (torch 2.11, the CUPTI of CUDA
+    12.8), 1-s captures switched by a handler thread while the main
+    thread launched and synchronised lost them in 23 of 871 captures,
+    and from then on no capture held a kernel of the main thread
+    (another thread's still came); captures switched by the main thread
+    itself lost none in 150.  The switching thread pauses for the
+    profiler's start and stop.  Without a card there is no CUDA
+    tracing: ``fn`` runs here."""
+    import torch
+
+    from ..core import _build
+
+    if not torch.cuda.is_available():
+        return fn(*args), threading.current_thread().name
+    done = threading.Event()
+    claim = threading.Lock()
+    box: Dict[str, object] = {}
+
+    def job():
+        if not claim.acquire(blocking=False):
+            return
+        try:
+            box["value"] = fn(*args)
+        except Exception as exc:  # noqa: BLE001 — raised by the asker
+            box["error"] = exc
+        finally:
+            box["thread"] = threading.current_thread().name
+            done.set()
+
+    _build.after_next_launch(job)
+    if not done.wait(LAUNCH_WAIT_S):
+        _build.discard_launch_job(job)
+        job()
+        done.wait()
+    if "error" in box:
+        raise box["error"]
+    return box.get("value"), str(box["thread"])
+
+
 def capture(seconds: float, directory: str,
             registry: Optional[MetricsRegistry] = None) -> dict:
     """Run one bounded profiler capture into ``directory`` and block
-    until it finishes.  Raises :class:`CaptureBusy` when another capture
-    (including a windowed one) is active, :class:`CaptureUnavailable`
-    when the profiler cannot run here or a session that traced CUDA
-    caught no GPU work (the capture then counts as a parse failure).
-    Returns a summary dict the ``/profilez`` endpoint answers with."""
+    until it finishes.  Its CUDA tracing is switched on and off by a
+    thread that launches the package's kernels, when one does
+    (:func:`_on_launching_thread`).  Raises :class:`CaptureBusy` when
+    another capture (including a windowed one) is active,
+    :class:`CaptureUnavailable` when the profiler cannot run here or a
+    session that traced CUDA caught no GPU work (the capture then counts
+    as a parse failure).  Returns a summary dict the ``/profilez``
+    endpoint answers with."""
     seconds = max(0.05, min(float(seconds), MAX_CAPTURE_S))
     reg = registry if registry is not None else get_registry()
     if not _capture_lock.acquire(blocking=False):
         raise CaptureBusy("a profiler capture is already running")
     t0 = time.perf_counter()
     try:
-        _start_trace(directory)
+        _, started_on = _on_launching_thread(_start_trace, directory)
         # Bounded wait, not time.sleep: the run under observation keeps
         # going on its own threads while this handler thread idles.
         threading.Event().wait(seconds)
+        _, stopped_on = _on_launching_thread(_halt_trace)
         cuda = _stop_trace()
     finally:
         _capture_lock.release()
@@ -466,6 +541,7 @@ def capture(seconds: float, directory: str,
     reg.emit(
         "profile_capture", directory=directory, seconds=seconds,
         files=files, wall_s=round(time.perf_counter() - t0, 3),
+        switched_on=[started_on, stopped_on],
     )
     if _finish_capture(directory, reg) is None and cuda:
         raise CaptureUnavailable(

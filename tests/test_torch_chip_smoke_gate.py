@@ -443,12 +443,14 @@ def test_phase_cli_modis_fails_without_kernel_launches(tmp_path):
 def test_phase_cli_mod09_rehearsal(tmp_path):
     """phase_cli_mod09 at 96 x 96 px in four 48 x 48 chunks on the CPU:
     every chunk-date assimilated on the dense path with no kernel
-    launch, 8 windows x 21 weights x 2 rasters per chunk, b1_iso at the
-    truth, the restart that skips every chunk, the unfused first chunk
-    equal to the fused run, the dense update's parts timed."""
+    launch, CLI_MOD09_DATES windows x 21 weights x 2 rasters per chunk,
+    b1_iso at the truth, the restart that skips every chunk, the unfused
+    first chunk equal to the fused run, the dense update's parts
+    timed."""
     rec = cs.phase_cli_mod09(torch.device("cpu"), str(tmp_path), ny=96,
                              nx=96, chunk=48)
-    assert rec["chunks"] == 4 and rec["stats"]["dates_assimilated"] == 32
+    assert rec["chunks"] == 4 and \
+        rec["stats"]["dates_assimilated"] == 4 * cs.CLI_MOD09_DATES
     assert rec["kernel_launches"]["fused_update"] == 0
     assert rec["geotiffs"] == 4 * cs.CLI_MOD09_DATES * 21 * 2
     assert (rec["restart"]["stats"]["run"],

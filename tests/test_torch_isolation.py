@@ -77,7 +77,9 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.telemetry.httpd, "
         "kafka_tpu_torch.telemetry.flight_recorder, kafka_tpu_torch.utils, "
         "kafka_tpu_torch.utils.profiling, "
-        "kafka_tpu_torch.utils.compilation_cache\n"
+        "kafka_tpu_torch.utils.compilation_cache, "
+        "kafka_tpu_torch.serve.router, kafka_tpu_torch.cli.kafka_route, "
+        "kafka_tpu_torch.testing.oracle\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"

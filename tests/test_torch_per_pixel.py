@@ -28,7 +28,6 @@ from kafka_tpu.core import solvers as jsolvers
 from kafka_tpu.core.types import BandBatch as JBandBatch
 from kafka_tpu.core.types import Linearization as JLin
 from kafka_tpu_torch import convert
-from kafka_tpu_torch.core import fused_update as tfu
 from kafka_tpu_torch.core import solvers as tsolvers
 from kafka_tpu_torch.core.types import Linearization as TLin
 from kafka_tpu_torch.telemetry.registry import MetricsRegistry as TRegistry
@@ -110,13 +109,13 @@ def _held(j, t):
 @pytest.mark.parametrize("path", ["fused", "plain"])
 def test_quadratic_frozen_masks_match_jax(path, monkeypatch):
     calls = []
-    real = tfu.fused_update_rows
+    real = tsolvers.fused_update_rows
 
     def spy(*a, **k):
         calls.append(1)
         return real(*a, **k)
 
-    monkeypatch.setattr(tfu, "fused_update_rows", spy)
+    monkeypatch.setattr(tsolvers, "fused_update_rows", spy)
     coeff, bands, x_f, p_inv = _quad()
     fused = path == "fused"
     jopts = {"per_pixel_convergence": True, "use_pallas": fused,

@@ -215,6 +215,107 @@ class TestProfilerCapture:
             perf._start_trace(str(tmp_path / "p"))
 
 
+class TestTracingSwitchedByTheLaunchingThread:
+    """On a card, a capture's CUDA tracing is switched on and off by a
+    thread that launches the package's kernels, just after a launch
+    (``perf._on_launching_thread``, ``core._build.after_next_launch``):
+    switched by another thread, CUPTI lost the launching thread's GPU
+    records.  The CPU stands in with ``torch.cuda.is_available`` faked
+    and a thread that counts launches as the kernel wrappers do."""
+
+    @pytest.fixture
+    def launcher(self, monkeypatch):
+        import threading
+        import types
+
+        from kafka_tpu_torch.core import _build
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        wrapper = types.SimpleNamespace(launches=0)
+        stop = threading.Event()
+
+        def launch():
+            while not stop.is_set():
+                _build.count_launch(wrapper)
+                stop.wait(0.001)
+
+        thread = threading.Thread(target=launch, name="launcher",
+                                  daemon=True)
+        thread.start()
+        yield wrapper
+        stop.set()
+        thread.join()
+        assert not _build._AFTER_LAUNCH
+
+    def test_job_runs_once_on_the_next_launching_thread(self):
+        import threading
+        import types
+
+        from kafka_tpu_torch.core import _build
+
+        ran = []
+        _build.after_next_launch(
+            lambda: ran.append(threading.current_thread().name))
+        wrapper = types.SimpleNamespace(launches=0)
+        worker = threading.Thread(
+            target=lambda: [_build.count_launch(wrapper) for _ in range(3)],
+            name="worker")
+        worker.start()
+        worker.join()
+        assert ran == ["worker"] and wrapper.launches == 3
+        job = ran.append
+        _build.after_next_launch(job)
+        _build.discard_launch_job(job)
+        _build.count_launch(wrapper)
+        assert ran == ["worker"] and not _build._AFTER_LAUNCH
+
+    def test_the_launching_thread_switches_and_errors_reach_the_asker(
+            self, launcher):
+        value, thread = perf._on_launching_thread(lambda x: x + 1, 41)
+        assert (value, thread) == (42, "launcher")
+
+        def refuse():
+            raise perf.CaptureUnavailable("no profiler here")
+
+        with pytest.raises(perf.CaptureUnavailable):
+            perf._on_launching_thread(refuse)
+
+    def test_without_a_launch_the_asker_switches(self, monkeypatch):
+        from kafka_tpu_torch.core import _build
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(perf, "LAUNCH_WAIT_S", 0.05)
+        value, thread = perf._on_launching_thread(lambda: "here")
+        assert value == "here" and thread == "MainThread"
+        assert not _build._AFTER_LAUNCH
+
+    def test_capture_is_switched_by_the_launching_thread(
+            self, stub_profiler, launcher):
+        reg = MetricsRegistry()
+        perf.capture(0.05, str(stub_profiler / "p"), registry=reg)
+        [event] = [e for e in reg.events if e["event"] == "profile_capture"]
+        assert event["switched_on"] == ["launcher", "launcher"]
+        assert not perf._capture_lock.locked()
+
+    def test_halted_session_is_written_once(self, tmp_path):
+        """The launching thread halts the session; the asker writes it."""
+        reg = MetricsRegistry()
+        d = str(tmp_path / "profile")
+        perf._capture_lock.acquire()
+        try:
+            perf._start_trace(d)
+            torch.ones(64, 64) @ torch.ones(64, 64)
+            perf._halt_trace()
+            perf._halt_trace()
+            assert perf._stop_trace() is False
+        finally:
+            perf._capture_lock.release()
+        [session] = devprof.find_capture_sessions(d)
+        assert "aten::matmul" in [
+            k["name"] for k in devprof.parse_capture(session)["kernels"]]
+        assert not perf._session
+        assert reg.value("kafka_perf_profile_captures_total") is None
+
 class TestProfilezEndpoint:
     def _get(self, url):
         try:

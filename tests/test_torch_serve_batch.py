@@ -207,6 +207,156 @@ def test_identity_row_loop_is_one_launch_per_iteration(monkeypatch):
     assert widths[min(iters):] == [384] * (max(iters) - min(iters))
 
 
+def _identity_members(scales=(0.05, 1.0), n=384, seed=0):
+    from kafka_tpu_torch.obsops.identity import IdentityOperator
+
+    op = IdentityOperator(n_params=2, obs_indices=(0, 1))
+    rng = np.random.default_rng(seed)
+    problems = []
+    for scale in scales:
+        y = torch.as_tensor(rng.normal(0.5, scale, (2, n)),
+                            dtype=torch.float32)
+        mask = torch.as_tensor(rng.uniform(size=(2, n)) > 0.1)
+        bands = BandBatch(y=y, r_inv=torch.full((2, n), 2500.0), mask=mask)
+        x0 = torch.full((n, 2), 0.5)
+        p0 = torch.eye(2).expand(n, 2, 2) * 6.25
+        problems.append((bands, x0, p0))
+    return op, problems
+
+
+def _width_spy(monkeypatch, module, name, index, dim):
+    """Record ``args[index].shape[dim]`` (the pixel width) of every call
+    of ``module.name``."""
+    widths = []
+    real = getattr(module, name)
+
+    def spy(*args):
+        widths.append(args[index].shape[dim])
+        return real(*args)
+
+    monkeypatch.setattr(module, name, spy)
+    return widths
+
+
+def _lockstep_widths(widths, iters, n):
+    """The calls of the batched round (after the solo ones): one per step
+    over both members while both iterate, then the slower one alone."""
+    widths = widths[sum(iters):]
+    assert len(widths) == max(iters)
+    assert widths[:min(iters)] == [2 * n] * min(iters)
+    assert widths[min(iters):] == [n] * (max(iters) - min(iters))
+
+
+def test_per_pixel_round_is_one_launch_per_step(monkeypatch):
+    """Two identity members under per-pixel convergence that freeze at
+    different steps: one fused_update_rows call per step over every
+    member still iterating, all their pixels (frozen ones included), and
+    each member the bits of its solo solve."""
+    op, problems = _identity_members()
+    widths = _width_spy(monkeypatch, solvers, "fused_update_rows", 5, -1)
+    opts = [{"relaxation": 0.5, "per_pixel_convergence": True},
+            {"relaxation": 0.3, "per_pixel_convergence": True}]
+    solo = _assert_members_equal_solo(problems, opts, op.linearize)
+    iters = [int(d.n_iterations) for _, _, d in solo]
+    assert iters[0] != iters[1], iters
+    _lockstep_widths(widths, iters, 384)
+    # The members froze at different steps; frozen pixels still rode
+    # every launch of their member.
+    frozen = [d.converged_mask for _, _, d in solo]
+    assert all(f is not None and bool(f.any()) for f in frozen)
+
+
+def test_per_pixel_round_equals_solo_on_broadcast_priors():
+    """Members whose solo solves get the prior as a broadcast view (the
+    engine's prior-only dates: one pixel's mean and information expanded
+    over the batch) keep their solo bits in the round, whose members are
+    stacked copies: the loop runs on one memory layout whatever the
+    caller's (on these seeds a stride-0 state once moved a member's
+    convergence norm)."""
+    op, problems, bounds = _tip(512, seeds=(2, 3))
+    n = 512
+    problems = [(b, x[:1].expand(n, -1), p[:1].expand(n, -1, -1))
+                for b, x, p in problems]
+    opts = [dict(relaxation=0.7, state_bounds=bounds,
+                 per_pixel_convergence=True)] * 2
+    _assert_members_equal_solo(problems, opts, op.linearize)
+
+
+def test_per_pixel_round_reads_the_host_once_per_step(monkeypatch):
+    """The members' loop conditions are read in one host transfer per
+    step, not one per member."""
+    op, problems = _identity_members()
+    opts = [{"relaxation": 0.5, "per_pixel_convergence": True},
+            {"relaxation": 0.3, "per_pixel_convergence": True}]
+    reads = []
+    real = torch.Tensor.tolist
+
+    def tolist(t):
+        reads.append(tuple(t.shape))
+        return real(t)
+
+    stacked = solvers.stack_solver_options(opts)
+    args = (_stack_bands([p[0] for p in problems]),
+            torch.stack([p[1] for p in problems]),
+            torch.stack([p[2] for p in problems]))
+    monkeypatch.setattr(torch.Tensor, "tolist", tolist)
+    _, _, diags = solvers.assimilate_date_batch(
+        op.linearize, *args, None, stacked, device="cpu")
+    monkeypatch.undo()
+    iters = sorted(int(v) for v in diags.n_iterations)
+    # One read of both flags per step while both iterate (the last read
+    # stops the faster member), then the slower member's own.
+    assert reads.count((2,)) == iters[0] + 1
+
+
+def _kernels_members(n=96, seeds=(1, 2)):
+    """Two seeded MOD09-like dates of the p = 21 Ross-Li state (the
+    dense path): per-pixel kernels, NaN nodata under the mask."""
+    from kafka_tpu_torch.obsops.kernels import KernelsAux, KernelsOperator
+
+    p, nb = 21, 7
+    problems, aux = [], []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        k_vol = rng.uniform(-0.1, 0.4, n).astype(np.float32)
+        k_geo = rng.uniform(-1.5, -0.5, n).astype(np.float32)
+        truth = np.tile([0.12, 0.05, 0.02], nb).astype(np.float32) \
+            + rng.normal(0, 0.02, (n, p)).astype(np.float32)
+        w = truth.reshape(n, nb, 3)
+        y = (w[..., 0] + k_vol[:, None] * w[..., 1]
+             + k_geo[:, None] * w[..., 2]).T
+        y = (y + rng.normal(0, 0.005, y.shape)).astype(np.float32)
+        mask = rng.uniform(size=y.shape) > 0.2
+        bands = BandBatch(
+            y=torch.as_tensor(np.where(mask, y, 0.0)),
+            r_inv=torch.as_tensor(np.where(mask, 1.0 / 0.005 ** 2, 0.0)
+                                  .astype(np.float32)),
+            mask=torch.as_tensor(mask))
+        x_f = torch.as_tensor(np.tile([0.15, 0.05, 0.02], nb)
+                              .astype(np.float32)).expand(n, p).clone()
+        p_inv = (torch.eye(p) / 0.2 ** 2).expand(n, p, p).clone()
+        problems.append((bands, x_f, p_inv))
+        aux.append(KernelsAux(torch.as_tensor(k_vol),
+                              torch.as_tensor(k_geo)))
+    return KernelsOperator(), problems, aux
+
+
+@pytest.mark.parametrize("per_pixel", [False, True],
+                         ids=["global_norm", "per_pixel"])
+def test_dense_p21_round_equals_solo(monkeypatch, per_pixel):
+    """The dense p = 21 path: the members' loops in lockstep, each step
+    ONE dense solve over both members' stacked normal equations while
+    both iterate, and each member the bits of its solo solve."""
+    op, problems, aux = _kernels_members()
+    widths = _width_spy(monkeypatch, solvers, "solve_spd_batched", 1, 0)
+    opts = [{"relaxation": r, "norm_denominator": 1.0,
+             "per_pixel_convergence": per_pixel} for r in (0.6, 0.9)]
+    solo = _assert_members_equal_solo(problems, opts, op.linearize, aux=aux)
+    iters = [int(d.n_iterations) for _, _, d in solo]
+    assert iters[0] != iters[1], iters
+    _lockstep_widths(widths, iters, 96)
+
+
 def test_s2_prosail_batch_equals_solo():
     from kafka_tpu_torch.testing.synthetic import make_prosail_problem
 

@@ -67,7 +67,7 @@ one JSON line:
 12. cli — the torch ``run_synthetic --operator twostream`` as a user
    runs it (``kafka_tpu_torch.cli.run_synthetic.main``, in-process) over
    the 2400 x 2400 tile under the land mask of phase main, written as a
-   GeoTIFF outside the output folder: 8 windows of one acquisition,
+   GeoTIFF outside the output folder: 5 windows of one acquisition,
    prefetch, temporal fusion, the exact information propagator,
    checkpoints and GeoTIFF outputs.  Gates: the summary line printed;
    fused_gn launches equal the dates; the block plan equal to the one
@@ -199,7 +199,11 @@ one JSON line:
    MESH_SPLIT_SHARDS shards, which split some of the unsharded 2,048-px
    groups: fused_gn launches = (shards + 1) x dates (the straddling
    groups launched whole, once a date) and the same bits again;
-   per-date walls beside the unsharded ones and peak device bytes;
+   per-date walls beside the unsharded ones and peak device bytes; then
+   MESH_CAPTURES one-second ``/profilez`` captures while this thread
+   solves the tile's date on MESH_SHARDS shards in a loop: every capture
+   holds fused_gn launches of every shard thread, and every tracing
+   switch was made on this (the caller's) thread, after the join;
 26. distributed (inside phase cli_modis's directory, after it) —
    ``run_modis_distributed`` over the MCD43 tile in 1200 x 1200 chunks,
    once in this process, then as two gloo ranks in child processes on
@@ -228,8 +232,11 @@ one JSON line:
    under a flight recorder (forensics in the crash dump) and a fused_gn
    launch after it held to its plain version; a ``/profilez`` capture
    asked on a handler thread, its tracing switched on and off by this
-   (the launching) thread, holding this thread's kernels; ``kafka_serve`` with the
-   fleet-plane flags answering phase serve's cold, cache and warm
+   (the launching) thread, holding this thread's kernels; COPY_CAPTURES
+   more beside a thread that launches no package kernel and copies a
+   tile's state to the card and back (a request's resume and dump): how
+   many lost that thread's copies, recorded; ``kafka_serve`` with the
+   fleet-plane flags answering phase serve's tile0 cold, cache and warm
    requests with phase serve's digests, nothing shed;
 29. batch_modes (after serve_batch) — the coalesced round under
    per-pixel convergence at full width: the two serve tiles' first
@@ -241,7 +248,18 @@ one JSON line:
    seeded members of 2^20 px: the same bits, one stacked dense solve a
    step, and whether ``cholesky_ex`` and the triangular solves each keep
    a member's bits over the stacked matrices;
-30. route (last) — the fleet: three ``kafka_serve`` replica processes
+30. contracts (after device_plane) — every registered device program
+   (``kafka_tpu_torch.analysis.programs``, 16) at its canonical shape,
+   its census (``analysis.trace_program``: ATen operators, output dtypes,
+   kernel nodes, host reads, collectives) taken on the CPU and on the
+   card, the card's counted run under
+   ``torch.cuda.set_sync_debug_mode("warn")``: the censuses equal, the
+   synchronising warnings equal to the host reads, the launch counters
+   moved by exactly the kernel nodes (no plain version on CUDA tensors),
+   no checker finding, every tensor where the census placed it; the
+   flagship date program at the tile's 4,608,000 px with the census of
+   256 px; each fingerprint beside the checked-in manifest's (printed);
+31. route (last) — the fleet: three ``kafka_serve`` replica processes
    (``route_replica``) at phase serve's width behind ``python -m
    kafka_tpu_torch.cli.kafka_route``, phase serve's requests for both
    tiles through the router's inbox, the tile0 owner SIGKILLed after its
@@ -364,13 +382,15 @@ ROW_INPUTS = ("y", "r_inv", "mask_f", "xf_rows", "pf_rows")
 OUTPUTS = ("x", "A", "fwd", "inn", "st", "hl")
 
 #: the cli phase: the driver's arguments (one acquisition every 4 days
-#: over 32 days on a 4-day grid: 8 one-acquisition windows) and the
+#: over CLI_DAYS days on a 4-day grid: 5 one-acquisition windows, the
+#: fewest with two fused blocks; the smoke's time limit) and the
 #: fused_gn call kept for the kernel phase (0-based date; date 0 is the
 #: unfused head window, dates 1 and 2 the first fused block).
-CLI_ARGS = ("--operator", "twostream", "--days", "32", "--step", "4",
-            "--obs-every", "4", "--checkpoint")
+CLI_DAYS = 20
+CLI_ARGS = ("--operator", "twostream", "--days", str(CLI_DAYS), "--step",
+            "4", "--obs-every", "4", "--checkpoint")
 CLI_KEEP_DATE = 2
-CLI_RESUME_WINDOWS = 4
+CLI_RESUME_WINDOWS = 3
 #: the engine's fusion guards (kafka_tpu/engine/filter.py:920-922 and the
 #: port's copy), copied here: a block of k windows must hold k*n*p state
 #: elements and 3*k*B*n band elements; the tile has no aux.
@@ -1886,7 +1906,7 @@ def phase_cli(device, workdir: str, ny: int = TILE, nx: int = TILE,
     outdir = os.path.join(workdir, "out")
     argv = [*CLI_ARGS, "--mask", mask_path, "--outdir", outdir,
             "--device", str(device)]
-    n_windows = 32 // 4
+    n_windows = CLI_DAYS // 4
 
     real_output, real_make = rs.GeoTIFFOutput, rs._make_filter
     real_scan = solvers.assimilate_windows_scan
@@ -2024,8 +2044,10 @@ def phase_cli(device, workdir: str, ny: int = TILE, nx: int = TILE,
         "twostream", device)
     truth = np.broadcast_to(truth_val, mask.shape + (p,)).astype(np.float32)
     base = datetime.datetime(2017, 7, 1)
-    dates = [base + datetime.timedelta(days=d) for d in range(1, 32, 4)]
-    grid = [base + datetime.timedelta(days=d) for d in range(0, 36, 4)]
+    dates = [base + datetime.timedelta(days=d)
+             for d in range(1, CLI_DAYS, 4)]
+    grid = [base + datetime.timedelta(days=d)
+            for d in range(0, CLI_DAYS + 4, 4)]
     ns = argparse.Namespace(max_degraded_dates=8, scan_window=SCAN_WINDOW)
     ck_dir = os.path.join(workdir, "resume_ckpt")
 
@@ -4437,6 +4459,21 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
             upd != mesh.size * iterations or launches["fused_gn"]:
         failures.append(f"s2: {launches} for {iterations} iterations on "
                         f"{mesh.size} shards")
+    pz_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_mesh_profilez")
+    shutil.rmtree(pz_dir, ignore_errors=True)
+    try:
+        pz = mesh_profilez(device, tip["n_pad"], pz_dir)
+    finally:
+        shutil.rmtree(pz_dir, ignore_errors=True)
+    if cuda and (pz["captures"] < MESH_CAPTURES
+                 or pz["captures_missing_a_shard"]
+                 or pz["switches_off_the_caller"]):
+        failures.append(
+            f"profilez on the mesh: {pz['captures']} captures, "
+            f"{pz['captures_missing_a_shard']} missing a shard's fused_gn, "
+            f"{pz['switches_off_the_caller']} switches off the caller "
+            f"({pz['switched_on']}); answers {pz['answers']}")
     for label, r in (("tile", tip), ("split tile", split), ("s2", s2)):
         if r["x_max_abs_err"] > MESH_X_ATOL or \
                 r["final_x_max_abs_err"] > MESH_X_ATOL:
@@ -4453,7 +4490,7 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
             failures.append(f"{label}: QA verdicts differ")
     rec = {"phase": "mesh", "mesh": [str(d) for d in mesh.devices],
            "tip_tile": tip, "tip_tile_split_groups": split,
-           "s2_subtile": s2, "failures": failures}
+           "s2_subtile": s2, "profilez": pz, "failures": failures}
     emit(rec)
     if failures:
         raise AssertionError("mesh: " + "; ".join(failures))
@@ -4803,6 +4840,8 @@ FLEET_NAMES = ("kafka_fleet_dead_hosts",)
 FRESH_PROBE_READINGS = 4
 #: phase serve's requests the device-plane server answers again.
 DEVICE_PLANE_SERVE = ("cold", "cache", "warm")
+#: the tiles those requests ask for (tile0 of phase serve's two).
+DEVICE_PLANE_SERVE_TILES = ("tile0",)
 
 
 def fresh_probe() -> None:
@@ -4941,7 +4980,8 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
        thread launches fused_gn: this thread switches the capture's
        tracing on and off, and the capture holds those kernels.
     c. ``kafka_serve`` (phase serve's tiles and grid) with the fleet-plane
-       flags, answering phase serve's cold, cache and warm requests:
+       flags, answering phase serve's cold, cache and warm requests of
+       DEVICE_PLANE_SERVE_TILES (one tile: the smoke's time limit):
        every ``x_sha256`` equal to phase serve's (``serve_shas``), live
        snapshots in the fleet dir, ``/alertz`` (the SLO endpoint)
        answering, all DEVICE_PLANE_NAMES on ``/metrics``, nothing shed.
@@ -5245,6 +5285,11 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     elif device.type == "cuda" and pz_switched != ["MainThread"] * 2:
         failures.append(f"/profilez tracing switched on {pz_switched}, "
                         "not by the launching thread")
+    # Beside a thread that launches no package kernel (a request's resume
+    # and dump copies): recorded, not gated.
+    copier = copier_profilez(device, rows,
+                             os.path.join(workdir, "dp_copier"),
+                             n_floats=ny * nx * 7)
 
     # -- c. the server with the fleet plane -----------------------------
     t_c = time.perf_counter()
@@ -5255,10 +5300,10 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     for k, (label, date, smoothed, want) in enumerate(serve_ladder(dates)):
         if label not in DEVICE_PLANE_SERVE:
             continue
-        for t in range(2):
-            rid = f"r{k:02d}_tile{t}_{label}"
-            rids[rid] = (f"tile{t}", label, want)
-            submit_request(root, {"request_id": rid, "tile": f"tile{t}",
+        for tile in DEVICE_PLANE_SERVE_TILES:
+            rid = f"r{k:02d}_{tile}_{label}"
+            rids[rid] = (tile, label, want)
+            submit_request(root, {"request_id": rid, "tile": tile,
                                   "date": date.isoformat(),
                                   "smoothed": smoothed})
     port = _free_port()
@@ -5349,6 +5394,7 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
             "verdicts_differing")},
         "profilez_thread_fused_gn": pz_row,
         "profilez_switched_on": pz_switched,
+        "profilez_beside_a_copier": copier,
         "serve": {"wall_s": serve_s, "summary": {
             k: summary.get(k) for k in ("admitted", "rejected", "errors",
                                         "http_port")},
@@ -5367,6 +5413,455 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     emit(rec)
     if failures:
         raise AssertionError("device_plane: " + "; ".join(failures))
+    return rec
+
+
+# -- /profilez captures by thread (phases mesh and device_plane) ---------
+
+#: phase mesh: one-second /profilez captures across a 2-shard mesh run of
+#: the tile; phase device_plane: captures beside a thread that only
+#: copies (a request's resume and dump).
+MESH_CAPTURES = 20
+COPY_CAPTURES = 4
+CAPTURE_SECONDS = 1.0
+#: the thread of phase device_plane that copies and launches nothing.
+COPIER_THREAD = "request-copier"
+#: seconds between two sharded solves / two launches of the capture
+#: loops: a few solves or launches a capture, not thousands.
+MESH_PAUSE_S = 0.05
+COPY_PAUSE_S = 0.05
+
+
+def thread_ids() -> set:
+    """The ids a capture may give the calling thread: its OS id (what the
+    profiler records for a thread whose operators it traced) and the low
+    32 bits of its pthread id (what CUPTI records for a thread it knows
+    only by its CUDA calls)."""
+    import threading
+
+    return {threading.get_native_id(), threading.get_ident() & 0xFFFFFFFF}
+
+
+def capture_launchers(session: str, match) -> tuple:
+    """``({thread id: count}, summary)`` of one capture session: the GPU
+    events ``match(event)`` selects, each traced back to the thread whose
+    runtime call launched it (the CUDA runtime or driver event with the
+    same ``correlation`` id; the id as the capture gives the thread), and
+    the session's device events by category and runtime calls by thread
+    id."""
+    from kafka_tpu_torch.telemetry import devprof
+
+    events, _ = devprof.load_capture_events(session)
+    device = devprof.device_events(events)
+    launcher, calls, kinds, out = {}, {}, {}, {}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() in (
+                "cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launcher[corr] = e.get("tid")
+            calls[str(e.get("tid"))] = calls.get(str(e.get("tid")), 0) + 1
+    for e in device:
+        kinds[e.get("cat")] = kinds.get(e.get("cat"), 0) + 1
+        if match(e):
+            tid = launcher.get((e.get("args") or {}).get("correlation"))
+            out[tid] = out.get(tid, 0) + 1
+    return out, {"device_events": kinds, "runtime_calls_by_tid": calls,
+                 "events": len(events)}
+
+
+def capture_by_thread(reg, match) -> dict:
+    """The newest ``profile_capture`` of ``reg``, read at once (the
+    endpoint keeps only its newest few captures on disk): the threads
+    that switched its tracing, the GPU events ``match`` selects by the
+    id of their launching thread, and a summary of the session (device
+    events by category, runtime calls by thread id)."""
+    from kafka_tpu_torch.telemetry import devprof
+
+    e = [ev for ev in reg.events if ev["event"] == "profile_capture"][-1]
+    by_tid, diag = {}, []
+    for session in devprof.find_capture_sessions(e["directory"]):
+        launched, summary = capture_launchers(session, match)
+        diag.append(summary)
+        for tid, n in launched.items():
+            by_tid[tid] = by_tid.get(tid, 0) + n
+    return {"switched_on": e.get("switched_on"), "wall_s": e.get("wall_s"),
+            "by_tid": by_tid, "sessions": diag}
+
+
+def profilez_loop(device, workdir: str, work, captures: int, read,
+                  extra=None, pause_s: float = 0.0):
+    """``captures`` sequential ``/profilez?seconds=CAPTURE_SECONDS`` asked
+    on a handler thread of a TelemetryHTTPd over a registry in
+    ``workdir``, each answered capture read at once by ``read(registry)``
+    on the asking thread, while this thread calls ``work()`` in a loop,
+    ``pause_s`` apart (which keeps each capture's trace, and its export,
+    small), and ``extra``, a thread, runs beside it.  Returns
+    ``(answers, reads, works)``."""
+    import threading
+
+    from kafka_tpu_torch.telemetry.httpd import TelemetryHTTPd
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+
+    answers, reads, works = [], [], 0
+    with use(MetricsRegistry(workdir)) as reg:
+        httpd = TelemetryHTTPd(port=0, registry=reg).start()
+
+        def ask():
+            for _ in range(captures):
+                status, body = http_get(
+                    httpd.url + f"/profilez?seconds={CAPTURE_SECONDS}")
+                answers.append(status if status == 200
+                               else [status, body[:160]])
+                if status == 200:
+                    reads.append(read(reg))
+
+        asker = threading.Thread(target=ask, daemon=True)
+        try:
+            if extra is not None:
+                extra.start()
+            asker.start()
+            while asker.is_alive():
+                work()
+                _sync(device)
+                works += 1
+                time.sleep(pause_s)
+            asker.join(timeout=120)
+        finally:
+            httpd.close()
+    return answers, reads, works
+
+
+def mesh_profilez(device, n_pix: int, workdir: str,
+                  captures: int = MESH_CAPTURES) -> dict:
+    """``captures`` one-second ``/profilez`` captures while this thread
+    solves the tile's date on a pixel mesh of MESH_SHARDS shards of the
+    card in a loop (``shard.step.sharded_solve``: every shard launches
+    fused_gn from its own thread).  Each capture must hold fused_gn
+    launches of every shard's thread, and every tracing switch must have
+    been made on this (the caller's) thread, after the shards were
+    joined (``core._build.shard_group``).  The shards launch at once, so
+    their threads carry distinct ids: a capture holds every shard's
+    launches when at least MESH_SHARDS threads other than this one
+    launched fused_gn in it and the launches are whole solves (a switch
+    falls between two solves).  Gated on the card only (the CPU's
+    capture has no launching thread to trace)."""
+    from kafka_tpu_torch.core import fused_gn
+    from kafka_tpu_torch.shard import make_pixel_mesh
+    from kafka_tpu_torch.shard.step import sharded_solve
+    from kafka_tpu_torch.testing.synthetic import make_tip_problem
+
+    mesh = make_pixel_mesh([device] * MESH_SHARDS)
+    op, bands, x0, p_inv0 = make_tip_problem(n_pix, device=device)
+    before = fused_gn.fused_gn_rows.launches
+    answers, caps, solves = profilez_loop(
+        device, workdir, lambda: sharded_solve(
+            mesh, op.linearize, bands, x0, p_inv0, n_valid=n_pix),
+        captures, lambda reg: capture_by_thread(
+            reg, lambda e: FUSED_GN_KERNEL in str(e.get("name", ""))),
+        pause_s=MESH_PAUSE_S)
+    mine = thread_ids()
+    launchers = [sorted(n for tid, n in c["by_tid"].items()
+                        if tid not in mine) for c in caps]
+    lost = sum(1 for ns in launchers
+               if len(ns) < mesh.size or sum(ns) % mesh.size)
+    switches = [t for c in caps for t in (c["switched_on"] or [])]
+    return {"captures": len(caps), "answers": answers,
+            "sharded_solves": solves, "n_pix": n_pix,
+            "fused_gn_launches": fused_gn.fused_gn_rows.launches - before,
+            "captures_missing_a_shard": lost,
+            "switches_off_the_caller": sum(t != "MainThread"
+                                           for t in switches),
+            "switched_on": sorted(set(switches)),
+            "fused_gn_by_launching_thread": launchers,
+            "sessions": [c["sessions"] for c in caps]}
+
+
+def copier_profilez(device, rows: dict, workdir: str, n_floats: int,
+                    captures: int = COPY_CAPTURES) -> dict:
+    """``captures`` one-second ``/profilez`` captures while this thread
+    launches fused_gn in a loop and a thread that launches no package
+    kernel (COPIER_THREAD) copies a tile's state to the card and back,
+    as a request's resume and dump do.  Recorded, not gated: how many
+    captures lost that thread's copies (their tracing is switched by the
+    launching thread, which cannot know where the copier is)."""
+    import threading
+
+    import torch
+
+    from kafka_tpu_torch.core import fused_gn
+
+    stop = threading.Event()
+    copies = [0]
+    host = torch.ones(n_floats, dtype=torch.float32)
+
+    def copier():
+        while not stop.is_set():
+            back = host.to(device).cpu()
+            copies[0] += int(back.numel() == n_floats)
+
+    extra = threading.Thread(target=copier, name=COPIER_THREAD,
+                             daemon=True)
+    try:
+        answers, caps, launches = profilez_loop(
+            device, workdir, lambda: fused_gn.fused_gn_raw(**rows),
+            captures, lambda reg: capture_by_thread(
+                reg, lambda e: str(e.get("cat", "")).lower() == "gpu_memcpy"),
+            extra=extra, pause_s=COPY_PAUSE_S)
+    finally:
+        stop.set()
+        if extra.is_alive():
+            extra.join(timeout=60)
+    mine = thread_ids()
+    copier_copies = [sum(n for tid, n in c["by_tid"].items()
+                         if tid not in mine) for c in caps]
+    return {"captures": len(caps), "answers": answers,
+            "launches": launches, "copies": copies[0],
+            "bytes_per_copy": 4 * n_floats,
+            "captures_without_copier_memcpy": copier_copies.count(0)
+            + sum(a != 200 for a in answers),
+            "switched_on": sorted({t for c in caps
+                                   for t in (c["switched_on"] or [])}),
+            "copier_memcpy_per_capture": copier_copies,
+            "sessions": [c["sessions"] for c in caps]}
+
+
+# -- phase contracts -------------------------------------------------------
+
+#: the census fields the card's run of a program must share with the
+#: CPU's.
+CENSUS_FIELDS = ("primitives", "dtypes", "kernels", "host_syncs",
+                 "collectives")
+#: the flagship program run again at the MODIS tile's width (phase
+#: main's 4,608,000 px): its census must equal the 256-px one; the
+#: out-of-kernel row loop's is recorded (its linearisation may block).
+FULL_WIDTH = 4_608_000
+FULL_WIDTH_GATED = "date_twostream_inkernel"
+FULL_WIDTH_RECORDED = "date_twostream_jac_to_rows"
+SYNC_WARNING = "called a synchronizing CUDA operation"
+CONTRACTS_BUDGET_S = 30.0
+
+
+def kernel_nodes() -> dict:
+    """The package kernels' launch counters as census node names."""
+    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
+    from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.solve_rows import solve_rows
+
+    out = {"fused_gn": fused_gn_rows.launches}
+    out.update({f"fused_update[{p},{nb}]": n for (p, nb), n in
+                fused_update_rows.launches_by_instance.items()})
+    out.update({f"solve_rows[{r}]": n
+                for r, n in solve_rows.route_launches.items()})
+    return out
+
+
+class CardRun:
+    """The context of one program's counted run on the card: the CUDA
+    sync debug mode set to ``warn`` (process-wide, reset after) with the
+    synchronising warnings of every thread counted, the kernel launch
+    counters read before and after, and the plain versions' calls on
+    CUDA tensors counted."""
+
+    def __init__(self, device):
+        self.device = device
+        self.syncs = 0
+        self.launches = {}
+        self.plain_calls = 0
+
+    def __call__(self):
+        return self
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        from kafka_tpu_torch.core import fused_gn, fused_update, solve_rows
+
+        def counted(fn, at):
+            def plain(*args, **kwargs):
+                t = args[at] if len(args) > at else None
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    self.plain_calls += 1
+                return fn(*args, **kwargs)
+            return plain
+
+        self._patches = patched(
+            (fused_gn, "fused_gn_raw_plain",
+             counted(fused_gn.fused_gn_raw_plain, 4)),
+            (fused_update, "fused_update_raw_plain",
+             counted(fused_update.fused_update_raw_plain, 6)),
+            (solve_rows, "solve_rows_plain",
+             counted(solve_rows.solve_rows_plain, 1)))
+        self._patches.__enter__()
+        self._before = kernel_nodes()
+        self._warnings = warnings.catch_warnings(record=True)
+        self._caught = self._warnings.__enter__()
+        warnings.simplefilter("always")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize(self.device)
+        finally:
+            self._warnings.__exit__(*exc)
+            self._patches.__exit__(*exc)
+        self.syncs = sum(SYNC_WARNING in str(w.message)
+                         for w in self._caught)
+        after = kernel_nodes()
+        self.launches = {k: after[k] - self._before.get(k, 0)
+                         for k in after if after[k] != self._before.get(k, 0)}
+        return False
+
+
+def census_of(tp) -> dict:
+    return {f: getattr(tp, f) for f in CENSUS_FIELDS}
+
+
+def census_diff(a: dict, b: dict) -> dict:
+    """The census fields where ``a`` and ``b`` differ, each as its keys'
+    ``[a, b]`` counts."""
+    out = {}
+    for f in CENSUS_FIELDS:
+        x, y = a.get(f), b.get(f)
+        if x == y:
+            continue
+        if not isinstance(x, dict) or not isinstance(y, dict):
+            out[f] = [x, y]
+            continue
+        out[f] = {k: [x.get(k, 0), y.get(k, 0)]
+                  for k in sorted(set(x) | set(y))
+                  if x.get(k, 0) != y.get(k, 0)}
+    return out
+
+
+def contracts_gates(name: str, cpu: dict, card: dict, run: "CardRun",
+                    findings: list, mismatches: int) -> list:
+    """The failures of one program's pair of censuses (CPU, card):
+    census fields unequal; the card's synchronising warnings not the
+    census's host reads; the launch counters not moved by exactly the
+    kernel nodes; a plain version called on CUDA tensors; a checker's
+    finding; a tensor whose tracked placement was not where it lay."""
+    out = []
+    diff = census_diff(cpu, card)
+    if diff:
+        out.append(f"{name}: the card's census differs from the CPU's: "
+                   f"{json.dumps(diff)[:600]}")
+    if run.syncs != sum(card["host_syncs"].values()):
+        out.append(f"{name}: {run.syncs} synchronising warnings on the "
+                   f"card, census host reads {card['host_syncs']}")
+    if run.launches != card["kernels"]:
+        out.append(f"{name}: kernel launches {run.launches}, census "
+                   f"nodes {card['kernels']}")
+    if run.plain_calls:
+        out.append(f"{name}: {run.plain_calls} plain-version calls on "
+                   "CUDA tensors")
+    if findings:
+        out.append(f"{name}: findings on the card: {findings}")
+    if mismatches:
+        out.append(f"{name}: {mismatches} tensors not where the census "
+                   "placed them")
+    return out
+
+
+def phase_contracts(device, names=None, full_width: int = FULL_WIDTH,
+                    trace=None) -> dict:
+    """Every registered program (``kafka_tpu_torch.analysis.programs``)
+    at its canonical shape, twice in this process: a census on the CPU
+    (the plain versions) and one on ``device`` (the hand kernels), the
+    card's counted run under ``torch.cuda.set_sync_debug_mode("warn")``
+    (``CardRun``); the mesh programs' shards run from their own threads.
+    Gates (``contracts_gates``): the two censuses equal on CENSUS_FIELDS,
+    the card's synchronising warnings equal to the census's host reads,
+    the launch counters moved by exactly the kernel nodes with no plain
+    version called on CUDA tensors, no checker finding on the card's
+    census (the manifest's waivers applied), no tensor away from where
+    the census placed it; then FULL_WIDTH_GATED at ``full_width`` px on
+    the card, its census equal to its 256-px one, and
+    FULL_WIDTH_RECORDED's recorded.  Printed, not gated: each card
+    fingerprint against the checked-in manifest (written on the CPU,
+    each naming its torch), each program's ms, the phase's wall.
+    ``trace`` stands in for ``analysis.trace_program`` in the CPU
+    tests."""
+    import torch
+
+    from kafka_tpu_torch import analysis
+    from kafka_tpu_torch.analysis import checkers, programs  # noqa: F401
+
+    trace = trace or analysis.trace_program
+    t_phase = time.perf_counter()
+    failures, progs = [], {}
+    cdir = analysis.contracts_dir()
+    cards = {}
+    for spec in analysis.get_specs(names):
+        t0 = time.perf_counter()
+        cpu = trace(spec, torch.device("cpu"))
+        t1 = time.perf_counter()
+        run = CardRun(device)
+        card = trace(spec, device, run_context=run)
+        t2 = time.perf_counter()
+        stored = checkers.load_manifest(cdir, spec.name)
+        waivers = list((stored or {}).get("waivers") or ())
+        found = [f.format() for f in checkers.apply_waivers(
+            checkers.run_checkers(card), waivers, spec.name)
+            if f.checker != "stale-waiver"]
+        cards[spec.name] = card
+        failures += contracts_gates(spec.name, census_of(cpu),
+                                    census_of(card), run, found,
+                                    card.placement_mismatches)
+        fp = checkers.fingerprint(card)
+        progs[spec.name] = {
+            "cpu_s": t1 - t0, "card_s": t2 - t1,
+            "fingerprint": fp, "cpu_fingerprint": checkers.fingerprint(cpu),
+            "manifest_fingerprint": (stored or {}).get("fingerprint"),
+            "manifest_torch": (stored or {}).get("torch"),
+            "eqns": card.n_eqns, "kernels": card.kernels,
+            "host_syncs": card.host_syncs, "sync_warnings": run.syncs,
+            "launches": run.launches, "collectives": card.collectives,
+            "placement_mismatches": card.placement_mismatches,
+            "placements": [e for e in card.events
+                           if e["kind"] == "placement"]}
+    width = {}
+    if FULL_WIDTH_GATED in cards:
+        for name in (FULL_WIDTH_GATED, FULL_WIDTH_RECORDED):
+            if name not in cards:
+                continue
+            t0 = time.perf_counter()
+            run = CardRun(device)
+            wide = trace(analysis.REGISTRY[name], device, run_context=run,
+                         n_pix=full_width)
+            diff = census_diff(census_of(cards[name]), census_of(wide))
+            width[name] = {"n_pix": full_width, "s": time.perf_counter() - t0,
+                           "equal_to_canonical": not diff,
+                           "diff": diff, "sync_warnings": run.syncs,
+                           "launches": run.launches,
+                           "gated": name == FULL_WIDTH_GATED}
+            if name == FULL_WIDTH_GATED and diff:
+                failures.append(f"{name} at {full_width} px: census differs "
+                                f"from the canonical one: "
+                                f"{json.dumps(diff)[:600]}")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    runs = list(progs.values()) + list(width.values())
+    rec = {"phase": "contracts", "programs": progs, "full_width": width,
+           "torch": torch.__version__, "wall_s": wall,
+           "budget_s": CONTRACTS_BUDGET_S,
+           "kernel_launches": {k: sum(r["launches"].get(k, 0) for r in runs)
+                               for k in sorted({k for r in runs
+                                                for k in r["launches"]})},
+           "failures": failures}
+    emit(rec)
+    if failures:
+        raise AssertionError("contracts: " + "; ".join(failures))
     return rec
 
 
@@ -6256,6 +6751,7 @@ def main() -> int:
                                     serve_shas=serve_rec["x_sha256"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    contracts_rec = phase_contracts(device)
     os.makedirs(workdir)
     try:
         route_rec = phase_route(device, workdir,
@@ -6338,7 +6834,13 @@ def main() -> int:
                    ["engine_fused_gn_launches"],
                    "device_plane_serve": dp_rec["serve"]
                    ["kernel_launches"]["fused_gn"],
-                   "route_survivors": route_gn},
+                   "route_survivors": route_gn,
+                   "mesh_profilez": mesh_rec["profilez"]
+                   ["fused_gn_launches"],
+                   "device_plane_copier": dp_rec[
+                       "profilez_beside_a_copier"]["launches"],
+                   "contracts": contracts_rec["kernel_launches"]
+                   .get("fused_gn", 0)},
             at_serve_batch_round={
                 **at(batch_gn),
                 "path": "phase serve_batch: a coalesced round of two "
@@ -6383,7 +6885,10 @@ def main() -> int:
                    "serve_batch": batch_rec["runs"]["identity"]
                    ["launches"]["fused_update"],
                    "batch_modes": modes_rec["per_pixel"]["batch_launches"]
-                   ["fused_update"]},
+                   ["fused_update"],
+                   "contracts": sum(
+                       n for k, n in contracts_rec["kernel_launches"].items()
+                       if k.startswith("fused_update["))},
             at_serve_batch_round={
                 **at(batch_upd),
                 "path": "phase serve_batch: a coalesced round of two "

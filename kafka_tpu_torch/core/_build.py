@@ -12,6 +12,13 @@ with the compiler's output; nothing falls back.
 ``utils.compilation_cache.enable_compilation_cache`` points it elsewhere.
 Every build, cached or compiled, is reported to the callables in
 ``BUILD_LISTENERS`` (``telemetry.compilemon``).
+
+Two hooks serve the program census (``kafka_tpu_torch.analysis``): each
+kernel wrapper runs both of its branches inside :class:`kernel_region`,
+which the census records as one opaque node (the ``ctypes`` launch on
+the card, the plain version on the CPU), and :func:`census_thread`
+carries a census into the threads of a mesh's shards.  With no census
+running, a region costs one thread-local lookup.
 """
 
 from __future__ import annotations
@@ -175,36 +182,117 @@ def on_device(dev):
 def count_launch(wrapper, key=None, by: str = "launches_by_instance"
                  ) -> None:
     """Add one to ``wrapper.launches`` (and to ``getattr(wrapper,
-    by)[key]`` when ``key`` is given), under a lock; then run the jobs
-    queued by :func:`after_next_launch` on this thread."""
+    by)[key]`` when ``key`` is given), under a lock; then, unless a
+    shard group is live, run the jobs queued by
+    :func:`after_next_launch` on this thread."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         if key is not None:
             by_key = getattr(wrapper, by)
             by_key[key] = by_key.get(key, 0) + 1
-        jobs = _AFTER_LAUNCH[:]
-        del _AFTER_LAUNCH[:]
+        jobs = [] if _SHARD_GROUPS[0] else _take_jobs()
     for job in jobs:
         job()
 
 
 #: one-shot jobs for the next thread that launches a kernel.
 _AFTER_LAUNCH: list = []
+#: shard groups whose threads run now (``shard_group``), in a list so
+#: the count changes in place under ``_COUNT_LOCK``.
+_SHARD_GROUPS = [0]
+
+
+def _take_jobs() -> list:
+    jobs = _AFTER_LAUNCH[:]
+    del _AFTER_LAUNCH[:]
+    return jobs
 
 
 def after_next_launch(job) -> None:
     """Queue ``job()`` to run once, on the next thread that launches one
     of the package's kernels, just after its launch returned: a point
-    where that thread is inside no CUDA call.  ``job`` must not raise."""
+    where that thread is inside no CUDA call.  While a shard group is
+    live the job waits for the group's end instead (:func:`shard_group`).
+    ``job`` must not raise."""
     with _COUNT_LOCK:
         _AFTER_LAUNCH.append(job)
 
 
-def discard_launch_job(job) -> None:
-    """Unqueue ``job`` if no launch has run it yet."""
+@contextlib.contextmanager
+def shard_group():
+    """Wrap the start and join of a mesh's shard threads
+    (``shard.step.run_shards``).  While a group is live no launching
+    thread runs the :func:`after_next_launch` jobs: a shard that
+    launched could switch CUDA tracing while another shard is inside a
+    CUDA call, which can lose that shard's GPU records.  The jobs queued
+    meanwhile run on this (the caller's) thread when the last live group
+    ends, after its shards were joined: no shard is inside a CUDA call
+    then."""
     with _COUNT_LOCK:
-        if job in _AFTER_LAUNCH:
+        _SHARD_GROUPS[0] += 1
+    try:
+        yield
+    finally:
+        with _COUNT_LOCK:
+            _SHARD_GROUPS[0] -= 1
+            jobs = [] if _SHARD_GROUPS[0] else _take_jobs()
+        for job in jobs:
+            job()
+
+
+def discard_launch_job(job) -> bool:
+    """Unqueue ``job`` if no launch has run it yet and no shard group is
+    live (a live group's end runs it); returns whether it was
+    unqueued."""
+    with _COUNT_LOCK:
+        if job in _AFTER_LAUNCH and not _SHARD_GROUPS[0]:
             _AFTER_LAUNCH.remove(job)
+            return True
+        return False
+
+
+#: the program census that runs on this thread, if any
+#: (``analysis.trace``).
+_CENSUS = threading.local()
+
+
+def current_census():
+    """The census running on this thread, None outside one."""
+    return getattr(_CENSUS, "census", None)
+
+
+class kernel_region:
+    """The body of one kernel call, ``name`` its census node
+    (``fused_gn``, ``fused_update[p,b]``, ``solve_rows[route]``; a
+    callable is asked for it only while a census runs): a running census
+    records the node once and counts none of the operations inside, on
+    the card (the launch, its output buffers) as on the CPU (the plain
+    version)."""
+
+    __slots__ = ("name", "census")
+
+    def __init__(self, name):
+        self.name = name
+        self.census = getattr(_CENSUS, "census", None)
+
+    def __enter__(self):
+        if self.census is not None:
+            self.census.enter_kernel(
+                self.name() if callable(self.name) else self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.census is not None:
+            self.census.exit_kernel()
+        return False
+
+
+def census_thread(census):
+    """A context that runs the body of a new thread (a mesh shard) under
+    ``census``, the caller's :func:`current_census`; a no-op for None."""
+    if census is None:
+        return contextlib.nullcontext()
+    return census.on_thread()
 
 
 def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -11,6 +11,10 @@ counterpart of the ``psum`` GSPMD inserts into the JAX program.
 
 Every thread sums the shards' partials itself, in shard order, on its
 own device, so all shards see the same bits and take the same branch.
+
+Inside a program census (``kafka_tpu_torch.analysis``) every shard's
+:func:`all_reduce` and :func:`all_gather` is recorded by name, as one
+opaque node; outside one the hook costs a thread-local lookup.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from . import _build
 
 _LOCAL = threading.local()
 #: held by a shard around each ``torch.func`` transform: forward-mode AD
@@ -99,13 +105,23 @@ def member(group: ShardGroup, rank: int, n_total: int):
         _LOCAL.member = prev
 
 
+def _recorded(name: str):
+    """The census's record of one collective call on this thread, a
+    no-op outside a census."""
+    census = _build.current_census()
+    if census is None:
+        return contextlib.nullcontext()
+    return census.collective(name)
+
+
 def all_reduce(value: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """``value`` combined over this thread's shard group (``sum``, ``max``
     or ``min``); ``value`` itself outside one."""
     m = current()
     if m is None:
         return value
-    return m.group.all_reduce(m.rank, value, op)
+    with _recorded("all_reduce"):
+        return m.group.all_reduce(m.rank, value, op)
 
 
 def all_gather(value) -> list:
@@ -114,7 +130,8 @@ def all_gather(value) -> list:
     m = current()
     if m is None:
         return [value]
-    return m.group.all_gather(m.rank, value)
+    with _recorded("all_gather"):
+        return m.group.all_gather(m.rank, value)
 
 
 def step_norm(step: torch.Tensor, numel_t: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from . import collective, solver_health
+from . import _build, collective, solver_health
 from .linalg import cholesky_packed, solve_chol_vectors, tri_rows
 
 
@@ -278,8 +278,6 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                  scalar_n=None):
     """Launch ``csrc/fused_gn.cu`` on the current stream of the inputs'
     device (no sync)."""
-    from . import _build
-
     owner = getattr(lin_rows, "__self__", None)
     if getattr(owner, "kernel_physics", None) != "twostream":
         raise NotImplementedError(
@@ -338,8 +336,6 @@ def _launch_cuda(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
 def kernel_attributes() -> dict:
     """Registers, spill bytes, static shared bytes and threads per block
     of the compiled CUDA kernel (builds it if needed)."""
-    from . import _build
-
     return _build.attributes("fused_gn",
                              "kafka_fused_gn_twostream_attributes")
 
@@ -349,8 +345,6 @@ def kernel_geometry(n: int, block: int = 2048) -> dict:
     per cluster, threads, dynamic shared bytes) and the clusters the card
     holds at once (``cudaOccupancyMaxActiveClusters``); builds the kernel
     if needed."""
-    from . import _build
-
     group = launch_geometry(n, block)["group"]
     lib = _build.load("fused_gn")
     fn = lib.kafka_fused_gn_twostream_geometry
@@ -374,10 +368,11 @@ def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     args = (lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
             min_iterations, max_iterations, relaxation, state_bounds_rows,
             norm_denominator, block, corrupt, scalar_n)
-    if xf_rows.device.type == "cpu":
-        return fused_gn_raw_plain(*args)
-    if xf_rows.device.type == "cuda":
-        return _launch_cuda(*args)
+    with _build.kernel_region("fused_gn"):
+        if xf_rows.device.type == "cpu":
+            return fused_gn_raw_plain(*args)
+        if xf_rows.device.type == "cuda":
+            return _launch_cuda(*args)
     raise ValueError(f"no fused Gauss-Newton path for {xf_rows.device}")
 
 

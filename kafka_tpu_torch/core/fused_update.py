@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from . import solver_health
+from . import _build, solver_health
 from .linalg import cholesky_packed, pack_rows, solve_chol_vectors, tri_rows
 
 #: (p, n_bands) instances of the CUDA kernel: PROSAIL on Sentinel-2 (and
@@ -127,8 +127,6 @@ def fused_update_raw_plain(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows,
 def _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows, esc_row):
     """Launch ``csrc/fused_update.cu`` on the current stream of the
     inputs' device (no sync)."""
-    from . import _build
-
     p, n = xf_rows.shape
     n_bands = h0.shape[0]
     check_instance(p, n_bands)
@@ -166,8 +164,6 @@ def _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows, esc_row):
 def kernel_attributes(p: int, n_bands: int) -> dict:
     """Registers, spill bytes, static shared bytes and threads per block
     of the compiled (p, n_bands) instance (builds it if needed)."""
-    from . import _build
-
     check_instance(p, n_bands)
     return _build.attributes("fused_update", "kafka_fused_update_attributes",
                              p, n_bands)
@@ -180,12 +176,14 @@ def fused_update_rows(jac_rows, h0, y, w, m, xl_rows, xf_rows, pf_rows,
     ``block`` is accepted for that signature only: nothing couples
     pixels, so the CUDA kernel tiles as it likes."""
     dev = xf_rows.device
-    if dev.type == "cpu":
-        return fused_update_raw_plain(jac_rows, h0, y, w, m, xl_rows,
-                                      xf_rows, pf_rows, esc_row)
-    if dev.type == "cuda":
-        return _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows,
-                            pf_rows, esc_row)
+    with _build.kernel_region(
+            f"fused_update[{xf_rows.shape[0]},{h0.shape[0]}]"):
+        if dev.type == "cpu":
+            return fused_update_raw_plain(jac_rows, h0, y, w, m, xl_rows,
+                                          xf_rows, pf_rows, esc_row)
+        if dev.type == "cuda":
+            return _launch_cuda(jac_rows, h0, y, w, m, xl_rows, xf_rows,
+                                pf_rows, esc_row)
     raise ValueError(f"no fused update for {dev}")
 
 

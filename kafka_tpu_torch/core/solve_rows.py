@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from . import _build
 from .linalg import cholesky_packed, solve_chol_vectors, tri_rows
 
 #: state sizes of the CUDA kernel's instances.
@@ -98,8 +99,6 @@ def _sm_count(dev: torch.device) -> int:
 def _launch_cuda(a_rows, b_rows):
     """Launch ``csrc/solve_rows.cu`` on the current stream of the
     inputs' device (no sync)."""
-    from . import _build
-
     p, n = b_rows.shape
     check_instance(p)
     dev = b_rows.device
@@ -126,8 +125,6 @@ def kernel_attributes(p: int, n: int) -> dict:
     registers, spill bytes, static and dynamic shared bytes, threads,
     consumer warps, tile, stages, SMs, CTAs one SM holds and the grid
     (builds it if needed)."""
-    from . import _build
-
     check_instance(p)
     lib = _build.load("solve_rows")
     fn = lib.kafka_solve_rows_attributes
@@ -150,10 +147,12 @@ def solve_rows(a_rows, b_rows, block: int = 1024):
         raise ValueError(f"{a_rows.shape[0]} coefficient rows for "
                          f"p={b_rows.shape[0]}")
     dev = b_rows.device
-    if dev.type == "cpu":
-        return solve_rows_plain(a_rows, b_rows)
-    if dev.type == "cuda":
-        return _launch_cuda(a_rows, b_rows)
+    with _build.kernel_region(lambda: "solve_rows[{}]".format(route(
+            b_rows.shape[1], a_rows.data_ptr(), b_rows.data_ptr()))):
+        if dev.type == "cpu":
+            return solve_rows_plain(a_rows, b_rows)
+        if dev.type == "cuda":
+            return _launch_cuda(a_rows, b_rows)
     raise ValueError(f"no packed solve for {dev}")
 
 

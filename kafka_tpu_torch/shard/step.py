@@ -30,7 +30,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from ..core import collective, solver_health
+from ..core import _build, collective, solver_health
 from ..core import propagators as prop
 from ..core.linalg import spd_inverse_batched
 from ..core.solvers import (_aux_leaves, _aux_rebuild, date_solve_kwargs,
@@ -61,18 +61,23 @@ def run_shards(mesh: PixelMesh, fn: Callable[[int], Any], n_total: int
     """``fn(k)`` for every shard ``k``, each in its own thread with its
     device current and shard membership ``k`` of one ``ShardGroup``;
     returns the results in shard order and raises the first failure (the
-    other shards then break out of the collective)."""
+    other shards then break out of the collective).  Jobs queued for the
+    next kernel launch while the shards run (``/profilez``'s tracing
+    switch) run on this thread once every shard was joined
+    (``core._build.shard_group``)."""
     group = collective.ShardGroup(mesh.size, COLLECTIVE_TIMEOUT_S)
     results: list = [None] * mesh.size
     errors: list = [None] * mesh.size
     grad = torch.is_grad_enabled()
     ctx = tracing.current_context()
+    census = _build.current_census()
 
     def work(k: int) -> None:
         tracing.set_context(ctx)
         try:
             with torch.set_grad_enabled(grad), \
                     _device_scope(mesh.devices[k]), \
+                    _build.census_thread(census), \
                     collective.member(group, k, n_total):
                 results[k] = fn(k)
         except BaseException as exc:  # re-raised on the caller's thread
@@ -85,10 +90,11 @@ def run_shards(mesh: PixelMesh, fn: Callable[[int], Any], n_total: int
         threads = [threading.Thread(target=work, args=(k,),
                                     name=f"mesh-shard-{k}", daemon=True)
                    for k in range(mesh.size)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        with _build.shard_group():
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
     failures = [e for e in errors if e is not None]
     if failures:
         first = next((e for e in failures

@@ -478,8 +478,12 @@ def _on_launching_thread(fn, *args) -> Tuple[object, str]:
     and from then on no capture held a kernel of the main thread
     (another thread's still came); captures switched by the main thread
     itself lost none in 150.  The switching thread pauses for the
-    profiler's start and stop.  Without a card there is no CUDA
-    tracing: ``fn`` runs here."""
+    profiler's start and stop.  On a pixel mesh, where every shard
+    launches from a thread of its own, ``fn`` runs on the caller of
+    ``shard.step.run_shards`` once the shards were joined
+    (``core._build.shard_group``), and this thread waits for the
+    shards' join however long the date takes.  Without a card there is
+    no CUDA tracing: ``fn`` runs here."""
     import torch
 
     from ..core import _build
@@ -502,10 +506,10 @@ def _on_launching_thread(fn, *args) -> Tuple[object, str]:
             done.set()
 
     _build.after_next_launch(job)
-    if not done.wait(LAUNCH_WAIT_S):
-        _build.discard_launch_job(job)
-        job()
-        done.wait()
+    while not done.wait(LAUNCH_WAIT_S):
+        if _build.discard_launch_job(job):
+            job()
+    done.wait()
     if "error" in box:
         raise box["error"]
     return box.get("value"), str(box["thread"])

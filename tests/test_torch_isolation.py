@@ -58,6 +58,10 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.obsops.kernels, kafka_tpu_torch.io.mod09, "
         "kafka_tpu_torch.cli.run_mod09, kafka_tpu_torch.smoother, "
         "kafka_tpu_torch.smoother.rts_pass, kafka_tpu_torch.serve, "
+        "kafka_tpu_torch.analysis, kafka_tpu_torch.analysis.programs, "
+        "kafka_tpu_torch.analysis.checkers, kafka_tpu_torch.analysis.trace, "
+        "kafka_tpu_torch.cli.programlint, "
+        "kafka_tpu_torch.testing.programlint_fixtures, "
         "kafka_tpu_torch.serve.admission, kafka_tpu_torch.serve.batch, "
         "kafka_tpu_torch.serve.daemon, kafka_tpu_torch.serve.journal, "
         "kafka_tpu_torch.serve.request, kafka_tpu_torch.serve.service, "

@@ -34,7 +34,8 @@ def test_root_and_core_reexport_the_jax_names():
     assert all(name in doc for name in missing)
 
 
-@pytest.mark.parametrize("package", ["serve", "smoother", "telemetry"])
+@pytest.mark.parametrize("package", ["serve", "smoother", "telemetry",
+                                     "analysis"])
 def test_slice_packages_export_the_jax_names(package):
     """``serve``, ``smoother`` and ``telemetry`` export the JAX package's
     names, the router's (``HashRing``, ``RoutePolicy``, ``TileRouter``,
@@ -116,3 +117,18 @@ def test_linear_solve_matches_jax(masked):
                                np.asarray(jd.innovations), rtol=RTOL,
                                atol=ATOL)
     assert int(td.n_iterations) == int(jd.n_iterations) == 1
+
+
+def test_programlint_cli_keeps_the_jax_flags():
+    """The port's programlint takes every flag of ``tools/programlint.py``
+    and adds ``--device``."""
+    from kafka_tpu_torch.cli import programlint
+    from tools import programlint as jax_programlint
+
+    def flags(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    port = flags(programlint.build_parser())
+    ref = flags(jax_programlint.build_parser())
+    assert port - ref == {"--device"}
+    assert ref <= port

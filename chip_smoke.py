@@ -259,8 +259,8 @@ one JSON line:
    no checker finding, every tensor where the census placed it; the
    flagship date program at the tile's 4,608,000 px with the census of
    256 px; each fingerprint beside the checked-in manifest's (printed);
-31. route (last) — the fleet: three ``kafka_serve`` replica processes
-   (``route_replica``) at phase serve's width behind ``python -m
+31. route (after contracts) — the fleet: three ``kafka_serve`` replica
+   processes (``route_replica``) at phase serve's width behind ``python -m
    kafka_tpu_torch.cli.kafka_route``, phase serve's requests for both
    tiles through the router's inbox, the tile0 owner SIGKILLed after its
    first tile0 answer: every request answered once, ok, with phase
@@ -268,7 +268,23 @@ one JSON line:
    victim alone flagged dead within TTL + refresh + one poll; the nine
    ``kafka_route_*`` families on the router's /metrics; the survivors
    on fused_gn, never its plain version; front-door latency, failover
-   time, start-up seconds and peak device bytes per replica.
+   time, start-up seconds and peak device bytes per replica;
+32. operator_tools (after route) — the port's operator tools
+   (``kafka_tpu_torch.tools``), which run where there is no JAX: its
+   loadgen (``run_load`` over ``_Target(root=...)`` with the live
+   ``/metrics`` scrape) drives a full-width two-stream ``kafka_serve``
+   (tile0 of phase serve's grid, fresh checkpoints) with 8 requests at
+   concurrency 2: every request ok, every digest phase serve's, the
+   fused_gn launches equal to the date solves; ``loadgen --synthetic``,
+   ``--concurrency-sweep 1,4`` and ``--fleet 2`` (20 x 20 identity
+   tiles): no error row, fused_update launched at (2, 2) only, the
+   sweep's launches per round and members per launch; and the six
+   report tools, each run as ``python -m kafka_tpu_torch.tools.<name>
+   --json`` right after phases queue, device_plane and route over the
+   directories they leave: rc 0, the tool's keys, no JAX or kafka_tpu
+   module in any of their processes (``report_processes_without_jax``),
+   and device_report's ``fused_gn_kernel`` row counting the launches
+   phase device_plane's ``--profile-windows`` capture held.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -5419,9 +5435,10 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
 # -- /profilez captures by thread (phases mesh and device_plane) ---------
 
 #: phase mesh: one-second /profilez captures across a 2-shard mesh run of
-#: the tile; phase device_plane: captures beside a thread that only
+#: the tile (20 until phase operator_tools needed the smoke's time: ~1.9 s
+#: a capture); phase device_plane: captures beside a thread that only
 #: copies (a request's resume and dump).
-MESH_CAPTURES = 20
+MESH_CAPTURES = 10
 COPY_CAPTURES = 4
 CAPTURE_SECONDS = 1.0
 #: the thread of phase device_plane that copies and launches nothing.
@@ -6567,6 +6584,488 @@ def phase_route(device, workdir: str, serve_shas=None, ny: int = TILE,
     return rec
 
 
+# -- phase operator_tools ------------------------------------------------
+
+#: phase operator_tools: the port's loadgen drives a kafka_serve daemon of
+#: phase serve's width and grid (tile0, a fresh checkpoint root) through
+#: its inbox: the plan's dates (indexes into the grid's observation
+#: dates, whose answers phase serve digested as cold_replay, cold and
+#: warm_noop), its requests and concurrency, and the seconds one request
+#: may take.
+TOOLS_LOAD_DATES = (0, 2, 3)
+TOOLS_LOAD_REQUESTS = 8
+TOOLS_LOAD_CONCURRENCY = 2
+TOOLS_LOAD_TIMEOUT_S = 300.0
+#: observation dates a window of phase serve's grid holds (--step 4,
+#: --obs-every 2): one fused_gn launch each.
+SERVE_DATES_PER_WINDOW = 2
+#: loadgen's self-contained modes, as ``loadgen.main`` arguments: the
+#: JAX defaults' 20 x 20 identity tiles, fused_update instance (2, 2).
+TOOLS_MODES = (
+    ("synthetic", ("--synthetic", "--requests", "8", "--concurrency", "2")),
+    ("concurrency_sweep", ("--concurrency-sweep", "1,4")),
+    ("fleet", ("--fleet", "2", "--requests", "8", "--concurrency", "2")),
+)
+#: the instance the self-contained modes launch.
+TOOLS_MODES_INSTANCE = "2x2"
+#: each report tool's top-level ``--json`` keys.
+REPORT_KEYS = {
+    "queue_status": ("chunks", "counts", "manifest", "n_chunks", "outdir",
+                     "workers"),
+    "slo_report": ("episodes", "objectives", "records", "skipped_lines",
+                   "sources"),
+    "quality_report": ("bands", "sources", "tiles", "version"),
+    "device_report": ("mesh_history", "n_sessions", "root", "sessions"),
+    "trace_report": ("by_status", "coverage_ok_fraction", "exemplars",
+                     "requests_total", "root", "slowest", "torn_lines",
+                     "unattributed"),
+    "fleet_status": ("counters", "dead_hosts", "histograms", "n_workers",
+                     "queue", "run_ids", "workers"),
+}
+#: the module roots a report tool's process must not hold: JAX, the JAX
+#: package and its top-level ``tools``.
+FOREIGN_ROOTS = ("jax", "jaxlib", "kafka_tpu", "tools")
+REPORT_TIMEOUT_S = 180
+#: the executor's rendezvous counters (serve.batch).
+ROUNDS = "kafka_serve_batch_launches_total"
+ROUND_MEMBERS = "kafka_serve_batch_launch_members_total"
+
+
+def tool_child() -> None:
+    """A report tool's process: ``python -c "import chip_smoke;
+    chip_smoke.tool_child()" <module> <args>`` runs ``<module>`` as
+    ``python -m`` does, then prints last on its standard error one JSON
+    line naming every module of FOREIGN_ROOTS the process imported."""
+    import runpy
+
+    sys.argv = sys.argv[1:]
+    code = 0
+    try:
+        runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+    except SystemExit as exc:
+        code = exc.code
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in FOREIGN_ROOTS)
+    print(json.dumps({"tool_child": True, "foreign_modules": foreign}),
+          file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def run_reports(specs) -> dict:
+    """Each ``(label, tool, argv)`` of ``specs`` as ``python -m
+    kafka_tpu_torch.tools.<tool> <argv>`` (through ``tool_child``), all
+    started at once.  Returns label -> the tool, its argv, exit code,
+    seconds from the start of the batch to its end, the foreign modules
+    it held (None when it printed no check), its parsed ``--json``
+    output, and the batch (its first label) with the batch's wall."""
+    from kafka_tpu_torch.cli import drivers
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = drivers.child_env()
+    t0 = time.perf_counter()
+    batch = specs[0][0] if specs else None
+    procs = {}
+    for label, tool, argv in specs:
+        procs[label] = (tool, list(argv), subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.tool_child()",
+             f"kafka_tpu_torch.tools.{tool}", *argv],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = {}
+    for label, (tool, argv, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=REPORT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        try:
+            report = json.loads(stdout)
+        except ValueError:
+            report = None
+        out[label] = {"tool": tool, "argv": argv, "rc": proc.returncode,
+                      "wall_s": time.perf_counter() - t0,
+                      "foreign_modules": (_last_json(stderr) or {}).get(
+                          "foreign_modules"),
+                      "report": report, "batch": batch,
+                      "stderr": stderr[-1500:] if proc.returncode else ""}
+    wall = time.perf_counter() - t0
+    for r in out.values():
+        r["batch_wall_s"] = wall
+    return out
+
+
+def queue_reports(workdir: str) -> list:
+    """The report runs over phase queue's fleet directory and its
+    workers' heartbeats."""
+    return [("queue_status", "queue_status",
+             [os.path.join(workdir, "queue_fleet"), "--telemetry-dir",
+              os.path.join(workdir, "queue_tel"), "--json"])]
+
+
+def device_plane_reports(workdir: str) -> list:
+    """The report runs over phase device_plane's telemetry (run 2's,
+    with its ``--profile-windows`` capture) and its server's fleet dir
+    (request log, alerts ledger, quality ledger, heartbeats)."""
+    tel, fleet = (os.path.join(workdir, d) for d in ("dp_tel", "dp_fleet"))
+    return [("device_report", "device_report", [tel, "--n", "64",
+                                                "--json"]),
+            ("slo_report", "slo_report", [fleet, "--json"]),
+            ("quality_report", "quality_report", [tel, fleet, "--json"]),
+            ("trace_report", "trace_report", [fleet, "--json"]),
+            ("fleet_status", "fleet_status", [fleet, "--json"])]
+
+
+def route_reports(workdir: str) -> list:
+    """The report runs over phase route's fleet dir: the router's and
+    the replicas' heartbeats and request logs."""
+    fleet = os.path.join(workdir, "route_fleet")
+    return [("fleet_status route", "fleet_status", [fleet, "--json"]),
+            ("trace_report route", "trace_report", [fleet, "--json"])]
+
+
+def report_gates(reports: dict, fused_gn_captured=None) -> list:
+    """Failures of the report runs: an exit code other than 0, ``--json``
+    output without the tool's top-level keys, a process that held a
+    foreign module (or printed no check); and, given the fused_gn
+    launches phase device_plane's capture held, a ``device_report``
+    whose newest session's kernel table has no ``fused_gn_kernel`` row of
+    that count."""
+    failures = []
+    for label, r in reports.items():
+        missing = sorted(set(REPORT_KEYS[r["tool"]])
+                         - set(r["report"] or {}))
+        if r["rc"] != 0:
+            failures.append(f"{label}: rc {r['rc']}: {r['stderr'][-300:]}")
+        elif not isinstance(r["report"], dict) or missing:
+            failures.append(f"{label}: --json output lacks {missing}")
+        if r["foreign_modules"] is None:
+            failures.append(f"{label}: printed no module check")
+        elif r["foreign_modules"]:
+            failures.append(f"{label}: imported {r['foreign_modules'][:5]}")
+    dev = reports.get("device_report")
+    if dev is not None and fused_gn_captured is not None:
+        row = device_report_row(dev)
+        if row is None or row["count"] != fused_gn_captured:
+            failures.append(f"device_report: fused_gn row {row} against "
+                            f"{fused_gn_captured} captured launches")
+    return failures
+
+
+def device_report_row(run: dict):
+    """The ``fused_gn_kernel`` row of a device_report run's newest
+    session, or None."""
+    sessions = (run.get("report") or {}).get("sessions") or []
+    kernels = (sessions[-1].get("kernels") or []) if sessions else []
+    return next((k for k in kernels if FUSED_GN_KERNEL in k["name"]), None)
+
+
+def report_summary(run: dict) -> dict:
+    """A few numbers of one report run, for the phase's record."""
+    r = run["report"] or {}
+    tool = run["tool"]
+    out = {"tool": tool, "rc": run["rc"], "wall_s": run["wall_s"],
+           "foreign_modules": run["foreign_modules"]}
+    if tool == "device_report":
+        out["fused_gn_row"] = device_report_row(run)
+        out["n_sessions"] = r.get("n_sessions")
+    elif tool == "queue_status":
+        out["counts"] = r.get("counts")
+        out["workers"] = sorted(r.get("liveness") or {})
+    elif tool == "slo_report":
+        out.update(records=r.get("records"),
+                   episodes=len(r.get("episodes") or ()),
+                   objectives=sorted(r.get("objectives") or {}))
+    elif tool == "quality_report":
+        out["tiles"] = {t: v.get("overall")
+                        for t, v in (r.get("tiles") or {}).items()}
+    elif tool == "trace_report":
+        out.update(requests_total=r.get("requests_total"),
+                   by_status=r.get("by_status"),
+                   coverage_ok_fraction=r.get("coverage_ok_fraction"))
+    elif tool == "fleet_status":
+        out.update(n_workers=r.get("n_workers"),
+                   dead_hosts=r.get("dead_hosts"),
+                   roles=sorted(w.get("role") for w in
+                                r.get("workers") or ()))
+    return out
+
+
+def loadgen_root_drive(device, workdir: str, serve_shas=None,
+                       ny: int = TILE, nx: int = TILE,
+                       days: int = SERVE_DAYS) -> tuple:
+    """``kafka_serve.main`` in-process over tile0 of phase serve's grid
+    (a fresh checkpoint root, ``--http-port``, the fleet plane into its
+    own telemetry dir) while a thread drives it with the port's loadgen
+    (``run_load`` over ``_Target(root=...)``, ``_MetricsScraper`` on its
+    ``/metrics``) and drains it when the load is done.  Returns
+    ``(record, failures)``."""
+    import contextlib
+    import io
+    import threading
+
+    from kafka_tpu_torch.cli import kafka_serve
+    from kafka_tpu_torch.serve import (ServeDaemon, read_response,
+                                       synthetic_dates)
+    from kafka_tpu_torch.serve.synthetic import DEFAULT_BASE_DATE
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+    from kafka_tpu_torch.tools import loadgen
+
+    root = os.path.join(workdir, "tools_serve")
+    tel = os.path.join(workdir, "tools_tel")
+    dates = synthetic_dates(DEFAULT_BASE_DATE, days, 2)
+    # date -> the label of phase serve's forward answer for it (whose
+    # digest an answer must have).
+    labels = {}
+    for label, date, smoothed, _ in serve_ladder(dates):
+        if not smoothed:
+            labels.setdefault(date, label)
+    plan = loadgen.synthetic_request_plan(
+        [dates[i] for i in TOOLS_LOAD_DATES], ["tile0"],
+        TOOLS_LOAD_REQUESTS)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    argv = ["--root", root, "--tiles", "1", "--operator", "twostream",
+            "--ny", str(ny), "--nx", str(nx), "--days", str(days),
+            "--step", "4", "--obs-every", "2", "--no-aot",
+            "--telemetry-dir", tel, "--fleet-dir", tel, "--http-port",
+            str(port), "--live-interval-s", "1", "--slo-interval-s", "1",
+            "--slo-fast-window-s", "60", "--slo-slow-window-s", "600",
+            "--device", str(device)]
+    daemon, drive = {}, {}
+    real_run = ServeDaemon.run
+
+    def run(self):
+        daemon["it"] = self
+        return real_run(self)
+
+    def driver():
+        try:
+            scraper = loadgen._MetricsScraper(url).start()
+            try:
+                t0 = time.perf_counter()
+                drive["rows"] = loadgen.run_load(
+                    loadgen._Target(root=root), plan,
+                    concurrency=TOOLS_LOAD_CONCURRENCY,
+                    timeout_s=TOOLS_LOAD_TIMEOUT_S)
+                drive["load_s"] = time.perf_counter() - t0
+            finally:
+                drive["live_telemetry"] = scraper.stop()
+        except Exception as exc:  # noqa: BLE001 — a failure of the phase
+            drive["error"] = repr(exc)
+        finally:
+            deadline = time.monotonic() + TOOLS_LOAD_TIMEOUT_S
+            while "it" not in daemon and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if "it" in daemon:
+                daemon["it"].drain()
+
+    thread = threading.Thread(target=driver, name="loadgen-driver",
+                              daemon=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    thread.start()
+    with use(MetricsRegistry()), patched((ServeDaemon, "run", run)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        summary = kafka_serve.main(argv)
+    thread.join(timeout=TOOLS_LOAD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    failures = []
+    rows = drive.get("rows") or {}
+    if "error" in drive or thread.is_alive():
+        failures.append(f"loadgen: {drive.get('error', 'still running')}")
+    answers = {f"load{i:05d}": read_response(root, f"load{i:05d}") or {}
+               for i in range(len(plan))}
+    sha_diff, windows = [], 0
+    for rid, r in answers.items():
+        if r.get("status") != "ok":
+            failures.append(f"{rid}: {r.get('status')} "
+                            f"{r.get('error') or r.get('reason')}")
+            continue
+        if r.get("served_from") in ("cold", "warm", "cold_replay"):
+            windows += int(r.get("windows_run") or 0)
+        date = datetime.datetime.fromisoformat(r["date"])
+        if serve_shas is not None and r.get("x_sha256") != serve_shas.get(
+                f"tile0:{labels.get(date)}"):
+            sha_diff.append(rid)
+    if sha_diff:
+        failures.append(f"x_sha256 differ from phase serve: {sha_diff}")
+    if rows.get("serve_ok_total") != len(plan) or \
+            rows.get("serve_error_total") or \
+            rows.get("serve_rejected_total") or \
+            rows.get("serve_cancelled_total"):
+        failures.append(f"loadgen rows {rows}")
+    solves = SERVE_DATES_PER_WINDOW * windows
+    if launches["fused_gn"] != solves or solves <= 0:
+        failures.append(f"{launches['fused_gn']} fused_gn launches "
+                        f"against {solves} date solves")
+    live = drive.get("live_telemetry") or {}
+    series = sorted(live.get("series") or {})
+    if not live.get("samples") or not series:
+        failures.append(f"the live scrape took {live.get('samples')} "
+                        f"samples ({live.get('scrape_errors')} errors), "
+                        f"{len(series)} kafka_serve_ series")
+    if summary.get("errors") or summary.get("rejected") or \
+            not summary.get("drained"):
+        failures.append(f"daemon summary {summary}")
+    rec = {
+        "argv": argv, "plan": [[p["date"], labels.get(
+            datetime.datetime.fromisoformat(p["date"]))] for p in plan],
+        "concurrency": TOOLS_LOAD_CONCURRENCY, "wall_s": wall,
+        "load_s": drive.get("load_s"),
+        "rows": {k: rows.get(k) for k in (
+            "serve_p50_ms", "serve_p99_ms", "serve_ok_total",
+            "serve_rejected_total", "serve_cancelled_total",
+            "serve_error_total", "serve_rps", "serve_wall_s",
+            "serve_solved_total", "serve_trace_coverage",
+            "serve_slowest_ms", "serve_queue_wait_p99_ms")},
+        "served_from": {rid: r.get("served_from")
+                        for rid, r in answers.items()},
+        "wall_ms": {rid: r.get("wall_ms") for rid, r in answers.items()},
+        "windows_run": windows, "date_solves": solves,
+        "kernel_launches": launches, "sha_compared": serve_shas is not None,
+        "live_telemetry": {"samples": live.get("samples"),
+                           "scrape_errors": live.get("scrape_errors"),
+                           "series": len(series)},
+        "daemon_summary": {k: summary.get(k) for k in (
+            "admitted", "rejected", "errors", "drained", "http_port")},
+        "telemetry_dir": tel,
+    }
+    return rec, failures
+
+
+def loadgen_modes(device) -> tuple:
+    """``loadgen.main`` in each self-contained mode on ``device``, each
+    under a registry of its own, its launch counts reset before and read
+    after; every ``run_load`` call of a mode records its fused-update
+    launches and the executor's rendezvous rounds and members (the
+    sweep's levels).  Returns ``(record, failures)``."""
+    import contextlib
+    import io
+
+    from kafka_tpu_torch.telemetry import get_registry
+    from kafka_tpu_torch.telemetry.registry import MetricsRegistry, use
+    from kafka_tpu_torch.tools import loadgen
+
+    real_run_load = loadgen.run_load
+    out, failures = {}, []
+    for name, args in TOOLS_MODES:
+        calls = []
+
+        def counted(target, requests, *a, **kw):
+            reg = get_registry()
+            before = (launch_counts()["fused_update_by_instance"].get(
+                TOOLS_MODES_INSTANCE, 0), reg.value(ROUNDS) or 0,
+                reg.value(ROUND_MEMBERS) or 0)
+            rows = real_run_load(target, requests, *a, **kw)
+            after = (launch_counts()["fused_update_by_instance"].get(
+                TOOLS_MODES_INSTANCE, 0), reg.value(ROUNDS) or 0,
+                reg.value(ROUND_MEMBERS) or 0)
+            launches, rounds, members = (b - a for a, b in
+                                         zip(before, after))
+            calls.append({
+                "requests": len(requests),
+                "concurrency": kw.get("concurrency", a[0] if a else None),
+                "ok": rows["serve_ok_total"],
+                "errors": rows["serve_error_total"],
+                "fused_update_launches": launches, "rounds": rounds,
+                "round_members": members,
+                "launches_per_round": launches / rounds if rounds
+                else None,
+                "members_per_launch": members / rounds if rounds
+                else None})
+            return rows
+
+        argv = [*args, "--device", str(device)]
+        reset_launches()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with use(MetricsRegistry()), \
+                patched((loadgen, "run_load", counted)), \
+                contextlib.redirect_stdout(printed):
+            rc = loadgen.main(argv)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = _last_json(printed.getvalue()) or {}
+        errors = rows.get("serve_error_total",
+                          rows.get("serve_fleet_error_total"))
+        by_inst = launches["fused_update_by_instance"]
+        if rc != 0 or errors != 0:
+            failures.append(f"{name}: rc {rc}, error rows {errors}")
+        if set(by_inst) != {TOOLS_MODES_INSTANCE} or \
+                not by_inst[TOOLS_MODES_INSTANCE]:
+            failures.append(f"{name}: fused_update launches {by_inst}")
+        keep = {k: v for k, v in rows.items()
+                if k not in ("live_telemetry", "serve_sweep")}
+        if "serve_sweep" in rows:
+            keep["serve_sweep"] = [
+                {k: lv.get(k) for k in (
+                    "concurrency", "serve_p50_ms", "serve_p99_ms",
+                    "serve_ok_total", "serve_error_total",
+                    "serve_batch_mean_size", "serve_device_batch_mean",
+                    "serve_px_s")} for lv in rows["serve_sweep"]]
+        out[name] = {"argv": argv, "rc": rc, "wall_s": wall,
+                     "rows": keep, "kernel_launches": launches,
+                     "run_load_calls": calls}
+    return out, failures
+
+
+def phase_operator_tools(device, workdir: str, serve_shas=None,
+                         reports=None, fused_gn_captured=None,
+                         ny: int = TILE, nx: int = TILE):
+    """The port's operator tools on the card, in three parts.
+
+    a. ``loadgen_root_drive``: the port's loadgen drives a full-width
+       two-stream ``kafka_serve`` (tile0 of phase serve's grid, a fresh
+       checkpoint root) with TOOLS_LOAD_REQUESTS requests at concurrency
+       TOOLS_LOAD_CONCURRENCY over three of phase serve's dates, the
+       daemon's ``/metrics`` scraped the while.  Gates: every request
+       ok, no error, rejected or cancelled row; every answer's x_sha256
+       phase serve's for its tile and date; the fused_gn launches at the
+       launch site equal to the date solves (SERVE_DATES_PER_WINDOW a
+       window run); the scrape took kafka_serve_* samples.
+    b. ``loadgen_modes``: ``--synthetic``, ``--concurrency-sweep 1,4`` and
+       ``--fleet 2`` on the card: rc 0, no error row, fused_update
+       launched at (2, 2) and no other instance; the sweep's levels with
+       their launches per round and members per launch.
+    c. ``reports`` (``run_reports`` after phases queue, device_plane and
+       route, each while its directories existed): ``report_gates``,
+       with the device_report's fused_gn row held to
+       ``fused_gn_captured``."""
+    t_phase = time.perf_counter()
+    drive, failures = loadgen_root_drive(device, workdir, serve_shas,
+                                         ny=ny, nx=nx)
+    t_modes = time.perf_counter()
+    modes_rec, mode_failures = loadgen_modes(device)
+    failures += mode_failures
+    reports = reports or {}
+    failures += report_gates(reports, fused_gn_captured)
+    foreign = sorted({m for r in reports.values()
+                      for m in r["foreign_modules"] or ()})
+    rec = {
+        "phase": "operator_tools", "tile": [ny, nx],
+        "loadgen_root": drive, "modes": modes_rec,
+        "reports": {label: report_summary(r)
+                    for label, r in reports.items()},
+        "report_processes": len(reports),
+        "report_processes_without_jax": bool(reports) and not foreign and
+        all(r["foreign_modules"] is not None for r in reports.values()),
+        "fused_gn_captured": fused_gn_captured,
+        "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
+        "seconds": {"phase": time.perf_counter() - t_phase,
+                    "loadgen_root": t_modes - t_phase,
+                    "modes": time.perf_counter() - t_modes,
+                    "report_batches": {r["batch"]: r["batch_wall_s"]
+                                       for r in reports.values()}},
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("operator_tools: " + "; ".join(failures))
+    return rec
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -6698,6 +7197,7 @@ def main() -> int:
         modis_rec, modis_kept = phase_cli_modis(device, workdir)
         dist_rec = phase_distributed(device, workdir)
         queue_rec = phase_queue(device, workdir)
+        reports = run_reports(queue_reports(workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     modis_kernel = phase_kernel(device, "cli_modis_date", modis_kept)
@@ -6749,6 +7249,7 @@ def main() -> int:
         dp_rec = phase_device_plane(device, workdir,
                                     kernel_ms=cli_kernel["ms"],
                                     serve_shas=serve_rec["x_sha256"])
+        reports.update(run_reports(device_plane_reports(workdir)))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     contracts_rec = phase_contracts(device)
@@ -6756,6 +7257,15 @@ def main() -> int:
     try:
         route_rec = phase_route(device, workdir,
                                 serve_shas=serve_rec["x_sha256"])
+        reports.update(run_reports(route_reports(workdir)))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        tools_rec = phase_operator_tools(
+            device, workdir, serve_shas=serve_rec["x_sha256"],
+            reports=reports, fused_gn_captured=dp_rec["capture"]
+            ["fused_gn_launches_captured"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     route_gn = sum(c["launches"]["fused_gn"]
@@ -6840,7 +7350,9 @@ def main() -> int:
                    "device_plane_copier": dp_rec[
                        "profilez_beside_a_copier"]["launches"],
                    "contracts": contracts_rec["kernel_launches"]
-                   .get("fused_gn", 0)},
+                   .get("fused_gn", 0),
+                   "operator_tools_loadgen": tools_rec["loadgen_root"]
+                   ["kernel_launches"]["fused_gn"]},
             at_serve_batch_round={
                 **at(batch_gn),
                 "path": "phase serve_batch: a coalesced round of two "
@@ -6888,7 +7400,11 @@ def main() -> int:
                    ["fused_update"],
                    "contracts": sum(
                        n for k, n in contracts_rec["kernel_launches"].items()
-                       if k.startswith("fused_update["))},
+                       if k.startswith("fused_update[")),
+                   **{f"operator_tools_{name}": m["kernel_launches"]
+                      ["fused_update_by_instance"].get(
+                          TOOLS_MODES_INSTANCE, 0)
+                      for name, m in tools_rec["modes"].items()}},
             at_serve_batch_round={
                 **at(batch_upd),
                 "path": "phase serve_batch: a coalesced round of two "

@@ -29,9 +29,10 @@ import torch
 from . import _build
 
 _LOCAL = threading.local()
-#: held by a shard around each ``torch.func`` transform: forward-mode AD
-#: keeps its dual level in process-wide state, so two threads' ``jvp`` /
-#: ``jacfwd`` at once break each other.
+#: held around each ``torch.func`` transform: forward-mode AD keeps its
+#: dual level in process-wide state, so two threads' ``jvp`` / ``jacfwd``
+#: at once break each other (a mesh's shards, or two in-process serving
+#: replicas each solving on its own worker thread).
 _TRANSFORM_LOCK = threading.RLock()
 
 
@@ -154,8 +155,6 @@ def all_true_flag(flags: torch.Tensor) -> torch.Tensor:
 
 def transforms():
     """A context that serialises ``torch.func`` transforms (linearisation,
-    Hessians) across the shards of a sharded solve; a no-op outside
-    one."""
-    if current() is None:
-        return contextlib.nullcontext()
+    Hessians) across the threads of the process: the shards of a sharded
+    solve, and any other threads that solve at once."""
     return _TRANSFORM_LOCK

@@ -1,6 +1,8 @@
-"""The port stands alone: no JAX and nothing of kafka_tpu in the package
-or in chip_smoke.py, entry points that refuse to run without CUDA unless
-asked for the CPU, and a CUDA build that fails loudly."""
+"""The port stands alone: no JAX and nothing of kafka_tpu (nor the JAX
+package's top-level ``tools``) in the package or in chip_smoke.py, the
+operator tools runnable with all three blocked, entry points that refuse
+to run without CUDA unless asked for the CPU, and a CUDA build that
+fails loudly."""
 
 import ast
 import os
@@ -83,7 +85,14 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.utils.profiling, "
         "kafka_tpu_torch.utils.compilation_cache, "
         "kafka_tpu_torch.serve.router, kafka_tpu_torch.cli.kafka_route, "
-        "kafka_tpu_torch.testing.oracle\n"
+        "kafka_tpu_torch.testing.oracle, kafka_tpu_torch.tools, "
+        "kafka_tpu_torch.tools.queue_status, "
+        "kafka_tpu_torch.tools.slo_report, "
+        "kafka_tpu_torch.tools.quality_report, "
+        "kafka_tpu_torch.tools.device_report, "
+        "kafka_tpu_torch.tools.trace_report, "
+        "kafka_tpu_torch.tools.fleet_status, "
+        "kafka_tpu_torch.tools.loadgen\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"
@@ -113,7 +122,8 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "from kafka_tpu_torch.engine import (kernels_prior, "
         "KERNEL_PARAMETER_LIST)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')]\n"
+        " or m == 'kafka_tpu' or m.startswith('kafka_tpu.')"
+        " or m == 'tools' or m.startswith('tools.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -135,8 +145,77 @@ def test_no_jax_or_kafka_tpu_imports(path):
             names = [node.module or ""]
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "kafka_tpu"), \
+            assert root not in ("jax", "jaxlib", "kafka_tpu", "tools"), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+#: a meta-path finder that refuses JAX, the JAX package and its
+#: top-level ``tools``, then runs ``python -m <argv[1]> <argv[2:]>``.
+BLOCKED_RUN = """
+import importlib.abc, runpy, sys
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'kafka_tpu', 'tools'):
+            raise ModuleNotFoundError(f'No module named {name!r}',
+                                      name=name)
+        return None
+
+sys.meta_path.insert(0, Blocked())
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)
+"""
+
+#: each operator tool on an empty directory: the JAX tool's exit code.
+TOOL_RUNS = {
+    "queue_status": ["{d}", "--json"],
+    "slo_report": ["{d}", "--json"],
+    "quality_report": ["{d}"],
+    "device_report": ["{d}", "--json"],
+    "trace_report": ["{d}", "--unattributed"],
+    "fleet_status": ["{d}", "--json"],
+    "loadgen": ["--root", "{d}", "--requests", "0"],
+}
+
+
+@pytest.fixture(scope="module")
+def blocked_runs(tmp_path_factory):
+    """Every tool started at once as ``python -m
+    kafka_tpu_torch.tools.<name>`` with the three blocked: name ->
+    (argv, rc, output)."""
+    d = str(tmp_path_factory.mktemp("empty"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    procs = {}
+    for name, argv in TOOL_RUNS.items():
+        argv = [a.format(d=d) for a in argv]
+        procs[name] = (argv, subprocess.Popen(
+            [sys.executable, "-c", BLOCKED_RUN,
+             f"kafka_tpu_torch.tools.{name}", *argv], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (argv, proc) in procs.items():
+        text = proc.communicate(timeout=300)[0]
+        out[name] = (argv, proc.returncode, text)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(TOOL_RUNS))
+def test_tool_runs_with_jax_kafka_tpu_and_tools_blocked(name, blocked_runs,
+                                                       capsys):
+    """The card's machine has no JAX: each tool runs there, and exits as
+    the JAX tool does on the same input."""
+    import importlib
+
+    argv, rc, text = blocked_runs[name]
+    assert "ModuleNotFoundError" not in text, text[-2000:]
+    jax_tool = importlib.import_module(f"tools.{name}")
+    try:
+        want = jax_tool.main(list(argv))
+    except SystemExit as exc:
+        want = exc.code
+    capsys.readouterr()
+    assert rc == want, text[-2000:]
 
 
 def _entry_points():
@@ -169,6 +248,7 @@ def _entry_points():
     from kafka_tpu_torch.smoother import smooth_chain
     from kafka_tpu_torch.cli import chunk_worker, run_modis_distributed
     from kafka_tpu_torch.shard import make_pixel_mesh
+    from kafka_tpu_torch.tools import loadgen
 
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
@@ -240,6 +320,14 @@ def _entry_points():
         "assimilate_date_batch": lambda: assimilate_date_batch(
             op.linearize, BandBatch(z[None], z[None], z[None] > 0),
             np.zeros((1, 4, 7)), np.zeros((1, 4, 7, 7))),
+        "loadgen.main --synthetic": lambda: loadgen.main(["--synthetic"]),
+        "loadgen.main --fleet": lambda: loadgen.main(["--fleet", "2"]),
+        "loadgen.main --concurrency-sweep": lambda: loadgen.main(
+            ["--concurrency-sweep", "1"]),
+        "loadgen.bench_serve": lambda: loadgen.bench_serve(os.devnull),
+        "loadgen.bench_fleet": lambda: loadgen.bench_fleet(os.devnull),
+        "loadgen.bench_concurrency_sweep":
+            lambda: loadgen.bench_concurrency_sweep(os.devnull),
     }
 
 
@@ -258,7 +346,10 @@ def _entry_points():
      "smooth_chain", "kafka_smooth.main", "make_synthetic_tile",
      "kafka_serve.main", "assimilate_date_batch", "make_pixel_mesh",
      "run_modis_distributed.main", "chunk_worker --queue",
-     "run_synthetic.main --queue"]))
+     "run_synthetic.main --queue", "loadgen.main --synthetic",
+     "loadgen.main --fleet", "loadgen.main --concurrency-sweep",
+     "loadgen.bench_serve", "loadgen.bench_fleet",
+     "loadgen.bench_concurrency_sweep"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

@@ -284,7 +284,14 @@ one JSON line:
    directories they leave: rc 0, the tool's keys, no JAX or kafka_tpu
    module in any of their processes (``report_processes_without_jax``),
    and device_report's ``fused_gn_kernel`` row counting the launches
-   phase device_plane's ``--profile-windows`` capture held.
+   phase device_plane's ``--profile-windows`` capture held;
+33. lint (after operator_tools) — the port's source lints over this
+   checkout, ``python -m kafka_tpu_torch.tools.kafkalint --json`` and
+   ``python -m kafka_tpu_torch.tools.check_metric_names`` (through
+   ``tool_child``): rc 0 from both, no finding, every baseline entry
+   matched, no JAX, ``kafka_tpu`` or top-level ``tools`` module in
+   either process; the finding, baseline and metric-name counts and the
+   seconds.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -534,6 +541,14 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _mem():
+    """The port's device-memory funnel (``telemetry.device``): peak
+    windows, allocated and card bytes."""
+    from kafka_tpu_torch.telemetry import device as device_tel
+
+    return device_tel
 
 
 def _sync(device):
@@ -976,7 +991,7 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0,
         return fused_gn_rows(*args, **kwargs)
 
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     solvers.fused_gn_rows = keep
     try:
         fused_gn_rows.launches = 0
@@ -995,7 +1010,7 @@ def phase_main(device, ny: int = TILE, nx: int = TILE, seed: int = 0,
         "n_pad": kf.gather.n_pad, "windows": len(TIP_GRID_DAYS) - 1,
         "dates_assimilated": len(dates), "kernel_launches": launches,
         "outputs_finite": finite, "setup_s": setup_s, "run_s": run_s,
-        "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+        "peak_device_bytes": (_mem().peak_bytes(device)
                               if device.type == "cuda" else None),
         "kept_date": KEEP_DATE,
         "per_date": per_date,
@@ -1262,10 +1277,10 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
             kept_date_args.update(args=args, kwargs=kwargs)
         cuda = device.type == "cuda"
         if cuda:
-            torch.cuda.reset_peak_memory_stats(device)
+            _mem().reset_peak(device)
         res = real_solve(*args, **kwargs)
         _sync(device)
-        peaks.append(torch.cuda.max_memory_allocated(device) if cuda
+        peaks.append(_mem().peak_bytes(device) if cuda
                      else None)
         return res
 
@@ -1417,6 +1432,8 @@ def phase_kernel_update(device, label: str, rows: dict,
     rec = {
         "phase": "kernel_update", "case": label, "n_pix": n, "p": p,
         "bands": nb, "finite": finite,
+        # kafkalint: disable=nonfinite-launder — the error measure of a
+        # kernel-vs-plain comparison; non-finite pixels are counted apart.
         "max_abs_err": {nm: float((a - b).nan_to_num().abs().max())
                         for nm, a, b in zip(("x", "A", "inn"), kern, plain)},
         "pixels_differing_from_plain": exact,
@@ -1637,6 +1654,8 @@ def phase_kernel_solve(device, label: str, a_rows, b_rows,
             "ctas_per_sm")}},
         "path_equals_kernel": pixels_differing(x_path.T.contiguous(),
                                                kern) == 0,
+        # kafkalint: disable=nonfinite-launder — the error measure of a
+        # kernel-vs-plain comparison; non-finite pixels are counted apart.
         "max_abs_err": float((kern - plain).nan_to_num().abs().max()),
         "pixels_differing_from_plain": pixels_differing(kern, plain),
         "nonfinite_pixels": int(nonfinite.sum()),
@@ -1874,7 +1893,7 @@ def writer_snapshot_check(device, folder: str) -> dict:
     expect = g.scatter(x[:, 0].cpu().numpy())
     _sync(device)
     cuda = device.type == "cuda"
-    before = torch.cuda.memory_allocated(device) if cuda else 0
+    before = _mem().allocated_bytes(device) if cuda else 0
     out = GeoTIFFOutput(("a", "b"), (0.0, 1.0, 0.0, 0.0, 0.0, -1.0),
                         folder=folder, async_writes=True)
     ts = datetime.datetime(2017, 7, 2)
@@ -1882,7 +1901,7 @@ def writer_snapshot_check(device, folder: str) -> dict:
     x.fill_(-1.0)
     del x
     out.close()
-    after = torch.cuda.memory_allocated(device) if cuda else 0
+    after = _mem().allocated_bytes(device) if cuda else 0
     got, _ = read_geotiff(os.path.join(folder, "a_A2017183.tif"))
     return {"snapshot_holds": same_bits(got, expect),
             "device_bytes_freed_after_close": before - after}
@@ -1969,7 +1988,7 @@ def phase_cli(device, workdir: str, ny: int = TILE, nx: int = TILE,
     Checkpointer.save = timed_save
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     printed = io.StringIO()
     try:
         fused_gn_rows.launches = 0
@@ -1983,7 +2002,7 @@ def phase_cli(device, workdir: str, ny: int = TILE, nx: int = TILE,
         solvers.assimilate_windows_scan = real_scan
         Checkpointer.save = real_save
     print(printed.getvalue(), end="", flush=True)
-    peak_bytes = torch.cuda.max_memory_allocated(device) if cuda else None
+    peak_bytes = _mem().peak_bytes(device) if cuda else None
     kf, tee = captured["kf"], captured["tee"]
     failures = []
     if json.loads(printed.getvalue().strip().splitlines()[-1]) != summary:
@@ -2210,11 +2229,11 @@ class UpdateKeeper:
                 # The peak since the last date's read (propagation,
                 # observation reads), before the counter restarts.
                 self._between.append(
-                    torch.cuda.max_memory_allocated(self.device))
-                torch.cuda.reset_peak_memory_stats(self.device)
+                    _mem().peak_bytes(self.device))
+                _mem().reset_peak(self.device)
             res = real_solve(*args, **kwargs)
             _sync(self.device)
-            self.peaks.append(torch.cuda.max_memory_allocated(self.device)
+            self.peaks.append(_mem().peak_bytes(self.device)
                               if cuda else None)
             mask = res[2].converged_mask
             self.frozen.append(None if mask is None else mask.cpu())
@@ -2262,7 +2281,7 @@ class UpdateKeeper:
         if self.device.type != "cuda":
             return None
         return max(self.peaks + self._between
-                   + [torch.cuda.max_memory_allocated(self.device)])
+                   + [_mem().peak_bytes(self.device)])
 
 
 class CheckingOutput:
@@ -2353,7 +2372,7 @@ def phase_main_joint(device, ny: int = S2_TILE, nx: int = S2_TILE,
 
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with UpdateKeeper(device, JOINT_KEEP) as keeper:
         reset_launches()
         t0 = time.perf_counter()
@@ -2461,7 +2480,7 @@ def phase_cli_wcm(device, workdir: str, ny: int = TILE, nx: int = TILE,
     rs.GeoTIFFOutput, rs._make_filter = tee_factory, make_filter
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     printed = io.StringIO()
     try:
         with UpdateKeeper(device, {(2, 2): CLI_KEEP_DATE}) as keeper, \
@@ -2710,7 +2729,7 @@ def phase_cli_s2(device, workdir: str, ny: int = CLI_S2_TILE,
 
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with UpdateKeeper(device, {(10, 10): CLI_S2_KEEP_DATE}) as keeper, \
             DriverProbe(Sentinel2Observations) as probe:
         reset_launches()
@@ -2874,12 +2893,12 @@ def phase_cli_modis(device, workdir: str, ny: int = TILE, nx: int = TILE,
 
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with DriverProbe(BHRObservations, keep_gn=CLI_MODIS_KEEP_DATE) as probe:
         reset_launches()
         stats, printed, _ = run_driver(run_modis.main, argv)
         launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    peak = _mem().peak_bytes(device) if cuda else None
     failures = []
     if printed != stats:
         failures.append("the printed line is not the stats")
@@ -3015,14 +3034,14 @@ def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
 
     opts = {"per_pixel_convergence": True, "linearize_block": ONE_BLOCK}
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with use(MetricsRegistry()) as reg, \
             UpdateKeeper(device, {(7, 2): PER_PIXEL_KEEP_DATE}) as keeper:
         reset_launches()
         kf, out, run_s = tip_tile_run(device, ny, nx, seed, opts)
         launches = launch_counts()
         peak = keeper.run_peak()
-    gauge = reg.gauge("kafka_engine_converged_frac").value()
+    gauge = reg.value("kafka_engine_converged_frac")
     dates = kf.diagnostics_log
     n_valid = kf.gather.n_valid
     iterations = sum(r["n_iterations"] for r in dates)
@@ -3111,7 +3130,7 @@ def phase_band_seq(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     window = {"grid_days": (0, 16), "obs_days": (3, 10)}
     opts = {"linearize_block": ONE_BLOCK}
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with UpdateKeeper(device, {(7, 1): 0}) as keeper:
         reset_launches()
         kf, out, run_s = tip_tile_run(device, ny, nx, seed, opts,
@@ -3238,7 +3257,7 @@ def phase_band_seq_fleet(device, ny: int = BAND_SEQ_FLEET_TILE,
     for name, inst, kf, grid, x0, p_inv0 in band_seq_fleet_runs(
             device, ny, nx, seed):
         if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
+            _mem().reset_peak(device)
         with UpdateKeeper(device, {inst: 0}) as keeper:
             reset_launches()
             t0 = time.perf_counter()
@@ -3505,7 +3524,7 @@ def phase_cli_mod09(device, workdir: str, ny: int = TILE, nx: int = TILE,
 
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with DriverProbe(MOD09Observations) as probe, \
             UpdateKeeper(device, {"dense": CLI_MOD09_KEEP_DATE}) as keeper:
         reset_launches()
@@ -3730,7 +3749,7 @@ def phase_smooth(device, workdir: str, ny: int = TILE, nx: int = TILE,
             "--device", str(device)]
     reset_launches()
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     with patched(
             (rts_pass, "rts_sweep", _timed(sweep_s, sweep, device)),
             (rts_pass, "load_chain", _timed(load_s, load, device)),
@@ -3744,7 +3763,7 @@ def phase_smooth(device, workdir: str, ny: int = TILE, nx: int = TILE,
             summary = ks.main(argv)
         wall = time.perf_counter() - t0
     launches = launch_counts()
-    peak = (torch.cuda.max_memory_allocated(device)
+    peak = (_mem().peak_bytes(device)
             if device.type == "cuda" else None)
     failures = []
     if not results or "failed" in summary:
@@ -4400,10 +4419,10 @@ def phase_mesh(device, main_run: dict, s2_run: dict, ny: int = TILE,
 
     def peak_reset():
         if cuda:
-            torch.cuda.reset_peak_memory_stats(device)
+            _mem().reset_peak(device)
 
     def peak():
-        return torch.cuda.max_memory_allocated(device) if cuda else None
+        return _mem().peak_bytes(device) if cuda else None
 
     def tile_on(shards: int) -> dict:
         mesh = make_pixel_mesh([device] * shards)
@@ -4589,7 +4608,7 @@ def phase_distributed(device, workdir: str, ny: int = TILE, nx: int = TILE,
     argv = ["--config", cfg_path, "--device", str(device)]
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        _mem().reset_peak(device)
     reset_launches()
     stats, printed, one_s = run_driver(dist.main, argv + ["--outdir", one])
     launches = launch_counts()
@@ -4648,7 +4667,7 @@ def phase_distributed(device, workdir: str, ny: int = TILE, nx: int = TILE,
         "one_process": {"stats": stats, "wall_s": one_s,
                         "kernel_launches": launches,
                         "peak_device_bytes": (
-                            torch.cuda.max_memory_allocated(device)
+                            _mem().peak_bytes(device)
                             if cuda else None)},
         "ranks": [None if r is None else {
             k: r.get(k) for k in ("run", "assigned", "skipped", "wall_s",
@@ -4748,6 +4767,8 @@ def phase_queue(device, workdir: str, ny: int = TILE, nx: int = TILE,
                 time.monotonic() < deadline:
             victim = _lease_holder(fleet, parent.pid)
             if victim is None:
+                # kafkalint: disable=ad-hoc-retry — harness poll for the
+                # child that holds a lease, bounded by its deadline.
                 time.sleep(0.02)
         if victim is not None:
             os.kill(victim[1], signal.SIGKILL)
@@ -4906,6 +4927,9 @@ class Scraper:
         self.interval_s = interval_s
         self.last, self.answers, self.errors = {}, {}, 0
         self.stop_event = threading.Event()
+        # kafkalint: disable=untracked-thread — an external scraper's
+        # model: it reads the endpoint as another process would, outside
+        # the run's trace.
         self.thread = threading.Thread(target=self._run, daemon=True,
                                        name="chip-smoke-scraper")
 
@@ -5053,6 +5077,8 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
             # The health probe, asked from a thread of its own while the
             # run goes on (after the capture, so its launches stay out of
             # the captured count); joined after the run.
+            # kafkalint: disable=untracked-thread — an HTTP client of
+            # the endpoint, outside the run's trace.
             probe["thread"] = threading.Thread(
                 target=lambda: probe.update(
                     answer=http_get(url + "/healthz?probe=1")),
@@ -5164,7 +5190,7 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
         failures.append(f"kafka_perf_px_steps_per_s {px_rate}")
     peak = max((values.get("kafka_device_memory_peak_bytes") or {})
                .values(), default=None)
-    card_bytes = torch.cuda.mem_get_info(device)[1] \
+    card_bytes = _mem().mem_info(device)[1] \
         if device.type == "cuda" else None
     if device.type == "cuda" and (peak is None or not
                                   0 < peak <= card_bytes):
@@ -5242,7 +5268,7 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     oom = {"raised": None}
     with use(MetricsRegistry()):
         recorder = flight_recorder.FlightRecorder(oom_dir)
-        too_big = (torch.cuda.mem_get_info(device)[1] + (1 << 30)
+        too_big = (_mem().mem_info(device)[1] + (1 << 30)
                    if device.type == "cuda" else None)
         try:
             with recorder:
@@ -5275,6 +5301,8 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
     pz = {}
     with use(MetricsRegistry(os.path.join(workdir, "dp_profilez"))) as preg:
         httpd = TelemetryHTTPd(port=0, registry=preg).start()
+        # kafkalint: disable=untracked-thread — an HTTP client of the
+        # endpoint, outside the run's trace.
         asker = threading.Thread(target=lambda: pz.update(answer=http_get(
             httpd.url + "/profilez?seconds=1")), daemon=True)
         try:
@@ -5533,6 +5561,8 @@ def profilez_loop(device, workdir: str, work, captures: int, read,
                 if status == 200:
                     reads.append(read(reg))
 
+        # kafkalint: disable=untracked-thread — an HTTP client of the
+        # endpoint, outside the run's trace.
         asker = threading.Thread(target=ask, daemon=True)
         try:
             if extra is not None:
@@ -5542,6 +5572,8 @@ def profilez_loop(device, workdir: str, work, captures: int, read,
                 work()
                 _sync(device)
                 works += 1
+                # kafkalint: disable=ad-hoc-retry — the measured pause
+                # between the launching thread's work items.
                 time.sleep(pause_s)
             asker.join(timeout=120)
         finally:
@@ -5617,6 +5649,8 @@ def copier_profilez(device, rows: dict, workdir: str, n_floats: int,
             back = host.to(device).cpu()
             copies[0] += int(back.numel() == n_floats)
 
+    # kafkalint: disable=untracked-thread — synthetic copy load that
+    # launches no package kernel; it records no span.
     extra = threading.Thread(target=copier, name=COPIER_THREAD,
                              daemon=True)
     try:
@@ -5656,7 +5690,7 @@ FULL_WIDTH = 4_608_000
 FULL_WIDTH_GATED = "date_twostream_inkernel"
 FULL_WIDTH_RECORDED = "date_twostream_jac_to_rows"
 SYNC_WARNING = "called a synchronizing CUDA operation"
-CONTRACTS_BUDGET_S = 30.0
+CONTRACTS_LIMIT_S = 30.0
 
 
 def kernel_nodes() -> dict:
@@ -5871,7 +5905,7 @@ def phase_contracts(device, names=None, full_width: int = FULL_WIDTH,
     runs = list(progs.values()) + list(width.values())
     rec = {"phase": "contracts", "programs": progs, "full_width": width,
            "torch": torch.__version__, "wall_s": wall,
-           "budget_s": CONTRACTS_BUDGET_S,
+           "budget_s": CONTRACTS_LIMIT_S,
            "kernel_launches": {k: sum(r["launches"].get(k, 0) for r in runs)
                                for k in sorted({k for r in runs
                                                 for k in r["launches"]})},
@@ -5981,8 +6015,10 @@ def _outputs_equal(a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.is_floating_point():
-        return bool(torch.equal(a.isnan(), b.isnan())
-                    and torch.equal(a.nan_to_num(), b.nan_to_num()))
+        same_nan = torch.equal(a.isnan(), b.isnan())
+        # kafkalint: disable=nonfinite-launder — bit equality with NaN
+        # equal to NaN: the NaN masks are compared first.
+        return bool(same_nan and torch.equal(a.nan_to_num(), b.nan_to_num()))
     return bool(torch.equal(a, b))
 
 
@@ -6249,7 +6285,7 @@ def route_replica() -> None:
     print(json.dumps({
         "route_replica": True, "serve_s": time.perf_counter() - t0,
         "launches": launch_counts(), "plain_calls": plain,
-        "max_memory_allocated": torch.cuda.max_memory_allocated()
+        "max_memory_allocated": _mem().peak_bytes()
         if cuda else None,
         "summary": {k: summary.get(k) for k in (
             "admitted", "rejected", "errors", "drained")}}), flush=True)
@@ -6371,6 +6407,8 @@ def phase_route(device, workdir: str, serve_shas=None, ny: int = TILE,
                         "heartbeat")
             if time.monotonic() > deadline:
                 raise AssertionError("route: a replica never heartbeat")
+            # kafkalint: disable=ad-hoc-retry — harness poll for the
+            # replicas' first heartbeats, bounded by its deadline.
             time.sleep(0.05)
         port = _free_port()
         router_tel = os.path.join(fleet, "router")
@@ -6394,6 +6432,8 @@ def phase_route(device, workdir: str, serve_shas=None, ny: int = TILE,
             if router.poll() is not None or time.monotonic() > deadline:
                 raise AssertionError("route: the router never answered "
                                      f"/healthz ({router.poll()})")
+            # kafkalint: disable=ad-hoc-retry — harness poll for the
+            # router's /healthz, bounded by its deadline.
             time.sleep(0.05)
 
         dates = synthetic_dates(DEFAULT_BASE_DATE, days, 2)
@@ -6437,6 +6477,8 @@ def phase_route(device, workdir: str, serve_shas=None, ny: int = TILE,
                 raise AssertionError(
                     f"route: {len(rids) - len(relayed_at)} requests "
                     f"unanswered after {ROUTE_CHILD_TIMEOUT_S} s")
+            # kafkalint: disable=ad-hoc-retry — harness poll for the
+            # relayed answers, bounded by its deadline.
             time.sleep(0.002)
         metrics = http_get(url + "/metrics", timeout=30.0)[1]
         statusz = http_get(url + "/statusz", timeout=30.0)
@@ -6856,10 +6898,15 @@ def loadgen_root_drive(device, workdir: str, serve_shas=None,
         finally:
             deadline = time.monotonic() + TOOLS_LOAD_TIMEOUT_S
             while "it" not in daemon and time.monotonic() < deadline:
+                # kafkalint: disable=ad-hoc-retry — harness wait for the
+                # daemon thread to publish itself, bounded.
                 time.sleep(0.05)
             if "it" in daemon:
                 daemon["it"].drain()
 
+    # kafkalint: disable=untracked-thread — the load generator's
+    # carrier; the daemon's own service worker follows the tracing
+    # convention.
     thread = threading.Thread(target=driver, name="loadgen-driver",
                               daemon=True)
     reset_launches()
@@ -7066,6 +7113,87 @@ def phase_operator_tools(device, workdir: str, serve_shas=None,
     return rec
 
 
+# -- phase lint --------------------------------------------------------
+
+#: phase lint: the port's source lints, each run as ``python -m
+#: kafka_tpu_torch.tools.<name> <checkout> <args>`` through ``tool_child``.
+LINT_TOOLS = (("kafkalint", ("--json",)), ("check_metric_names", ()))
+LINT_TIMEOUT_S = 300
+
+
+def phase_lint(root=None) -> dict:
+    """The port's source lints over the checkout this smoke runs in
+    (``root``, by default this file's directory), both started at once:
+    ``kafkalint --json`` and ``check_metric_names``.  Gates: rc 0 from
+    both, no finding, every baseline entry matched, and no module of
+    FOREIGN_ROOTS (JAX, the JAX package, its top-level ``tools``) in
+    either process.  Records the finding, baseline and metric-name
+    counts and the seconds."""
+    import re
+
+    from kafka_tpu_torch.cli import drivers
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(root or here)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.tool_child()",
+         f"kafka_tpu_torch.tools.{name}", root, *argv],
+        cwd=here, env=drivers.child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, argv in LINT_TOOLS}
+    runs = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=LINT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        runs[name] = {"rc": proc.returncode,
+                      "wall_s": time.perf_counter() - t0,
+                      "foreign_modules": (_last_json(stderr) or {}).get(
+                          "foreign_modules"),
+                      "stdout": stdout, "stderr": stderr}
+    try:
+        lint = json.loads(runs["kafkalint"]["stdout"])
+    except ValueError:
+        lint = None
+    names = re.search(r"(\d+) metric names OK",
+                      runs["check_metric_names"]["stdout"])
+    failures = [f"{name}: rc {r['rc']}: {r['stderr'][-800:]}"
+                for name, r in runs.items() if r["rc"] != 0]
+    failures += [f"{name} imported {r['foreign_modules']}"
+                 for name, r in runs.items() if r["foreign_modules"]]
+    failures += [f"{name} printed no module check"
+                 for name, r in runs.items()
+                 if r["foreign_modules"] is None]
+    if lint is None:
+        failures.append("kafkalint printed no --json report")
+    else:
+        failures += [f"finding {f['path']}:{f['line']} [{f['rule']}]"
+                     for f in lint["findings"][:20]]
+        if lint["baseline"]["matched"] < lint["baseline"]["entries"]:
+            failures.append("a baseline entry matched no finding")
+    rec = {
+        "phase": "lint", "root": root,
+        "files_scanned": lint and lint["files_scanned"],
+        "rules": lint and len(lint["rules"]),
+        "findings": lint and len(lint["findings"]),
+        "baseline_entries": lint and lint["baseline"]["entries"],
+        "baseline_matched": lint and lint["baseline"]["matched"],
+        "metric_names": int(names.group(1)) if names else None,
+        "rc": {name: r["rc"] for name, r in runs.items()},
+        "processes_without_jax": all(r["foreign_modules"] == []
+                                     for r in runs.values()),
+        "seconds": {"phase": time.perf_counter() - t0,
+                    **{name: r["wall_s"] for name, r in runs.items()}},
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("lint: " + "; ".join(failures))
+    return rec
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -7268,6 +7396,7 @@ def main() -> int:
             ["fused_gn_launches_captured"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    phase_lint()
     route_gn = sum(c["launches"]["fused_gn"]
                    for c in route_rec["replicas_out"].values() if c)
     path_launches = {

@@ -77,13 +77,11 @@ def all_ranks(stats: dict) -> dict:
 def _peak_device_bytes(device):
     """This process's peak CUDA allocation on ``device`` (None off
     CUDA)."""
-    import torch
-
     from .. import resolve_device
+    from ..telemetry import device as device_tel
 
     dev = resolve_device(device)
-    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
-        else None
+    return device_tel.peak_bytes(dev) if dev.type == "cuda" else None
 
 
 def main(argv=None):

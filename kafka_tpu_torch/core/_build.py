@@ -31,7 +31,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -106,6 +105,8 @@ def _notify(name: str) -> None:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact build exists; return
     the shared library's path."""
+    from ..telemetry.spans import stopwatch
+
     src = CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(src)
@@ -121,9 +122,9 @@ def build(name: str) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}.{os.getpid()}.so"
     cmd = [nvcc, *_flags(name), "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
+    watch = stopwatch()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    seconds = watch.elapsed()
     text = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(

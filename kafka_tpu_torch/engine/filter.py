@@ -71,7 +71,6 @@ from __future__ import annotations
 import datetime
 import functools
 import logging
-import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -87,7 +86,7 @@ from ..core.types import BandBatch
 from ..resilience import (DEFAULT_READ_POLICY, TRANSIENT, DegradedDateError,
                           RetryPolicy, classify_failure, faults)
 from ..telemetry import (devprof, fetch_scalars, get_registry, perf, quality,
-                         record_memory_watermark, span, tracing)
+                         record_memory_watermark, span, stopwatch, tracing)
 from ..telemetry.device import use_device
 from ..utils.profiling import trace
 from .prefetch import ObservationPrefetcher
@@ -431,7 +430,7 @@ class KalmanFilter:
                 LOG.info("Skipping degraded date %s (predict-only)", date)
                 continue
             faults.fault_point("device.oom", date=str(date))
-            t0 = time.perf_counter()
+            t0 = stopwatch()
             opts = self.date_solver_options(obs.operator)
             if self.band_sequential:
                 x_a, p_inv_a, diags = self._assimilate_band_sequential(
@@ -586,7 +585,7 @@ class KalmanFilter:
             "bounds_clipped": int(packed[2]),
             "nodata": self._nodata_valid(int(packed[3]), n_bands),
             "chi2_per_band": [float(v) for v in packed[4:4 + n_bands]],
-            "wall_s": time.perf_counter() - t0,
+            "wall_s": t0.elapsed(),
         }
         if has_frac:
             rec["converged_frac"] = float(packed[4 + n_bands])
@@ -941,7 +940,7 @@ class KalmanFilter:
         first = block[0][1]
         opts = self.date_solver_options(first.operator)
         faults.fault_point("device.oom", date=str(block[0][0]))
-        t0 = time.perf_counter()
+        t0 = stopwatch()
         bands = BandBatch(*(_stack_block([getattr(o.bands, f)
                                           for _, o in block])
                             for f in BandBatch._fields))
@@ -1018,7 +1017,7 @@ class KalmanFilter:
                         wstats.nonfinite_count.float(),
                         wstats.clip_saturated_count.float().reshape(-1)]
         packed = fetch_scalars(torch.cat(scalars))
-        wall = time.perf_counter() - t0
+        wall = t0.elapsed()
         chi0 = 4 * k
         h0 = chi0 + k * n_bands + (k if converged is not None else 0)
         for j, ts in enumerate(timesteps):

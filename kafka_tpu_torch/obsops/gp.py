@@ -108,6 +108,8 @@ def fit_gp(x_train: np.ndarray, y_train: np.ndarray,
 
 
 def save_gp(path: str, params: GPParams) -> None:
+    # kafkalint: disable=host-transfer-in-jit — writing the bank to disk
+    # reads it to the host, once, off the assimilation path.
     np.savez(path, **{f: getattr(params, f).detach().cpu().numpy()
                       for f in params._fields})
 

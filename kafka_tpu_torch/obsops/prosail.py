@@ -49,6 +49,8 @@ def _tav_host(alpha_deg: float, n: np.ndarray) -> np.ndarray:
     cone of half-angle ``alpha`` (PROSPECT's ``tav``), by numerical
     integration on the host; per-band constants only."""
     theta = np.linspace(0.0, np.deg2rad(alpha_deg), 512)[None, :]
+    # kafkalint: disable=implicit-f64 — host-only per-band constant, f64
+    # is the point of the exact integration (never on the device)
     n = np.asarray(n, np.float64)[:, None]
     sin_t = np.sin(theta)
     cos_t = np.cos(theta)

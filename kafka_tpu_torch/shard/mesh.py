@@ -93,6 +93,8 @@ class PixelShards:
         return torch.cat([s.to(dev) for s in self.shards], dim=self.axis)
 
     def __array__(self, dtype=None, copy=None):
+        # kafkalint: disable=host-transfer-in-jit — numpy conversion of a
+        # sharded value is a host read by request of the caller.
         out = np.concatenate([s.detach().cpu().numpy() for s in self.shards],
                              axis=self.axis)
         return out if dtype is None else out.astype(dtype)

@@ -93,6 +93,38 @@ def used_devices() -> List[int]:
         return sorted(_used)
 
 
+def reset_peak(device=None) -> None:
+    """Start a new peak window of the CUDA caching allocator on
+    ``device`` (``torch.cuda.reset_peak_memory_stats``): callers that
+    measure a phase's peak read it through :func:`peak_bytes`."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_bytes(device=None) -> int:
+    """Peak CUDA allocation on ``device`` since the process started or
+    the last :func:`reset_peak` (``torch.cuda.max_memory_allocated``)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(device)
+
+
+def allocated_bytes(device=None) -> int:
+    """CUDA bytes allocated on ``device`` now
+    (``torch.cuda.memory_allocated``)."""
+    import torch
+
+    return torch.cuda.memory_allocated(device)
+
+
+def mem_info(device=None):
+    """``(free, total)`` bytes of the card (``torch.cuda.mem_get_info``)."""
+    import torch
+
+    return torch.cuda.mem_get_info(device)
+
+
 def record_memory_watermark(
     registry: Optional[MetricsRegistry] = None,
 ) -> None:

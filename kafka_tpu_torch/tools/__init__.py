@@ -12,9 +12,12 @@ machine that has no JAX.
 - :mod:`trace_report` — slow-request forensics over the request logs;
 - :mod:`slo_report` — error budgets and alert episodes from
   ``alerts.jsonl``;
-- :mod:`quality_report` — per-tile scorecards from ``quality.jsonl``.
+- :mod:`quality_report` — per-tile scorecards from ``quality.jsonl``;
+- :mod:`kafkalint` and :mod:`check_metric_names` — the source lints
+  over the port's own source (``kafka_tpu_torch/``, ``chip_smoke.py``).
 
 Each runs as ``python -m kafka_tpu_torch.tools.<name>`` with the JAX
 tool's flags, output and exit codes.  The report tools touch no device;
-``loadgen``'s in-process modes take ``--device`` (CUDA by default).
+``loadgen``'s in-process modes take ``--device`` (CUDA by default);
+the lints read source text only.
 """

@@ -1,0 +1,8 @@
+"""``python -m kafka_tpu_torch.tools.kafkalint`` entry point."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -321,7 +321,8 @@ def test_the_port_registers_the_jax_names_less_the_routers():
     """Every metric name of the JAX package, the router's nine
     ``kafka_route_*`` included (nothing is left out now), with the JAX
     kinds, help strings and buckets."""
-    from tools.kafkalint.rules_telemetry import REGISTRATION_RE
+    from kafka_tpu_torch.tools.kafkalint.rules_telemetry import \
+        REGISTRATION_RE
 
     def regex_names(pkg):
         return {m.group(2) for p in (REPO / pkg).rglob("*.py")

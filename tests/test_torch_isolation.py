@@ -175,7 +175,13 @@ TOOL_RUNS = {
     "trace_report": ["{d}", "--unattributed"],
     "fleet_status": ["{d}", "--json"],
     "loadgen": ["--root", "{d}", "--requests", "0"],
+    "kafkalint": ["{d}", "--json"],
+    "check_metric_names": ["{d}"],
 }
+
+#: the JAX module whose ``main`` each tool is held to, where it is not
+#: ``tools.<name>``.
+JAX_MAINS = {"kafkalint": "tools.kafkalint.cli"}
 
 
 @pytest.fixture(scope="module")
@@ -209,13 +215,31 @@ def test_tool_runs_with_jax_kafka_tpu_and_tools_blocked(name, blocked_runs,
 
     argv, rc, text = blocked_runs[name]
     assert "ModuleNotFoundError" not in text, text[-2000:]
-    jax_tool = importlib.import_module(f"tools.{name}")
+    jax_tool = importlib.import_module(JAX_MAINS.get(name, f"tools.{name}"))
     try:
         want = jax_tool.main(list(argv))
     except SystemExit as exc:
         want = exc.code
     capsys.readouterr()
     assert rc == want, text[-2000:]
+
+
+def test_source_lints_pass_the_checkout_with_jax_kafka_tpu_and_tools_blocked():
+    """The card's machine runs both lints over its checkout: clean, and
+    with nothing of JAX, the JAX package or its ``tools`` loaded."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", BLOCKED_RUN,
+         f"kafka_tpu_torch.tools.{name}", str(REPO)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("kafkalint", "check_metric_names")}
+    out = {name: (proc.communicate(timeout=300)[0], proc.returncode)
+           for name, proc in procs.items()}
+    for name, (text, rc) in out.items():
+        assert rc == 0 and "ModuleNotFoundError" not in text, (name, text)
+    assert "kafkalint: clean" in out["kafkalint"][0]
+    assert "95 metric names OK" in out["check_metric_names"][0]
 
 
 def _entry_points():

@@ -140,13 +140,13 @@ one JSON line:
    chunk date, and the propagation.  Reduced: 4 of the config's 30
    days (8 until the fleet phases were added), 1200 x 1200 chunks
    instead of 256 x 256;
-18. per_pixel — phase main's tile run with per_pixel_convergence: (7, 2)
-   fused-update launches equal the iterations, the converged fraction
-   and its gauge equal the frozen mask's mean, held to the plain loop
-   (use_pallas False) as phase reference holds its runs; the first date
-   again in the engine's default linearisation blocks, its wall
-   recorded; then kernel_update on a kept iteration's inputs (0 pixels
-   may differ);
+18. per_pixel — phase main's tile run (its first window, 2 dates) with
+   per_pixel_convergence: (7, 2) fused-update launches equal the
+   iterations, the converged fraction and its gauge equal the frozen
+   mask's mean, held to the plain loop (use_pallas False) as phase
+   reference holds its runs; the first date again in the engine's
+   default linearisation blocks, its wall recorded; then kernel_update
+   on a kept iteration's inputs (0 pixels may differ);
 19. band_seq — one window of the tile with band_sequential: (7, 1)
    launches equal the per-band iterations, no block fused, held to the
    plain loop; kernel_update and faults_update at (7, 1) on kept
@@ -291,7 +291,25 @@ one JSON line:
    ``tool_child``): rc 0 from both, no finding, every baseline entry
    matched, no JAX, ``kafka_tpu`` or top-level ``tools`` module in
    either process; the finding, baseline and metric-name counts and the
-   seconds.
+   seconds;
+34. bench (beside lint: its child runs while phase lint does) — the
+   port's bench tools in a fresh process (``bench_child``) that imports
+   no JAX: the bench's row functions at the JAX bench's widths (the
+   health probe, the 16,384-px oracle, the TIP date solve at 16,384 and
+   2^19 px on the plain loop and at 2^19 px through ``fused_update``
+   (7, 2) and ``fused_gn``, the Barrax e2e at 204 x 235 px and 3 dates
+   through ``fused_update`` (10, 10), the smoother),
+   ``assemble_result`` (the contracts snapshot taken from phase
+   contracts' census), ``bench_compare`` of the artifact against
+   itself, ``bench_history`` over it, ``roofline --n 524288`` and
+   ``measure_baseline barrax`` and ``oracle``.  Depth cut to fit
+   (BENCH_SLOPE, one e2e pass, one oracle rep), widths not.  Gates: the
+   artifact's keys the JAX bench's (BENCH_KEYS), both kernel rows
+   finite, fused_gn and fused_update (7, 2) and (10, 10) launched in the
+   phase, every roofline component at most BENCH_SHARE_LIMIT of its
+   bound, the roofline's kernel bounds equal to this script's
+   ``bound()`` of the same launches, every tool's exit code 0, no JAX
+   module, and the phase within BENCH_LIMIT_S.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -302,6 +320,7 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -475,8 +494,13 @@ CLI_MOD09_KEEP_DATE = 1
 #: the median b1_iso of the last window within this of the truth (the
 #: JAX driver test's budget, tests/test_drivers.py:228-231).
 MOD09_ISO_GATE = 0.02
-#: phase per_pixel keeps the (7, 2) fused update's inputs on this date.
+#: phase per_pixel keeps the (7, 2) fused update's inputs on this date;
+#: its runs cover phase main's first window (2 dates; all 3 windows until
+#: phase bench needed the smoke's time: ~4.8 s a date for the per-pixel
+#: and the plain run together).
 PER_PIXEL_KEEP_DATE = 1
+PER_PIXEL_GRID_DAYS = TIP_GRID_DAYS[:2]
+PER_PIXEL_OBS_DAYS = TIP_OBS_DAYS[:2]
 #: phases per_pixel and band_seq linearise the tile in one block (the
 #: ``linearize_block`` solver option; the same values as the engine's
 #: default ENGINE_BLOCK-px blocks): per block, the eager torch.func
@@ -3014,9 +3038,9 @@ def tip_tile_run(device, ny: int, nx: int, seed: int, solver_options=None,
 
 
 def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
-    """phase main's tile run (6 dates) with per_pixel_convergence (and
-    ONE_BLOCK linearisation): every Gauss-Newton step is one launch of
-    the fused update at (7, 2).
+    """phase main's tile run (its first window: PER_PIXEL_OBS_DAYS) with
+    per_pixel_convergence (and ONE_BLOCK linearisation): every
+    Gauss-Newton step is one launch of the fused update at (7, 2).
     Gates: (7, 2) launches equal the summed iterations, nothing else
     launched; outputs finite; each date's converged_frac and the
     kafka_engine_converged_frac gauge equal the frozen mask's mean over
@@ -3038,7 +3062,9 @@ def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
     with use(MetricsRegistry()) as reg, \
             UpdateKeeper(device, {(7, 2): PER_PIXEL_KEEP_DATE}) as keeper:
         reset_launches()
-        kf, out, run_s = tip_tile_run(device, ny, nx, seed, opts)
+        kf, out, run_s = tip_tile_run(device, ny, nx, seed, opts,
+                                      grid_days=PER_PIXEL_GRID_DAYS,
+                                      obs_days=PER_PIXEL_OBS_DAYS)
         launches = launch_counts()
         peak = keeper.run_peak()
     gauge = reg.value("kafka_engine_converged_frac")
@@ -3062,7 +3088,8 @@ def phase_per_pixel(device, ny: int = TILE, nx: int = TILE, seed: int = 0):
         failures.append(f"converged_frac {recorded}, frozen means {fracs}, "
                         f"gauge {gauge}")
     kf_p, out_p, plain_s = tip_tile_run(
-        device, ny, nx, seed, {**opts, "use_pallas": False})
+        device, ny, nx, seed, {**opts, "use_pallas": False},
+        grid_days=PER_PIXEL_GRID_DAYS, obs_days=PER_PIXEL_OBS_DAYS)
     vs_plain = compare_runs(out, out_p)
     if vs_plain["max_abs_err"] > X_ATOL or not vs_plain["solver_qa_equal"]:
         failures.append(f"against the plain loop: {vs_plain}")
@@ -5463,10 +5490,10 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
 # -- /profilez captures by thread (phases mesh and device_plane) ---------
 
 #: phase mesh: one-second /profilez captures across a 2-shard mesh run of
-#: the tile (20 until phase operator_tools needed the smoke's time: ~1.9 s
-#: a capture); phase device_plane: captures beside a thread that only
-#: copies (a request's resume and dump).
-MESH_CAPTURES = 10
+#: the tile (20 until phase operator_tools, 10 until phase bench needed
+#: the smoke's time: ~1.7 s a capture); phase device_plane: captures
+#: beside a thread that only copies (a request's resume and dump).
+MESH_CAPTURES = 3
 COPY_CAPTURES = 4
 CAPTURE_SECONDS = 1.0
 #: the thread of phase device_plane that copies and launches nothing.
@@ -6241,22 +6268,13 @@ def phase_batch_modes(device, ny: int = TILE, nx: int = TILE,
     return rec
 
 
-def route_replica() -> None:
-    """Phase route's replica process: ``kafka_serve.main`` over the
-    arguments after ``-c``, with the launch counts reset first and the
-    plain versions' calls counted (``--count-plain-as-launches``, for a
-    rehearsal on the CPU, also counts them as launches).  On its way out
-    it prints one JSON line: its launches by kernel, its plain-version
-    calls and its peak device bytes."""
-    import torch
-
-    from kafka_tpu_torch.cli import kafka_serve
+def count_plain_calls(as_launches: bool = False) -> dict:
+    """Wrap the kernels' plain versions for the rest of this process so
+    their calls are counted in the returned dict (by kernel) and, with
+    ``as_launches`` (a rehearsal on the CPU), also counted as launches
+    of their wrappers."""
     from kafka_tpu_torch.core import _build, fused_gn, fused_update
 
-    argv = list(sys.argv[1:])
-    as_launches = "--count-plain-as-launches" in argv
-    if as_launches:
-        argv.remove("--count-plain-as-launches")
     plain = {"fused_gn": 0, "fused_update": 0}
     real_gn = fused_gn.fused_gn_raw_plain
     real_upd = fused_update.fused_update_raw_plain
@@ -6278,6 +6296,25 @@ def route_replica() -> None:
 
     fused_gn.fused_gn_raw_plain = gn
     fused_update.fused_update_raw_plain = upd
+    return plain
+
+
+def route_replica() -> None:
+    """Phase route's replica process: ``kafka_serve.main`` over the
+    arguments after ``-c``, with the launch counts reset first and the
+    plain versions' calls counted (``--count-plain-as-launches``, for a
+    rehearsal on the CPU, also counts them as launches).  On its way out
+    it prints one JSON line: its launches by kernel, its plain-version
+    calls and its peak device bytes."""
+    import torch
+
+    from kafka_tpu_torch.cli import kafka_serve
+
+    argv = list(sys.argv[1:])
+    as_launches = "--count-plain-as-launches" in argv
+    if as_launches:
+        argv.remove("--count-plain-as-launches")
+    plain = count_plain_calls(as_launches)
     reset_launches()
     t0 = time.perf_counter()
     summary = kafka_serve.main(argv)
@@ -7194,6 +7231,338 @@ def phase_lint(root=None) -> dict:
     return rec
 
 
+# -- phase bench -------------------------------------------------------
+
+#: phase bench: the JAX bench's widths — the device rows at 2^19 px and
+#: at the reference's 16,384-px chunk (the oracle's size), the Barrax e2e
+#: at bench_end_to_end's defaults (204 x 235 px, 3 dates), roofline at
+#: 2^19 px.  Its depth is cut to fit the smoke: the queued slope's target
+#: and reps (BENCH_SLOPE, BENCH_ROOFLINE_ARGS), one e2e pass, one oracle
+#: rep, one smoother rep.
+BENCH_N_DEVICE = 1 << 19
+BENCH_N_MATCHED = 16384
+BENCH_SLOPE = {"target_s": 0.1, "reps": 2, "ks": (1, 3)}
+BENCH_ROOFLINE_ARGS = ("--reps", "1", "--target-s", "0.1", "--ks", "1,2")
+BENCH_LIMIT_S = 75.0
+BENCH_TIMEOUT_S = 600
+#: a component's time may not fall below its bound by more than this:
+#: the bound is a least time, so a share above 1 is a wrong count or a
+#: wrong clock.
+BENCH_SHARE_LIMIT = 1.05
+#: the roofline components that launch the hand kernels (card only).
+BENCH_KERNEL_COMPONENTS = ("tip/gn_full_pallas", "tip/gn_inkernel",
+                           "prosail/update_pallas")
+#: the JAX bench artifact's key set (``bench.assemble_result``; pinned by
+#: tests/test_bench_schema.py, and this copy by
+#: tests/test_torch_chip_smoke_bench.py).
+BENCH_KEYS = frozenset({
+    "metric", "value", "unit", "vs_baseline", "vs_baseline_at_scale",
+    "oracle_ms_median", "oracle_ms_spread", "oracle_ms_min",
+    "n_pix_device", "n_pix_matched", "device_px_s_matched",
+    "device_ms_matched_median", "device_ms_matched_spread",
+    "device_xla_ms", "device_xla_ms_spread", "device_pallas_ms",
+    "device_pallas_ms_spread", "device_pallas_px_s",
+    "device_pallas_fused_lin_ms", "device_pallas_fused_lin_ms_spread",
+    "device_pallas_fused_lin_px_s", "device_smoother_ms",
+    "device_smoother_px_s", "e2e_pixel_steps_per_s",
+    "e2e_pixel_steps_per_s_spread", "e2e_device_fraction", "e2e_n_pixels",
+    "serve_p50_ms", "serve_p99_ms", "serve_cold_ms", "serve_rejected_total",
+    "serve_requests_total", "serve_smoothed_p50_ms",
+    "serve_smoothed_p99_ms", "serve_trace_coverage", "serve_slowest_ms",
+    "live_telemetry", "serve_fleet_p50_ms", "serve_fleet_p99_ms",
+    "serve_fleet_replicas", "serve_fleet_requests_total",
+    "serve_fleet_rerouted_total", "serve_backoff_total",
+    "serve_slo_alerts_total", "serve_slo_budget_remaining",
+    "probe_device_ms", "probe_host_ms", "probe_retried",
+    "unhealthy_reasons", "probe_host_after_ms", "unhealthy", "serve_sweep",
+    "serve_batched_px_s", "serve_batch_mean_size",
+    "serve_queue_wait_p99_ms", "serve_unbatched_p99_ms",
+    "serve_unbatched_queue_wait_p99_ms", "telemetry", "solver_health",
+    "quality", "perf", "slo", "device_profile", "program_contracts"})
+#: the artifact rows phase bench prints.
+BENCH_ROWS = ("value", "vs_baseline", "vs_baseline_at_scale",
+              "oracle_ms_median", "oracle_ms_min", "device_ms_matched_median",
+              "device_ms_matched_spread", "device_xla_ms",
+              "device_xla_ms_spread", "device_pallas_ms",
+              "device_pallas_ms_spread", "device_pallas_fused_lin_ms",
+              "device_pallas_fused_lin_ms_spread", "device_smoother_ms",
+              "e2e_pixel_steps_per_s", "e2e_device_fraction",
+              "e2e_n_pixels", "probe_device_ms", "probe_host_ms",
+              "probe_host_after_ms", "unhealthy", "unhealthy_reasons")
+
+
+def contracts_snapshot_of(rec: dict) -> dict:
+    """``analysis.contracts_snapshot``'s shape from phase contracts'
+    record: the card census's fingerprint of every program and no
+    finding (the phase raises on one)."""
+    return {"programs": {name: prog["fingerprint"] for name, prog in
+                         sorted(rec["programs"].items())},
+            "findings": 0, "clean": True, "error": None}
+
+
+def bench_run(cfg: dict) -> dict:
+    """Phase bench's work in ``bench_child``'s process: the bench's row
+    functions, ``assemble_result`` (its artifact written to
+    ``cfg["workdir"]/bench.json``), then each tool's ``main`` with its
+    output captured: its exit code, seconds and the launches it made."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kafka_tpu_torch import bench
+    from kafka_tpu_torch.tools import (bench_compare, bench_history,
+                                       measure_baseline, roofline)
+
+    dev = torch.device(cfg["device"])
+    n_device, n_matched = cfg["n_device"], cfg["n_matched"]
+    slope = cfg["slope"]
+    plain = count_plain_calls(cfg["count_plain"])
+    reset_launches()
+    seconds, by_step = {}, {}
+
+    def step(name, fn):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        after = launch_counts()
+        by_step[name] = {
+            "fused_gn": after["fused_gn"] - before["fused_gn"],
+            **{k: n - before["fused_update_by_instance"].get(k, 0)
+               for k, n in after["fused_update_by_instance"].items()
+               if n != before["fused_update_by_instance"].get(k, 0)}}
+        return out
+
+    health = step("probe_health", lambda: bench.probe_health(
+        retry_wait_s=0.0))
+    oracle = step("oracle", lambda: bench.bench_oracle(n_matched, reps=1))
+    rows = step("device_plain", lambda: bench.bench_device_sizes(
+        [n_matched, n_device, n_matched], device=dev, **slope))
+    pallas, fused_lin = step("device_kernels", lambda: bench.
+                             bench_kernel_rows(n_device, device=dev,
+                                               **slope))
+    e2e = step("e2e", lambda: bench.bench_end_to_end(
+        **cfg["e2e"], passes=1, device=dev))
+    smoother = step("smoother", lambda: bench.bench_smoother_rows(
+        reps=1, device=dev))
+    contracts = None
+    if cfg.get("contracts"):
+        with open(cfg["contracts"]) as f:
+            contracts = json.load(f)
+    artifact = step("assemble", lambda: bench.assemble_result(
+        health, oracle=oracle, device_matched=rows[n_matched],
+        device=rows[n_device], pallas=pallas, fused_lin=fused_lin, e2e=e2e,
+        smoother=smoother, host_after_ms=bench.probe_host(),
+        n_matched=n_matched, n_device=n_device,
+        program_contracts=contracts, run_device=dev))
+    path = os.path.join(cfg["workdir"], "bench.json")
+    with open(path, "w") as f:
+        json.dump(artifact, f)
+    roof_path = os.path.join(cfg["workdir"], "roofline.json")
+    e2e_size = [] if cfg["e2e"] == {} else [
+        "--size", str(cfg["e2e"]["ny"]), "--dates",
+        str(cfg["e2e"]["n_dates"])]
+    tools = {}
+    for name, main, argv in (
+            ("bench_compare", bench_compare.main, [path, path]),
+            ("bench_history", bench_history.main, [path, "--json"]),
+            ("roofline", roofline.main,
+             ["--n", str(cfg["roofline_n"]), "--json", roof_path,
+              "--device", cfg["device"], *BENCH_ROOFLINE_ARGS]),
+            ("measure_baseline_barrax", measure_baseline.main,
+             ["barrax", "--passes", "1", "--device", cfg["device"],
+              *e2e_size]),
+            ("measure_baseline_oracle", measure_baseline.main,
+             ["oracle", "--oracle-n", str(n_matched), "--reps", "1"])):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = step(name, lambda: main(argv))
+        tools[name] = {"argv": argv, "rc": rc, "s": seconds[name],
+                       "stdout_tail": out.getvalue()[-600:],
+                       "stderr_tail": err.getvalue()[-1500:]}
+    return {"bench_child": True, "artifact": path, "roofline": roof_path,
+            "seconds": seconds, "launches": launch_counts(),
+            "launches_by_step": by_step, "plain_calls": plain,
+            "tools": tools}
+
+
+def bench_child() -> None:
+    """Phase bench's process: ``python -c "import chip_smoke;
+    chip_smoke.bench_child()" CONFIG.json`` runs ``bench_run`` on the
+    config and prints last one JSON line: its result and every module of
+    FOREIGN_ROOTS the process imported."""
+    with open(sys.argv[1]) as f:
+        cfg = json.load(f)
+    out = bench_run(cfg)
+    out["foreign_modules"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in FOREIGN_ROOTS)
+    print(json.dumps(out), flush=True)
+
+
+def bench_gates(child, artifact, roof, rc: int, wall_s: float,
+                limit_s: float) -> list:
+    """The failures of phase bench: the child's exit code and modules,
+    the artifact's keys and kernel rows, the phase's launches, the
+    roofline's shares and kernel bounds, the tools' exit codes, the
+    wall."""
+    if child is None or rc != 0:
+        return [f"bench child rc {rc}, printed {child is not None}"]
+    failures = []
+    if child["foreign_modules"]:
+        failures.append(f"bench child imported {child['foreign_modules']}")
+    if artifact is None or set(artifact) != BENCH_KEYS:
+        got = set(artifact or ())
+        failures.append(f"artifact keys: missing {sorted(BENCH_KEYS - got)}"
+                        f", extra {sorted(got - BENCH_KEYS)}")
+    for key in ("device_pallas_ms", "device_pallas_fused_lin_ms"):
+        v = (artifact or {}).get(key)
+        if not isinstance(v, (int, float)) or not np.isfinite(v):
+            failures.append(f"{key} is {v}")
+    launched = child["launches"]
+    by_inst = launched["fused_update_by_instance"]
+    if not launched["fused_gn"] or not by_inst.get("7x2") or \
+            not by_inst.get("10x10"):
+        failures.append(f"launches {launched}: fused_gn and fused_update "
+                        "(7, 2) and (10, 10) must each launch")
+    failures += [f"{name}: rc {t['rc']}: {t['stderr_tail'][-500:]}"
+                 for name, t in child["tools"].items() if t["rc"] != 0]
+    rows = {r["component"]: r for r in (roof or {}).get("rows", ())}
+    missing = [c for c in BENCH_KERNEL_COMPONENTS if c not in rows]
+    if missing:
+        failures.append(f"roofline components missing: {missing}")
+    for name, r in rows.items():
+        shares = [r.get("share_of_bound"),
+                  (r.get("pct_hbm_roof_lower_bound") or 0.0) / 100.0]
+        if any(v is None or v > BENCH_SHARE_LIMIT for v in shares):
+            failures.append(f"roofline {name}: share of bound {shares}")
+        want = roofline_kernel_bound(r, roof["n_pix"])
+        if want is not None and \
+                abs(r["bound_ms"] - want) > 1e-9 * want:
+            failures.append(f"roofline {name}: bound {r['bound_ms']} ms, "
+                            f"this script's {want} ms")
+    if wall_s > limit_s:
+        failures.append(f"phase took {wall_s:.1f} s, budget {limit_s} s")
+    return failures
+
+
+def roofline_kernel_bound(row: dict, n: int):
+    """This script's ``bound()`` of the hand-kernel launches a roofline
+    row reports (None for a row without one): the same counts as the
+    kernel phases, so the roofline's bound column is PERF.md's."""
+    kernel = row.get("kernel")
+    if kernel is None:
+        return None
+    k = row["launches"]
+    if kernel == "fused_gn":
+        group = row["group"]
+        return bound(
+            k * 4 * (MIN_FLOATS_PER_PIXEL * n
+                     + MIN_FLOATS_PER_GROUP * (n // group)),
+            k * (FLOPS_PER_PIXEL_TRIP * row["trips"] * group
+                 + FLOPS_PER_PIXEL_ONCE * n))["bound_ms"]
+    p, nb = (int(v) for v in kernel[len("fused_update["):-1].split(","))
+    read, written = update_floats(p, nb)
+    return bound(k * 4.0 * (read + written) * n,
+                 k * update_flops(p, nb) * n)["bound_ms"]
+
+
+def phase_bench(device, workdir: str, contracts=None,
+                n_device: int = BENCH_N_DEVICE,
+                n_matched: int = BENCH_N_MATCHED, e2e=None,
+                roofline_n: int = BENCH_N_DEVICE, slope=None,
+                count_plain: bool = False,
+                limit_s: float = BENCH_LIMIT_S, beside=None) -> dict:
+    """The port's bench tools on ``device`` in a fresh process
+    (``bench_child`` through ``bench_run``), gated by ``bench_gates``.
+    ``contracts`` is phase contracts' record: its census stands in for
+    the artifact's contracts snapshot (``contracts_snapshot_of``), which
+    would trace the 16 programs again.  ``e2e`` overrides the Barrax
+    grid (``ny``, ``nx``, ``n_dates``; a CPU rehearsal) and
+    ``count_plain`` counts the plain versions as launches in the
+    child.  ``beside`` runs in this process while the child runs (main
+    passes phase lint, which touches no device); the child is killed if
+    it raises."""
+    import torch
+
+    from kafka_tpu_torch.cli import drivers
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    cfg = {"device": str(device), "workdir": workdir, "n_device": n_device,
+           "n_matched": n_matched, "e2e": dict(e2e or {}),
+           "roofline_n": roofline_n, "slope": dict(slope or BENCH_SLOPE),
+           "count_plain": count_plain, "contracts": None}
+    if contracts is not None:
+        cfg["contracts"] = os.path.join(workdir, "contracts.json")
+        with open(cfg["contracts"], "w") as f:
+            json.dump(contracts_snapshot_of(contracts), f)
+    cfg_path = os.path.join(workdir, "bench_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    logs = [os.path.join(workdir, f"bench_child.{n}") for n in ("out", "err")]
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.bench_child()", cfg_path],
+            cwd=here, env=drivers.child_env(), stdout=out, stderr=err,
+            text=True)
+        try:
+            if beside is not None:
+                beside()
+            proc.wait(timeout=BENCH_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    stdout, stderr = (pathlib.Path(path).read_text() for path in logs)
+    child = _last_json(stdout)
+    child = child if isinstance(child, dict) and child.get("bench_child") \
+        else None
+    docs = {}
+    for name in ("artifact", "roofline") if child is not None else ():
+        if os.path.exists(child[name]):
+            with open(child[name]) as f:
+                docs[name] = json.load(f)
+    artifact, roof = docs.get("artifact"), docs.get("roofline")
+    failures = bench_gates(child, artifact, roof, proc.returncode, wall,
+                           limit_s)
+    rec = {
+        "phase": "bench", "device": str(device), "rc": proc.returncode,
+        "n_device": n_device, "n_matched": n_matched, "e2e": cfg["e2e"],
+        "slope": cfg["slope"], "roofline_args": list(BENCH_ROOFLINE_ARGS),
+        "rows": {k: (artifact or {}).get(k) for k in BENCH_ROWS},
+        "artifact_keys_match": artifact is not None and
+        set(artifact) == BENCH_KEYS,
+        "roofline": [{k: r.get(k) for k in (
+            "component", "ms", "ms_spread", "min_traffic_bytes",
+            "pct_hbm_roof_lower_bound", "kernel", "launches", "bound_ms",
+            "bound_by", "share_of_bound", "n_iterations")}
+            for r in (roof or {}).get("rows", ())],
+        "launches": child and child["launches"],
+        "launches_by_step": child and child["launches_by_step"],
+        "plain_calls": child and child["plain_calls"],
+        "tools": child and {name: {k: t[k] for k in ("argv", "rc", "s")}
+                            for name, t in child["tools"].items()},
+        "tool_tails": child and {name: t["stdout_tail"][-300:]
+                                 for name, t in child["tools"].items()},
+        "foreign_modules": child and child["foreign_modules"],
+        "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
+        "seconds": {"phase": wall, "budget": limit_s,
+                    **((child or {}).get("seconds") or {})},
+        "stderr_tail": stderr[-1500:] if child is None else None,
+        "failures": failures,
+    }
+    emit(rec)
+    if failures:
+        raise AssertionError("bench: " + "; ".join(failures))
+    return rec
+
+
 def kernel_entry(name, route, source, replaces, launches, path, rec,
                  err_key="x", library_ms=None, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel phase record."""
@@ -7396,7 +7765,12 @@ def main() -> int:
             ["fused_gn_launches_captured"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    phase_lint()
+    os.makedirs(workdir)
+    try:
+        bench_rec = phase_bench(device, workdir, contracts=contracts_rec,
+                                beside=phase_lint)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     route_gn = sum(c["launches"]["fused_gn"]
                    for c in route_rec["replicas_out"].values() if c)
     path_launches = {
@@ -7481,7 +7855,8 @@ def main() -> int:
                    "contracts": contracts_rec["kernel_launches"]
                    .get("fused_gn", 0),
                    "operator_tools_loadgen": tools_rec["loadgen_root"]
-                   ["kernel_launches"]["fused_gn"]},
+                   ["kernel_launches"]["fused_gn"],
+                   "bench": bench_rec["launches"]["fused_gn"]},
             at_serve_batch_round={
                 **at(batch_gn),
                 "path": "phase serve_batch: a coalesced round of two "
@@ -7533,7 +7908,8 @@ def main() -> int:
                    **{f"operator_tools_{name}": m["kernel_launches"]
                       ["fused_update_by_instance"].get(
                           TOOLS_MODES_INSTANCE, 0)
-                      for name, m in tools_rec["modes"].items()}},
+                      for name, m in tools_rec["modes"].items()},
+                   "bench": bench_rec["launches"]["fused_update"]},
             at_serve_batch_round={
                 **at(batch_upd),
                 "path": "phase serve_batch: a coalesced round of two "

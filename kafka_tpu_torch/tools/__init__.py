@@ -14,10 +14,15 @@ machine that has no JAX.
   ``alerts.jsonl``;
 - :mod:`quality_report` — per-tile scorecards from ``quality.jsonl``;
 - :mod:`kafkalint` and :mod:`check_metric_names` — the source lints
-  over the port's own source (``kafka_tpu_torch/``, ``chip_smoke.py``).
+  over the port's own source (``kafka_tpu_torch/``, ``chip_smoke.py``);
+- :mod:`bench_compare` and :mod:`bench_history` — the gate and the trend
+  ledger over bench artifacts (``python -m kafka_tpu_torch.bench``);
+- :mod:`roofline` and :mod:`measure_baseline` — the share of bound of
+  the date solve's components and the driver baseline rows.
 
 Each runs as ``python -m kafka_tpu_torch.tools.<name>`` with the JAX
-tool's flags, output and exit codes.  The report tools touch no device;
-``loadgen``'s in-process modes take ``--device`` (CUDA by default);
-the lints read source text only.
+tool's flags, output and exit codes.  The report tools and the bench
+readers touch no device; ``loadgen``'s in-process modes, ``roofline``
+and ``measure_baseline`` take ``--device`` (CUDA by default); the lints
+read source text only.
 """

@@ -18,9 +18,9 @@ stdlib gzip+json over the ``*.trace.json.gz`` Chrome traces that
 
 ``--mesh-history MULTICHIP_r01.json ...`` additionally renders the
 archived multichip round artifacts (loaded through
-:func:`unwrap_artifact`, so wrapped harness archives and the bare
-checked-in dicts both work) as a mesh trajectory: devices, verdict and
-the result line per round.
+``bench_history.unwrap_artifact``, so wrapped harness archives and the
+bare checked-in dicts both work) as a mesh trajectory: devices, verdict
+and the result line per round.
 
 Usage:
     python -m kafka_tpu_torch.tools.device_report TELEMETRY_DIR [--json]
@@ -36,37 +36,9 @@ import argparse
 import json
 import os
 import sys
-from typing import Optional
 
 from ..telemetry import devprof
-
-
-def unwrap_artifact(doc):
-    """Unwrap the harness archive format ``{"n","cmd","rc","tail",
-    "parsed"}`` to the BENCH dict under ``"parsed"``; a bare BENCH dict
-    passes through.  Returns ``{}`` for anything else (a wrapper whose
-    parse failed is row-less, not an error).  A copy of the JAX
-    package's ``tools/bench_history.unwrap_artifact``."""
-    if not isinstance(doc, dict):
-        return {}
-    if "parsed" in doc and ("cmd" in doc or "tail" in doc or "rc" in doc):
-        parsed = doc["parsed"]
-        return parsed if isinstance(parsed, dict) else {}
-    return doc
-
-
-def load_artifact(path: str) -> Optional[dict]:
-    """One artifact, unwrapped; None (with a stderr note, worded as the
-    JAX package's ``bench_history.load_artifact`` words it) when the
-    file is unreadable."""
-    try:
-        with open(path) as f:
-            doc = json.load(f)
-    except (OSError, json.JSONDecodeError) as exc:
-        print(f"bench_history: cannot load {path}: {exc}",
-              file=sys.stderr)
-        return None
-    return unwrap_artifact(doc)
+from .bench_history import load_artifact
 
 
 def build_report(root: str, n: int = 16,
@@ -104,7 +76,7 @@ def build_report(root: str, n: int = 16,
 
 def mesh_history(paths) -> list:
     """Archived multichip rounds (``MULTICHIP_r*.json``) as one row per
-    artifact — wrapped or bare, via :func:`unwrap_artifact`."""
+    artifact — wrapped or bare, via ``bench_history.unwrap_artifact``."""
     rows = []
     for path in paths:
         art = load_artifact(path)

@@ -481,7 +481,8 @@ def test_phase_per_pixel_rehearsal(counted_plain):
     assert rec["kernel_launches"]["fused_update_by_instance"] == \
         {"7x2": rec["iterations"]}
     assert rec["gauge"] == rec["converged_frac"][-1]
-    assert len(rec["converged_frac"]) == rec["dates_assimilated"] == 6
+    assert len(rec["converged_frac"]) == rec["dates_assimilated"] == \
+        len(cs.PER_PIXEL_OBS_DAYS) == 2
     assert rec["vs_plain"]["max_abs_err"] <= cs.X_ATOL
     default = rec["default_blocks"]
     assert len(default["date_wall_s"]) == 1 and default["iterations"] >= 1

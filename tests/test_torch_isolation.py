@@ -5,6 +5,7 @@ to run without CUDA unless asked for the CPU, and a CUDA build that
 fails loudly."""
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -92,7 +93,11 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.tools.device_report, "
         "kafka_tpu_torch.tools.trace_report, "
         "kafka_tpu_torch.tools.fleet_status, "
-        "kafka_tpu_torch.tools.loadgen\n"
+        "kafka_tpu_torch.tools.loadgen, kafka_tpu_torch.bench, "
+        "kafka_tpu_torch.tools.bench_history, "
+        "kafka_tpu_torch.tools.bench_compare, "
+        "kafka_tpu_torch.tools.roofline, "
+        "kafka_tpu_torch.tools.measure_baseline\n"
         "from kafka_tpu_torch import (BandBatch, GaussianState, "
         "Linearization, PixelPrior, iterate_time_grid, tip_prior)\n"
         "from kafka_tpu_torch.core import *\n"
@@ -177,6 +182,8 @@ TOOL_RUNS = {
     "loadgen": ["--root", "{d}", "--requests", "0"],
     "kafkalint": ["{d}", "--json"],
     "check_metric_names": ["{d}"],
+    "bench_history": ["{d}/none.json"],
+    "bench_compare": ["{d}/old.json", "{d}/new.json"],
 }
 
 #: the JAX module whose ``main`` each tool is held to, where it is not
@@ -222,6 +229,48 @@ def test_tool_runs_with_jax_kafka_tpu_and_tools_blocked(name, blocked_runs,
         want = exc.code
     capsys.readouterr()
     assert rc == want, text[-2000:]
+
+
+#: the bench and its two measuring tools on the CPU at toy sizes, each
+#: with the three blocked: module -> argv.
+BENCH_RUNS = {
+    "kafka_tpu_torch.bench": ["--help"],
+    "kafka_tpu_torch.tools.roofline": [
+        "--n", "256", "--device", "cpu", "--skip-prosail", "--reps", "1",
+        "--target-s", "0", "--ks", "1,2"],
+    "kafka_tpu_torch.tools.measure_baseline": [
+        "oracle", "--oracle-n", "64", "--reps", "1"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(BENCH_RUNS))
+def test_bench_tools_run_with_jax_kafka_tpu_and_tools_blocked(module):
+    """The card's machine has no JAX: the bench and the roofline and
+    baseline tools run there, and keep every flag of the JAX tools."""
+    import importlib
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    runs = {}
+    for argv in (BENCH_RUNS[module], ["--help"]):
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKED_RUN, module, *argv], cwd=REPO,
+            env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+        assert "ModuleNotFoundError" not in proc.stderr, proc.stderr[-2000:]
+        runs[tuple(argv)] = proc.stdout
+    jax_name = module.replace("kafka_tpu_torch.", "")
+    jax_src = (REPO / (jax_name.replace(".", "/") + ".py")).read_text()
+    flags = {node.args[0].value for node in ast.walk(ast.parse(jax_src))
+             if isinstance(node, ast.Call)
+             and getattr(node.func, "attr", "") == "add_argument"
+             and isinstance(node.args[0], ast.Constant)
+             and node.args[0].value.startswith("-")}
+    for flag in flags:
+        assert flag in runs[("--help",)], flag
+    if module.endswith("measure_baseline"):
+        assert json.loads(runs[tuple(BENCH_RUNS[module])])["row"] == "oracle"
+    importlib.import_module(module)
 
 
 def test_source_lints_pass_the_checkout_with_jax_kafka_tpu_and_tools_blocked():
@@ -273,6 +322,8 @@ def _entry_points():
     from kafka_tpu_torch.cli import chunk_worker, run_modis_distributed
     from kafka_tpu_torch.shard import make_pixel_mesh
     from kafka_tpu_torch.tools import loadgen
+    from kafka_tpu_torch import bench
+    from kafka_tpu_torch.tools import measure_baseline, roofline
 
     op = TwoStreamOperator()
     z = np.zeros((2, 4), np.float32)
@@ -352,6 +403,14 @@ def _entry_points():
         "loadgen.bench_fleet": lambda: loadgen.bench_fleet(os.devnull),
         "loadgen.bench_concurrency_sweep":
             lambda: loadgen.bench_concurrency_sweep(os.devnull),
+        "bench.main": lambda: bench.main([]),
+        "bench.bench_device_sizes": lambda: bench.bench_device_sizes([64]),
+        "bench.bench_kernel_rows": lambda: bench.bench_kernel_rows(64),
+        "bench.bench_end_to_end": lambda: bench.bench_end_to_end(ny=8,
+                                                                 nx=8),
+        "roofline.main": lambda: roofline.main(["--n", "64"]),
+        "measure_baseline.main barrax":
+            lambda: measure_baseline.main(["barrax"]),
     }
 
 
@@ -373,7 +432,10 @@ def _entry_points():
      "run_synthetic.main --queue", "loadgen.main --synthetic",
      "loadgen.main --fleet", "loadgen.main --concurrency-sweep",
      "loadgen.bench_serve", "loadgen.bench_fleet",
-     "loadgen.bench_concurrency_sweep"]))
+     "loadgen.bench_concurrency_sweep", "bench.main",
+     "bench.bench_device_sizes", "bench.bench_kernel_rows",
+     "bench.bench_end_to_end", "roofline.main",
+     "measure_baseline.main barrax"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """device=None means CUDA; without a CUDA device it raises instead of
     running on the CPU."""

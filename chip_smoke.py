@@ -187,7 +187,16 @@ one JSON line:
    (2, 2) fused-update launch per iteration): every member equal to its
    one-at-a-time baseline bit for bit, at least 3 coalesced rounds, the
    launches per round, and the kept coalesced launches held to their
-   plain versions;
+   plain versions: the fused update bit for bit, fused_gn as phase
+   kernel holds it but under the float64 rule of a date float32 cannot
+   resolve (``held_within_ulp_spread``: at each quantile at most the
+   larger of ERR_MARGIN times the float32 plain version's error and
+   that error plus the plain version's own one-ulp spread; on the serve
+   tile's first date a one-ulp move of x_f moves the float32 plain
+   version further than it lies from float64, and the JAX kernel lands
+   where the port's plain version does, ROADMAP Queue 3 item 12), each
+   member's slice equal to its solo launch, each member's float64
+   figures recorded;
 25. mesh (right after main_s2) — phase main's tile and phase main_s2's
    sub-tile again on a pixel mesh of MESH_SHARDS shards on the one card
    (``KalmanFilter(mesh=...)``, one thread per shard, the convergence
@@ -256,8 +265,10 @@ one JSON line:
    ``torch.cuda.set_sync_debug_mode("warn")``: the censuses equal, the
    synchronising warnings equal to the host reads, the launch counters
    moved by exactly the kernel nodes (no plain version on CUDA tensors),
-   no checker finding, every tensor where the census placed it; the
-   flagship date program at the tile's 4,608,000 px with the census of
+   no checker finding, every tensor where the census placed it, no
+   host-to-device copy in any program (its constants come from the
+   per-device cache, ROADMAP Queue 3 item 10h); the flagship date
+   program at the tile's 4,608,000 px with the census of
    256 px; each fingerprint beside the checked-in manifest's (printed);
 31. route (after contracts) — the fleet: three ``kafka_serve`` replica
    processes (``route_replica``) at phase serve's width behind ``python -m
@@ -355,6 +366,10 @@ _T0 = time.perf_counter()
 QUANTILES = (0.5, 0.99, 0.999, 0.9999)
 ERR_MARGIN = 1.25
 ERR_FLOOR = 1e-5
+#: phase kernel's float64 rules by name: the record key of each one's
+#: failures (``held_quantiles``, ``held_within_ulp_spread``).
+F64_RULES = {"margin": "f64_quantile_rule",
+             "ulp_spread": "f64_ulp_spread_rule"}
 #: the JAX package's fused-kernel parity budgets (tests/test_solvers.py:
 #: 702-716): pixels beyond them are counted, and the faults phase holds
 #: its planted pixels to them.  A entry (i, j) is measured against its
@@ -675,12 +690,14 @@ def summary(err: dict) -> dict:
 
 def phase_kernel(device, label: str, rows: dict, kernel_reps: int = 20,
                  plain_reps: int = 2, observed=None,
-                 hold_f64_quantiles: bool = True) -> dict:
+                 f64_rule: str = "margin", outputs=None) -> dict:
     """The CUDA kernel against its plain version on ``rows`` (float32,
     float64, and float32 on x_f moved by one ulp up and down), both
-    timed, and the function's bound.  ``hold_f64_quantiles=False``
-    records the float64 quantile rule's outcome (``f64_quantile_rule``)
-    instead of failing on it; every other gate holds."""
+    timed, and the function's bound.  Both float64 rules are recorded
+    (``f64_quantile_rule``, ``f64_ulp_spread_rule``: the failures of
+    each); ``f64_rule`` names the one gated (F64_RULES).  ``outputs``, a
+    dict, receives the raw outputs (``kern``, ``plain``, ``ref``,
+    ``nudged``)."""
     import torch
 
     from kafka_tpu_torch.core import fused_gn
@@ -698,11 +715,14 @@ def phase_kernel(device, label: str, rows: dict, kernel_reps: int = 20,
         for to in (float("inf"), float("-inf"))]
     plain_ulp = nudged[0]
     _sync(device)
+    if outputs is not None:
+        outputs.update(kern=kern, plain=plain, ref=ref, nudged=nudged)
     finite = all(bool(torch.isfinite(t).all()) for t in kern)
     vs_plain = summary(pixel_errors(kern, plain, block))
     vs_ref = summary(pixel_errors(kern, ref, block))
     plain_vs_ref = summary(pixel_errors(plain, ref, block))
     ulp_vs_plain = summary(pixel_errors(plain_ulp, plain, block))
+    ulp_down_vs_plain = summary(pixel_errors(nudged[1], plain, block))
     ms = time_ms(lambda: fused_gn.fused_gn_raw(**rows), device, kernel_reps)
     plain_ms = time_ms(lambda: fused_gn.fused_gn_raw_plain(**rows), device,
                        plain_reps)
@@ -729,6 +749,7 @@ def phase_kernel(device, label: str, rows: dict, kernel_reps: int = 20,
                                              return_counts=True)))))},
         "kernel_vs_plain": vs_plain, "kernel_vs_f64": vs_ref,
         "plain_vs_f64": plain_vs_ref, "plain_ulp_vs_plain": ulp_vs_plain,
+        "plain_ulp_down_vs_plain": ulp_down_vs_plain,
         **held_trips(kern, plain, ref, nudged, block),
         "ms": ms, "plain_ms": plain_ms,
         "layout_bytes": 4 * LAYOUT_FLOATS_PER_PIXEL * n_pix,
@@ -746,8 +767,11 @@ def phase_kernel(device, label: str, rows: dict, kernel_reps: int = 20,
     rec["share_of_bound"] = rec["bound_ms"] / ms
     rec["f64_quantile_rule"] = held_quantiles(vs_ref, plain_vs_ref,
                                               ("x", "A", "diag"))
+    rec["f64_ulp_spread_rule"] = held_within_ulp_spread(
+        vs_ref, plain_vs_ref, ulp_spread(ulp_vs_plain, ulp_down_vs_plain),
+        ("x", "A", "diag"))
     emit(rec)
-    failures = list(rec["f64_quantile_rule"]) if hold_f64_quantiles else []
+    failures = list(rec[F64_RULES[f64_rule]])
     mirror = fused_gn.launch_geometry(n_pix, block)
     if any(rec["geometry"][k] != v for k, v in mirror.items()):
         failures.append(f"launch_geometry {mirror} is not the kernel's "
@@ -1172,6 +1196,35 @@ def quantile_summary(err, limit=None) -> dict:
     if limit is not None:
         out["beyond_budget"] = int((s > limit).sum())
     return out
+
+
+def ulp_spread(up_vs_plain: dict, down_vs_plain: dict,
+               names=("x", "A", "diag")) -> dict:
+    """The float32 plain version's own spread at each of QUANTILES: the
+    larger of its errors against itself with x_f moved one ulp up and
+    down."""
+    return {nm: {q: max(up_vs_plain[nm][q], down_vs_plain[nm][q])
+                 for q in map(str, QUANTILES)} for nm in names}
+
+
+def held_within_ulp_spread(kernel_vs_ref: dict, plain_vs_ref: dict,
+                           spread: dict, names) -> list:
+    """The float64 rule of a date that float32 cannot resolve (ROADMAP
+    Queue 3 item 12; the head of this file): at each of QUANTILES the
+    kernel's error against the float64 plain version at most the
+    larger of ERR_MARGIN times the float32 plain version's, that error
+    plus the plain version's own one-ulp spread (``ulp_spread``), and
+    ERR_FLOOR.  Returns the failures."""
+    failures = []
+    for nm in names:
+        for q in map(str, QUANTILES):
+            kq, pq, sq = (kernel_vs_ref[nm][q], plain_vs_ref[nm][q],
+                          spread[nm][q])
+            if kq > max(ERR_MARGIN * pq, pq + sq, ERR_FLOOR):
+                failures.append(
+                    f"{nm} error at quantile {q}: kernel {kq:.3g} > plain "
+                    f"{pq:.3g} + its one-ulp spread {sq:.3g}")
+    return failures
 
 
 def held_quantiles(kernel_vs_ref: dict, plain_vs_ref: dict, names) -> list:
@@ -4304,16 +4357,18 @@ def f64_rule(device, rows: dict) -> dict:
 
 def serve_batch_kernels(device, rec: dict, kept: dict):
     """The kept coalesced launches of phase serve_batch against their
-    plain versions: fused_gn by phase kernel's float64 rule, and each
-    member's slice equal bit for bit to a launch of the member alone;
-    the (2, 2) fused update by phase kernel_update's rule, 0 pixels
-    differing.  Returns the two kernel records."""
+    plain versions: fused_gn by the float64 rule of a date float32
+    cannot resolve (``held_within_ulp_spread``), each member's slice
+    equal bit for bit to a launch of the member alone, and each member's
+    float64 figures recorded (``member_f64``); the (2, 2) fused update
+    by phase kernel_update's rule, 0 pixels differing.  Returns the two
+    kernel records."""
     from kafka_tpu_torch.core import fused_gn
 
     n_pad = rec["n_pad"]
     failures = []
     gn_rows, upd_rows = kept["gn"], kept["rows"]
-    # The kept coalesced fused_gn launch: phase kernel's rule, and each
+    # The kept coalesced fused_gn launch: phase kernel's gates, and each
     # member's slice against a launch of the member alone.
     gn_rec = None
     if gn_rows is None:
@@ -4321,18 +4376,21 @@ def serve_batch_kernels(device, rec: dict, kept: dict):
     else:
         # The kernel is built with FMA contraction, so it cannot equal
         # the plain version bit for bit; its trips, verdicts, geometry
-        # and finiteness are gated, and the float64 quantile rule is
-        # recorded, not gated: the serve tile's first date is
-        # ill-conditioned in float32 on most pixels, both float32
-        # versions sit ~1e-4 from float64 at the median, and which of
-        # them lands nearer is the data's (the record keeps
-        # kernel_vs_f64, plain_vs_f64 and plain_ulp_vs_plain).  The
-        # coalescing claim is gated below: each member's slice equals a
-        # launch of the member alone, bit for bit.
+        # and finiteness are gated as in phase kernel.  The serve tile's
+        # first date is ill-conditioned in float32 on most pixels: a
+        # one-ulp move of x_f moves the float32 plain version's x
+        # further than the float32 solve lies from float64, so which
+        # float32 version lands nearer float64 is the data's draw (the
+        # JAX kernel lands where the port's plain version does:
+        # tests/test_torch_fused_gn_serve_date.py).  The float64 rule
+        # gated here is therefore the one-ulp spread rule; phase
+        # kernel's margin rule is recorded beside it
+        # (f64_quantile_rule), with each member's figures.
+        out = {}
         gn_rec = phase_kernel(device, "serve_batch_coalesced", gn_rows,
-                              hold_f64_quantiles=False)
-        both = fused_gn.fused_gn_raw(**gn_rows)
-        member_differ = []
+                              f64_rule="ulp_spread", outputs=out)
+        both = out["kern"]
+        member_differ, member_f64 = [], []
         for m in range(2):
             sl = slice(m * n_pad, (m + 1) * n_pad)
             one = {**gn_rows, **{k: gn_rows[k][:, sl].contiguous()
@@ -4343,7 +4401,9 @@ def serve_batch_kernels(device, rec: dict, kept: dict):
             member_differ.append(sum(
                 int((~same_or_both_nan(a[:, sl], b)).sum())
                 for a, b in zip(both, alone)))
+            member_f64.append(member_figures(one, out, sl))
         gn_rec["member_entries_differing_from_solo_launch"] = member_differ
+        gn_rec["member_f64"] = member_f64
         if any(member_differ):
             failures.append(f"fused_gn member slices differ from solo "
                             f"launches: {member_differ}")
@@ -4361,14 +4421,58 @@ def serve_batch_kernels(device, rec: dict, kept: dict):
           "fused_gn_member_entries_differing_from_solo_launch":
               None if gn_rec is None
               else gn_rec["member_entries_differing_from_solo_launch"],
+          "fused_gn_f64_ulp_spread_rule":
+              None if gn_rec is None else gn_rec["f64_ulp_spread_rule"],
           "fused_gn_f64_quantile_rule":
               None if gn_rec is None else gn_rec["f64_quantile_rule"],
+          "fused_gn_member_f64":
+              None if gn_rec is None else gn_rec["member_f64"],
           "fused_update_pixels_differing_from_plain":
               None if upd_rec is None
               else upd_rec["pixels_differing_from_plain"]})
     if failures:
         raise AssertionError("serve_batch: " + "; ".join(failures))
     return gn_rec, upd_rec
+
+
+def member_figures(one: dict, out: dict, sl) -> dict:
+    """One member of a coalesced fused_gn round on its own: its slice of
+    the round's kernel (equal to its solo launch), float32 plain,
+    float64 plain and one-ulp-nudged plain outputs (``out``, phase
+    kernel's), held as phase kernel holds a date — the kernel and the
+    float32 plain version against float64 at QUANTILES, the plain
+    version's one-ulp spread and both float64 rules' failures — and
+    whether the plain version at the member's own group size and pixel
+    count (``scalar_n`` unset) gives the bits of its slice of the round
+    (the fold's group size and ``scalar_n``)."""
+    from kafka_tpu_torch.core import fused_gn
+
+    block = fused_gn._block(one["pf_rows"].shape[1],
+                            one.get("block", 2048))
+
+    def part(raw):
+        return [t[:, sl] for t in raw]
+
+    kern, plain, ref = part(out["kern"]), part(out["plain"]), \
+        part(out["ref"])
+    up, down = (part(t) for t in out["nudged"])
+    vs_ref = summary(pixel_errors(kern, ref, block))
+    plain_vs_ref = summary(pixel_errors(plain, ref, block))
+    spread = ulp_spread(summary(pixel_errors(up, plain, block)),
+                        summary(pixel_errors(down, plain, block)))
+    own = fused_gn.fused_gn_raw_plain(**{**one, "block": 2048,
+                                         "scalar_n": None})
+    names = ("x", "A", "diag")
+    return {"n_pix": one["pf_rows"].shape[1], "block": block,
+            "kernel_vs_f64": {nm: vs_ref[nm] for nm in names},
+            "plain_vs_f64": {nm: plain_vs_ref[nm] for nm in names},
+            "plain_ulp_spread": spread,
+            "f64_quantile_rule": held_quantiles(vs_ref, plain_vs_ref,
+                                                names),
+            "f64_ulp_spread_rule": held_within_ulp_spread(
+                vs_ref, plain_vs_ref, spread, names),
+            "plain_own_group_equals_fold_slice": all(
+                _outputs_equal(a, b) for a, b in zip(own, plain))}
 
 
 def mesh_compare(base: dict, run: dict) -> dict:
@@ -5357,7 +5461,9 @@ def phase_device_plane(device, workdir: str, kernel_ms=None,
         failures.append(f"/profilez tracing switched on {pz_switched}, "
                         "not by the launching thread")
     # Beside a thread that launches no package kernel (a request's resume
-    # and dump copies): recorded, not gated.
+    # and dump copies): recorded, not gated — the loss it records lies
+    # in CUPTI's activity stream of a long-lived process, not in state
+    # the port leaves behind (copier_profilez; ROADMAP Queue 3 item 7).
     copier = copier_profilez(device, rows,
                              os.path.join(workdir, "dp_copier"),
                              n_floats=ny * nx * 7)
@@ -5659,8 +5765,16 @@ def copier_profilez(device, rows: dict, workdir: str, n_floats: int,
     launches fused_gn in a loop and a thread that launches no package
     kernel (COPIER_THREAD) copies a tile's state to the card and back,
     as a request's resume and dump do.  Recorded, not gated: how many
-    captures lost that thread's copies (their tracing is switched by the
-    launching thread, which cannot know where the copier is)."""
+    captures lost that thread's copies.  In a process that has run the
+    smoke's phases up to ``cli`` with such captures between them, the
+    lost captures' raw Kineto traces hold every thread's runtime calls
+    but no GPU activity record of any thread (the launching thread's
+    kernels included), and the loss grows with the GPU work the process
+    has run; no thread, stream or profiler session of the port is left
+    behind (MainThread alone at each capture), the phase run alone or
+    the history without captures between phases loses none, and a gate
+    that holds each switch until the copier is between copies does not
+    prevent it (ROADMAP Queue 3 item 7, PERF.md §6, PR 17)."""
     import threading
 
     import torch
@@ -5827,9 +5941,14 @@ def contracts_gates(name: str, cpu: dict, card: dict, run: "CardRun",
     census fields unequal; the card's synchronising warnings not the
     census's host reads; the launch counters not moved by exactly the
     kernel nodes; a plain version called on CUDA tensors; a checker's
-    finding; a tensor whose tracked placement was not where it lay."""
+    finding; a tensor whose tracked placement was not where it lay; a
+    host-to-device copy in the card's run (no host constant is copied
+    per call: they come from ``core.device_constants``)."""
     out = []
     diff = census_diff(cpu, card)
+    if card["host_syncs"].get("h2d"):
+        out.append(f"{name}: {card['host_syncs']['h2d']} host-to-device "
+                   "copies per run on the card")
     if diff:
         out.append(f"{name}: the card's census differs from the CPU's: "
                    f"{json.dumps(diff)[:600]}")

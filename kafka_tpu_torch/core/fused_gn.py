@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import _build, collective, solver_health
+from .device_constants import device_constant
 from .linalg import cholesky_packed, solve_chol_vectors, tri_rows
 
 
@@ -132,10 +133,10 @@ def fused_gn_raw_plain(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     bnd = _bounds(state_bounds_rows, p)
     lo = hi = None
     if bnd is not None:
-        lo = [torch.tensor(float(v), dtype=f32, device=dev) for v in bnd[0]]
-        hi = [torch.tensor(float(v), dtype=f32, device=dev) for v in bnd[1]]
-    relax_t = torch.tensor(float(relax), dtype=f32, device=dev)
-    thresh_t = torch.tensor(float(thresh_sq), dtype=f32, device=dev)
+        lo = [device_constant(v, f32, dev) for v in bnd[0]]
+        hi = [device_constant(v, f32, dev) for v in bnd[1]]
+    relax_t = torch.full((), float(relax), dtype=f32, device=dev)
+    thresh_t = torch.full((), float(thresh_sq), dtype=f32, device=dev)
 
     xf = [xf_rows[k] for k in range(p)]
     yv = [y[b] for b in range(n_bands)]
@@ -396,8 +397,8 @@ def _summary(raw, trips, ssq, norm_denominator):
     """:func:`summarise`'s tuple from the largest group trip count and
     the groups' summed squared final steps."""
     x, a, fwd, inn, st, hl = raw
-    numel = torch.tensor(float(norm_denominator), dtype=torch.float32,
-                         device=st.device)
+    numel = torch.full((), float(norm_denominator), dtype=torch.float32,
+                       device=st.device)
     return (x, a, fwd, inn, trips.to(torch.int32), torch.sqrt(ssq) / numel,
             hl[0].to(torch.int32), (hl[1] > 0).sum().to(torch.int32),
             (hl[2:] > 0).sum(dim=1).to(torch.int32))

@@ -27,6 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device_constants import device_constant
+
 QA_CONVERGED = 1
 QA_CAP_BAILOUT = 2
 QA_DAMPED_RECOVERED = 4
@@ -92,7 +94,7 @@ def assemble_verdicts(observed, quarantined, cap_exit, moving,
     i32 = torch.int32
     observed = observed.bool()
     quarantined = quarantined.bool() & observed
-    cap = torch.as_tensor(cap_exit, device=moving.device)
+    cap = device_constant(cap_exit, torch.bool, moving.device)
     bailout = (
         torch.broadcast_to(cap, moving.shape).bool()
         & moving.bool() & observed & ~quarantined

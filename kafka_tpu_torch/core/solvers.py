@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from . import collective, solver_health
+from .device_constants import device_constant
 from .fused_gn import fused_gn_rows
 from .fused_update import fused_update, fused_update_rows, jac_to_rows
 from .linalg import (
@@ -205,13 +206,22 @@ def _params_empty(operator_params) -> bool:
     return False
 
 
+def _bound(v, dev) -> torch.Tensor:
+    """A state bound as float32 on ``dev``: a scalar or ``(p,)`` bound
+    from the per-device constants; a tensor, or a per-pixel array (an
+    input of the call), moved as it is."""
+    if isinstance(v, torch.Tensor) or np.ndim(v) > 1:
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+    return device_constant(v, torch.float32, dev)
+
+
 def _bounds_rows(state_bounds, n_pix: int, p: int, dev):
     """``(lo, hi)`` in row layout for the row loop: scalars broadcast,
     ``(p,)`` vectors become ``(p, 1)``, ``(n_pix, p)`` arrays ``(p, n_pix)``
     (the shapes ``torch.clamp`` of the plain loop accepts); anything else
     raises here with a shape message."""
     def to_rows(v):
-        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        v = _bound(v, dev)
         if v.ndim == 0:
             return v
         if v.ndim == 1:
@@ -420,9 +430,9 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
     lo = hi = None
     if state_bounds is not None:
         lo, hi = _bounds_rows(state_bounds, n_pix, p, dev)
-    tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
-    numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
-    relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
+    tol_t = torch.full((), float(np.float32(tol)), dtype=f32, device=dev)
+    numel_t = torch.full((), float(numel), dtype=f32, device=dev)
+    relax_t = torch.full((), float(relaxation), dtype=f32, device=dev)
 
     x_rows = xf_rows
     a_rows = torch.zeros((tri_rows(p), n_pix), dtype=f32, device=dev)
@@ -434,7 +444,7 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
     ssq = torch.full((n_pix,), float("inf"), dtype=f32, device=dev)
     clip = torch.ones((p, n_pix), dtype=f32, device=dev)
     n_done = 0
-    norm = torch.tensor(float("inf"), dtype=f32, device=dev)
+    norm = torch.full((), float("inf"), dtype=f32, device=dev)
     while True:
         # The while loop's condition: one host read per round.
         below = yield "sync", norm < tol_t
@@ -505,7 +515,7 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
             .to(torch.int32)
     else:
         clip_sat = torch.zeros(p, dtype=torch.int32, device=dev)
-    n_done_t = torch.tensor(n_done, dtype=torch.int32, device=dev)
+    n_done_t = torch.full((), n_done, dtype=torch.int32, device=dev)
     return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done_t, norm,
             (verd, nonfin_count, clip_sat))
 
@@ -520,13 +530,12 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
     f32 = torch.float32
     n_pix, p = x_forecast.shape
     dev = x_forecast.device
-    tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
-    numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
-    relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
+    tol_t = torch.full((), float(np.float32(tol)), dtype=f32, device=dev)
+    numel_t = torch.full((), float(numel), dtype=f32, device=dev)
+    relax_t = torch.full((), float(relaxation), dtype=f32, device=dev)
     lo = hi = None
     if state_bounds is not None:
-        lo, hi = (torch.as_tensor(v, dtype=f32, device=dev)
-                  for v in state_bounds)
+        lo, hi = (_bound(v, dev) for v in state_bounds)
 
     x = x_forecast.to(f32)
     a = h0 = jac = None
@@ -536,7 +545,7 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
     ssq = torch.full((n_pix,), float("inf"), dtype=f32, device=dev)
     clip = torch.ones((n_pix, p), dtype=f32, device=dev)
     n_done = 0
-    norm = torch.tensor(float("inf"), dtype=f32, device=dev)
+    norm = torch.full((), float("inf"), dtype=f32, device=dev)
     while True:
         converged = bool(norm < tol_t) and n_done >= min_iterations
         if converged or n_done > max_iterations:
@@ -588,7 +597,7 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
             .to(torch.int32)
     else:
         clip_sat = torch.zeros(p, dtype=torch.int32, device=dev)
-    n_done_t = torch.tensor(n_done, dtype=torch.int32, device=dev)
+    n_done_t = torch.full((), n_done, dtype=torch.int32, device=dev)
     return x, a, fwd, innovations, n_done_t, norm, \
         (verd, nonfin_count, clip_sat)
 
@@ -634,13 +643,12 @@ def _generic_loop(one_lin, obs, x_forecast, p_inv_forecast, tol,
     # must get the bits of its solo solve.
     x_forecast = x_forecast.to(f32).contiguous()
     p_inv_forecast = p_inv_forecast.to(f32).contiguous()
-    tol_t = torch.tensor(float(np.float32(tol)), dtype=f32, device=dev)
-    numel_t = torch.tensor(float(numel), dtype=f32, device=dev)
-    relax_t = torch.tensor(float(relaxation), dtype=f32, device=dev)
+    tol_t = torch.full((), float(np.float32(tol)), dtype=f32, device=dev)
+    numel_t = torch.full((), float(numel), dtype=f32, device=dev)
+    relax_t = torch.full((), float(relaxation), dtype=f32, device=dev)
     lo = hi = None
     if state_bounds is not None:
-        lo, hi = (torch.as_tensor(v, dtype=f32, device=dev)
-                  for v in state_bounds)
+        lo, hi = (_bound(v, dev) for v in state_bounds)
     if use_fused and packed:
         y, w, mask_f, xf_rows, pf_rows, _ = _gn_rows_inputs(
             obs, x_forecast, p_inv_forecast, None)
@@ -653,7 +661,7 @@ def _generic_loop(one_lin, obs, x_forecast, p_inv_forecast, tol,
         frozen = torch.zeros(n_pix, dtype=torch.bool, device=dev)
         small = torch.zeros(n_pix, dtype=torch.bool, device=dev)
     n_done = 0
-    norm = torch.tensor(float("inf"), dtype=f32, device=dev)
+    norm = torch.full((), float("inf"), dtype=f32, device=dev)
     while True:
         # The while loop's condition: one host read per round.
         if per_pixel_convergence:
@@ -702,7 +710,7 @@ def _generic_loop(one_lin, obs, x_forecast, p_inv_forecast, tol,
     # y - H0 at the last linearisation.
     fwd = torch.einsum("bnp,np->bn", jac, x - x_forecast) + h0
     innovations = torch.where(obs.mask, obs.y - h0, 0.0)
-    n_done_t = torch.tensor(n_done, dtype=torch.int32, device=dev)
+    n_done_t = torch.full((), n_done, dtype=torch.int32, device=dev)
     return x, a, fwd, innovations, n_done_t, norm, frozen
 
 
@@ -808,8 +816,7 @@ def _window_telemetry_scalars(x, innovations, obs, state_bounds):
     if state_bounds is None:
         clipped = torch.zeros((), dtype=torch.int32, device=x.device)
     else:
-        lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=x.device)
-                  for v in state_bounds)
+        lo, hi = (_bound(v, x.device) for v in state_bounds)
         observed = obs.mask.any(dim=0)
         at_bound = (x <= lo) | (x >= hi)
         clipped = (at_bound & observed[:, None]).sum().to(torch.int32)

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.device_constants import device_constant
 from ._jaxrules import _clip, _max, _min
 from .prospect_data import BAND_K, N_REFRACT, SOIL_DRY, SOIL_WET
 from .protocol import ObservationModel
@@ -68,9 +69,9 @@ _TAV90 = _tav_host(90.0, N_REFRACT)
 
 
 def _f32(a, like: torch.Tensor) -> torch.Tensor:
-    """A host constant as a float32 tensor on ``like``'s device."""
-    return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                           device=like.device)
+    """A host constant as a float32 tensor on ``like``'s device, from
+    the per-device cache."""
+    return device_constant(a, torch.float32, like.device)
 
 
 def expint_e1(x):
@@ -361,8 +362,8 @@ class ProsailOperator(ObservationModel):
 
     def forward_pixel(self, aux: Optional[ProsailAux], x_pixel):
         if aux is None:
-            aux = ProsailAux(*(torch.tensor(v, dtype=torch.float32,
-                                            device=x_pixel.device)
+            aux = ProsailAux(*(device_constant(v, torch.float32,
+                                               x_pixel.device)
                                for v in (30.0, 0.0, 0.0)))
         n, cab, car, cbrown, cw, cm, lai, ala, bsoil, psoil = (
             inverse_transforms(x_pixel)

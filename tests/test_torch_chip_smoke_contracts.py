@@ -3,8 +3,9 @@ place of the card: a card run that agrees with the CPU passes, and a
 census mismatch, a count of synchronising warnings other than the
 census's host reads, a launch counter moved otherwise than the kernel
 nodes, a plain version called on CUDA tensors, a checker finding, a
-tensor away from its census placement, or a full-width census unlike the
-canonical one each fail the phase.  Then the rule of the mesh half of
+tensor away from its census placement, a host-to-device copy on the
+card, or a full-width census unlike the canonical one each fail the
+phase.  Then the rule of the mesh half of
 ``/profilez``: a job queued for the next kernel launch while a shard
 group runs (``shard.step.run_shards``) runs on the caller's thread after
 the join, never on a shard thread; outside a group the next launching
@@ -63,6 +64,9 @@ def _fake_trace(fault=None, program="date_twostream_jac_to_rows"):
             tp = _stored_census(spec, host_syncs={"h2d": 99})
         if bad and fault == "placement":
             tp.placement_mismatches = 3
+        if bad and fault == "h2d":
+            tp = _stored_census(spec, host_syncs=dict(tp.host_syncs,
+                                                      h2d=2))
         syncs = sum(tp.host_syncs.values()) - (bad and fault == "syncs")
         with run_context() as run:
             for _ in range(syncs):
@@ -113,6 +117,7 @@ def test_a_card_that_agrees_passes(counters, capsys):
     ("finding", "findings on the card"),
     ("placement", "not where the census placed them"),
     ("width", "census differs from the canonical one"),
+    ("h2d", "host-to-device copies per run on the card"),
 ])
 def test_each_gate_fails_the_phase(counters, fault, says):
     program = "date_twostream_inkernel" if fault == "width" \

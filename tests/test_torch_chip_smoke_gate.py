@@ -624,6 +624,89 @@ def test_phase_serve_batch_rehearsal(tmp_path, counted_gn_plain,
     assert kept["rows"]["xf_rows"].shape[1] == 2 * rec["n_pad"]
 
 
+def _rule(kernel, plain, spread):
+    def q(v):
+        return {"x": {str(qq): v for qq in cs.QUANTILES}}
+
+    return cs.held_within_ulp_spread(q(kernel), q(plain), q(spread), ("x",))
+
+
+@pytest.mark.parametrize("kernel,plain,spread,holds", [
+    (1.25e-4, 1.0e-4, 0.0, True),     # phase kernel's margin
+    (1.30e-4, 1.0e-4, 0.0, False),    # beyond it, no spread
+    (1.83e-4, 1.29e-4, 2.0e-4, True),  # within plain + spread
+    (3.40e-4, 1.29e-4, 2.0e-4, False),  # beyond plain + spread
+    (9.0e-6, 1.0e-7, 0.0, True),      # ERR_FLOOR
+], ids=["margin", "beyond_margin", "spread", "beyond_spread", "floor"])
+def test_ulp_spread_rule(kernel, plain, spread, holds):
+    """The float64 rule of the coalesced round: at most the larger of
+    ERR_MARGIN x the plain version's error, that error plus the plain
+    version's one-ulp spread, and ERR_FLOOR — at every quantile."""
+    failures = _rule(kernel, plain, spread)
+    assert (failures == []) == holds
+    if not holds:
+        assert len(failures) == len(cs.QUANTILES)
+        assert "one-ulp spread" in failures[0]
+
+
+def test_ulp_spread_is_the_larger_nudge():
+    up = {"x": {str(q): 1.0 for q in cs.QUANTILES}}
+    down = {"x": {str(q): 2.0 for q in cs.QUANTILES}}
+    assert cs.ulp_spread(up, down, ("x",)) == down
+
+
+@pytest.fixture
+def kernel_geometry_mirror(monkeypatch):
+    """The compiled kernel's geometry and attributes as the CPU mirror
+    gives them (the card-only queries need the build)."""
+    from kafka_tpu_torch.core import fused_gn as fg
+
+    monkeypatch.setattr(fg, "kernel_geometry", lambda n, block=2048: dict(
+        fg.launch_geometry(n, block)))
+    monkeypatch.setattr(fg, "kernel_attributes",
+                        lambda: {"registers": 0, "local_bytes": 0})
+
+
+def test_serve_batch_kernels_rehearsal(tmp_path, counted_gn_plain,
+                                       counted_plain,
+                                       kernel_geometry_mirror, monkeypatch,
+                                       capsys):
+    """serve_batch_kernels on phase_serve_batch's kept launches at 48 x
+    48 (the plain versions standing in for the kernels): the round is
+    gated under the one-ulp spread rule with phase kernel's margin rule
+    recorded beside it, each member's float64 figures recorded, its
+    plain version at its own group size equal to its slice of the
+    round; a round pushed beyond the spread fails."""
+    from kafka_tpu_torch.core import fused_gn as fg
+
+    dev = torch.device("cpu")
+    rec, kept = cs.phase_serve_batch(dev, str(tmp_path), ny=48, nx=48)
+    gn, upd = cs.serve_batch_kernels(dev, rec, kept)
+    assert gn["f64_ulp_spread_rule"] == [] and \
+        gn["f64_quantile_rule"] == []
+    assert gn["member_entries_differing_from_solo_launch"] == [0, 0]
+    assert len(gn["member_f64"]) == 2
+    for m in gn["member_f64"]:
+        assert m["n_pix"] == rec["n_pad"]
+        assert m["plain_own_group_equals_fold_slice"]
+        assert m["f64_ulp_spread_rule"] == m["f64_quantile_rule"] == []
+        assert set(m["plain_ulp_spread"]) == {"x", "A", "diag"}
+    assert upd["pixels_differing_from_plain"] == {"x": 0, "A": 0, "inn": 0,
+                                                  "hb": 0}
+    assert '"fused_gn_member_f64"' in capsys.readouterr().out
+
+    real = fg.fused_gn_raw
+
+    def off(*args, **kwargs):
+        out = list(real(*args, **kwargs))
+        out[0] = out[0] + 1e-2
+        return tuple(out)
+
+    monkeypatch.setattr(fg, "fused_gn_raw", off)
+    with pytest.raises(AssertionError, match="one-ulp spread"):
+        cs.serve_batch_kernels(dev, rec, kept)
+
+
 def test_phase_serve_batch_fails_without_kernel_launches(tmp_path):
     with pytest.raises(AssertionError, match="launches per coalesced"):
         cs.phase_serve_batch(torch.device("cpu"), str(tmp_path), ny=48,

@@ -11,6 +11,7 @@ tree copied under the port's package name they report the
 (rule, path, line) findings ``tools.kafkalint`` reports on the original.
 """
 
+import ast
 import collections
 import json
 import os
@@ -25,7 +26,9 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
-from kafka_tpu_torch.tools.kafkalint import cli, core  # noqa: E402
+from kafka_tpu_torch.tools.kafkalint import (  # noqa: E402
+    cli, core, torchscan,
+)
 from kafka_tpu_torch.tools.kafkalint.core import (  # noqa: E402
     iter_files, make_rules, run_lint,
 )
@@ -83,38 +86,53 @@ def test_production_tree_is_clean(repo_result):
 
 def test_baseline_entries_carry_reasons_and_all_match(repo_result):
     """Every entry names why it is grandfathered, and none is stale (a
-    stale one would be a finding above); the host-to-device copies of
-    ROADMAP 10h are among them."""
+    stale one would be a finding above); no entry cites ROADMAP 10h —
+    its host-to-device copies were removed, not grandfathered."""
     entries = json.load(open(BASELINE))
     assert repo_result.baseline_entries == len(entries)
     assert repo_result.baseline_matched >= len(entries)
     for e in entries:
         assert e["reason"] and e["contains"], e
+    assert not any("10h" in e["reason"] for e in entries)
     sites = {(e["path"], e["contains"].rsplit(" ", 1)[-1]) for e in entries
              if e["rule"] == "host-transfer-in-jit"}
-    assert {("kafka_tpu_torch/obsops/_jaxrules.py", "'_max'"),
-            ("kafka_tpu_torch/obsops/_jaxrules.py", "'_min'"),
-            ("kafka_tpu_torch/obsops/prosail.py", "'_f32'")} <= sites
-    assert all("10h" in e["reason"] for e in entries)
+    assert not sites & {
+        ("kafka_tpu_torch/obsops/_jaxrules.py", "'_max'"),
+        ("kafka_tpu_torch/obsops/_jaxrules.py", "'_min'"),
+        ("kafka_tpu_torch/obsops/prosail.py", "'_f32'"),
+        ("kafka_tpu_torch/obsops/prosail.py", "'forward_pixel'")}
 
 
 def test_roadmap_10h_sites_are_host_transfer_findings():
-    """Without the baseline the clip helpers and PROSAIL's ``_f32`` are
-    findings of the host-transfer rule: the scanner follows the
-    linearised forward model into them."""
+    """ROADMAP 10h's sites — the clip helpers, PROSAIL's ``_f32`` and
+    ``forward_pixel``'s default geometry — are clean without the
+    baseline: they take their constants from the per-device cache
+    (``core.device_constants``).  The scanner still follows the
+    linearised forward model into them: each is a device region."""
     result = run_lint(REPO_ROOT, rule_names=["host-transfer-in-jit"],
                       use_baseline=False)
-    hits = {(f.path, f.message.split("device region ")[1].split(" ")[0])
-            for f in result.findings}
-    assert {("kafka_tpu_torch/obsops/_jaxrules.py", "'_max'"),
-            ("kafka_tpu_torch/obsops/_jaxrules.py", "'_min'"),
-            ("kafka_tpu_torch/obsops/prosail.py", "'_f32'")} <= hits
+    assert result.findings == [], "\n".join(
+        f.format() for f in result.findings)
+    index = torchscan.TreeIndex()
+    for path in iter_files(REPO_ROOT):
+        rel = os.path.relpath(path, REPO_ROOT).replace(os.sep, "/")
+        if rel.endswith(".py"):
+            with open(path) as fh:
+                index.add(rel, ast.parse(fh.read()))
+    regions = {(r.rel, r.name) for r in index.regions()}
+    assert {("kafka_tpu_torch/obsops/_jaxrules.py", "_max"),
+            ("kafka_tpu_torch/obsops/_jaxrules.py", "_min"),
+            ("kafka_tpu_torch/obsops/prosail.py", "_f32"),
+            ("kafka_tpu_torch/obsops/prosail.py", "forward_pixel")} <= \
+        regions
 
 
 def test_cli_exits_zero_on_production_tree(capsys):
     assert cli.main([REPO_ROOT]) == 0
     out = capsys.readouterr().out
-    assert "clean" in out and "grandfathered" in out
+    entries = json.load(open(BASELINE))
+    assert "clean" in out
+    assert ("grandfathered" in out) == bool(entries)
 
 
 def test_scanned_set_covers_the_package_and_chip_smoke():

@@ -380,17 +380,21 @@ def fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     raise ValueError(f"no fused Gauss-Newton path for {xf_rows.device}")
 
 
-def summarise(raw, n: int, block: int, norm_denominator):
+def summarise(raw, n: int, block: int, norm_denominator,
+              mean_trips: bool = False):
     """``(x, a, fwd, inn, n_done, norm, verdicts, nonfinite_count,
     clip_saturated)`` from raw outputs, as the JAX driver assembles them:
-    ``n_done`` the max over groups, ``norm`` the global final step norm."""
+    ``n_done`` the max over groups, ``norm`` the global final step norm.
+    ``mean_trips`` appends the mean trip count over the groups (a
+    float32 device scalar)."""
     block = _block(n, block)
     # A fresh contiguous copy: the sums below then see the same layout
     # whether ``raw`` is one launch's output or one member's slice of a
     # folded launch (serve.batch), and give the same bits.
     per_block = raw[4][:, ::block].contiguous()
-    return _summary(raw, per_block[0].max(), per_block[1].sum(),
-                    norm_denominator)
+    out = _summary(raw, per_block[0].max(), per_block[1].sum(),
+                   norm_denominator)
+    return out + (per_block[0].mean(),) if mean_trips else out
 
 
 def _summary(raw, trips, ssq, norm_denominator):
@@ -501,10 +505,11 @@ def fused_gn_shard(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
 def fused_gn_rows(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                   min_iterations: int, max_iterations: int, relaxation,
                   state_bounds_rows, norm_denominator, block: int = 2048,
-                  corrupt=None, device=None):
+                  corrupt=None, device=None, mean_trips: bool = False):
     """Whole Gauss-Newton solve, the signature and return tuple of the
     JAX ``fused_gn_rows``: ``(x_rows, a_rows, fwd, inn, n_done, norm,
-    verdicts, nonfinite_count, clip_saturated)``.
+    verdicts, nonfinite_count, clip_saturated)``, and with
+    ``mean_trips`` the groups' mean trip count last (:func:`summarise`).
 
     ``device`` (default CUDA; raises without one) must be where the
     tensors lie.  ``lin_rows`` is the operator's bound
@@ -518,7 +523,8 @@ def fused_gn_rows(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
     raw = fused_gn_raw(lin_rows, y, r_inv, mask_f, xf_rows, pf_rows, tol,
                        min_iterations, max_iterations, relaxation,
                        state_bounds_rows, norm_denominator, block, corrupt)
-    return summarise(raw, pf_rows.shape[1], block, norm_denominator)
+    return summarise(raw, pf_rows.shape[1], block, norm_denominator,
+                     mean_trips)
 
 
 #: CUDA kernel launches of this process (plain-version calls excluded).

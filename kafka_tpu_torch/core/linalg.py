@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from ..telemetry.spans import span
+
 # The unrolled elementwise factorisation covers the small states (p=7
 # TIP, p=10 PROSAIL, p=11 joint); larger blocks (the p=21 Ross-Li
 # kernel-weight state) go to torch.linalg, as the JAX package's go to
@@ -103,22 +105,26 @@ def _gather_index(p: int, kind: str, device: torch.device) -> torch.Tensor:
 def pack_rows(a: torch.Tensor) -> torch.Tensor:
     """Dense ``(n, p, p)`` -> ``(p(p+1)/2, n)`` float32 lower-triangle rows,
     one indexed gather over the flattened ``(n, p*p)`` batch (a broadcast
-    prior stays a view until the gather)."""
+    prior stays a view until the gather); a ``row_layout`` span, timed
+    on the device inside a date."""
     n, p = a.shape[0], a.shape[-1]
-    flat_t = a.reshape(n, p * p).T
-    return flat_t.index_select(0, _gather_index(p, "pack", a.device)) \
-        .to(torch.float32)
+    with span("row_layout", per_date=True, device=a.device):
+        flat_t = a.reshape(n, p * p).T
+        return flat_t.index_select(0, _gather_index(p, "pack", a.device)) \
+            .to(torch.float32)
 
 
 def unpack_rows(rows: torch.Tensor) -> torch.Tensor:
     """``(p(p+1)/2, n)`` packed rows -> dense ``(n, p, p)``, one indexed
-    gather (bit-identical copies of the packed entries)."""
+    gather (bit-identical copies of the packed entries); a
+    ``row_layout`` span like :func:`pack_rows`."""
     n_coeff, n = rows.shape
     p = (math.isqrt(8 * n_coeff + 1) - 1) // 2
     if tri_rows(p) != n_coeff:
         raise ValueError(f"{n_coeff} rows is not a packed triangle")
-    return rows.T.index_select(1, _gather_index(p, "unpack", rows.device)) \
-        .view(n, p, p)
+    with span("row_layout", per_date=True, device=rows.device):
+        return rows.T.index_select(
+            1, _gather_index(p, "unpack", rows.device)).view(n, p, p)
 
 
 def unpack_symmetric(a_packed) -> torch.Tensor:

@@ -63,6 +63,7 @@ from .linalg import (
     unpack_symmetric,
 )
 from .types import BandBatch, Linearization, SolveDiagnostics
+from ..telemetry.spans import span
 
 CONVERGENCE_TOL = 1e-3
 MIN_ITERATIONS = 2
@@ -271,10 +272,13 @@ def _gn_rows_inputs(obs, x_forecast, p_inv_forecast, corrupt):
 
 
 def _gn_rows_result(summary):
-    """The row path's return tuple from ``fused_gn.summarise``."""
-    x_rows, a_rows, fwd, inn, n_done, norm, verd, nonfin, clip_sat = summary
+    """The row path's return tuple from ``fused_gn.summarise`` (its
+    groups' mean trips, where it gives them, the health tuple's last)."""
+    x_rows, a_rows, fwd, inn, n_done, norm, verd, nonfin, clip_sat = \
+        summary[:9]
+    mean_trips = summary[9] if len(summary) > 9 else None
     return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done, norm,
-            (verd, nonfin, clip_sat))
+            (verd, nonfin, clip_sat, mean_trips))
 
 
 def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
@@ -300,7 +304,8 @@ def _iterated_solve_rows(linearize, obs, x_forecast, p_inv_forecast,
                 relaxation, _kernel_bounds_rows(state_bounds, p), numel)
         if collective.current() is None:
             return _gn_rows_result(fused_gn_rows(
-                *args, corrupt=cor, device=x_forecast.device))
+                *args, corrupt=cor, device=x_forecast.device,
+                mean_trips=True))
         # A mesh shard: every pixel in the unsharded run's group, the
         # groups straddling shards launched once for all of them.
         from .fused_gn import fused_gn_shard
@@ -357,13 +362,14 @@ def run_loops(loops):
         if "sync" in by_kind:
             ks = by_kind["sync"]
             flags = [pending.pop(k)[1] for k in ks]
-            if len(flags) == 1:
-                values = [bool(flags[0])]
-            else:
-                # kafkalint: disable=host-transfer-in-jit — the lockstep
-                # driver's one read of every member's loop condition per
-                # step (the census's pinned host read).
-                values = torch.stack(flags).tolist()
+            with span("loop_sync", per_date=True):
+                if len(flags) == 1:
+                    values = [bool(flags[0])]
+                else:
+                    # kafkalint: disable=host-transfer-in-jit — the
+                    # lockstep driver's one read of every member's loop
+                    # condition per step (the census's pinned host read).
+                    values = torch.stack(flags).tolist()
             for k, v in zip(ks, values):
                 advance(k, bool(v))
             continue
@@ -451,11 +457,12 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
         if (below and n_done >= min_iterations) or n_done > max_iterations:
             break
         x_cols = x_rows.T
-        if use_block:
-            lin = _blocked_linearize(linearize, operator_params, x_cols,
-                                     int(linearize_block))
-        else:
-            lin = _call_linearize(linearize, operator_params, x_cols)
+        with span("linearize", per_date=True):
+            if use_block:
+                lin = _blocked_linearize(linearize, operator_params, x_cols,
+                                         int(linearize_block))
+            else:
+                lin = _call_linearize(linearize, operator_params, x_cols)
         h0 = lin.h0.to(f32)
         if corrupt is not None:
             h0 = solver_health.corrupt_h0(h0, corrupt)
@@ -517,7 +524,7 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
         clip_sat = torch.zeros(p, dtype=torch.int32, device=dev)
     n_done_t = torch.full((), n_done, dtype=torch.int32, device=dev)
     return (x_rows.T, unpack_rows(a_rows), fwd, inn, n_done_t, norm,
-            (verd, nonfin_count, clip_sat))
+            (verd, nonfin_count, clip_sat, None))
 
 
 def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
@@ -547,7 +554,8 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
     n_done = 0
     norm = torch.full((), float("inf"), dtype=f32, device=dev)
     while True:
-        converged = bool(norm < tol_t) and n_done >= min_iterations
+        with span("loop_sync", per_date=True):
+            converged = bool(norm < tol_t) and n_done >= min_iterations
         if converged or n_done > max_iterations:
             break
         x_prev = x
@@ -599,7 +607,7 @@ def _iterated_solve_health(one_lin, obs, x_forecast, p_inv_forecast, tol,
         clip_sat = torch.zeros(p, dtype=torch.int32, device=dev)
     n_done_t = torch.full((), n_done, dtype=torch.int32, device=dev)
     return x, a, fwd, innovations, n_done_t, norm, \
-        (verd, nonfin_count, clip_sat)
+        (verd, nonfin_count, clip_sat, None)
 
 
 def _iterated_solve_generic(one_lin, obs, x_forecast, p_inv_forecast, tol,
@@ -723,11 +731,12 @@ def _linearizer(linearize, operator_params, linearize_block, corrupt,
         and 0 < int(linearize_block) < n_pix
 
     def one_lin(x_prev):
-        if use_block:
-            lin = _blocked_linearize(linearize, operator_params, x_prev,
-                                     int(linearize_block))
-        else:
-            lin = _call_linearize(linearize, operator_params, x_prev)
+        with span("linearize", per_date=True):
+            if use_block:
+                lin = _blocked_linearize(linearize, operator_params, x_prev,
+                                         int(linearize_block))
+            else:
+                lin = _call_linearize(linearize, operator_params, x_prev)
         if corrupt is not None:
             lin = lin._replace(h0=solver_health.corrupt_h0(lin.h0, corrupt))
         return lin
@@ -855,9 +864,9 @@ def _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
     chi2, clipped, nodata = _window_telemetry_scalars(
         x, innovations, obs, state_bounds
     )
-    verdicts = nonfin = clip_sat = cap = damped = quar = None
+    verdicts = nonfin = clip_sat = cap = damped = quar = mean_trips = None
     if health is not None:
-        verdicts, nonfin, clip_sat = health
+        verdicts, nonfin, clip_sat, mean_trips = health
         cap, damped, quar = solver_health.verdict_counts(verdicts)
     diags = SolveDiagnostics(
         innovations=innovations, fwd_modelled=fwd, n_iterations=n_done,
@@ -866,6 +875,7 @@ def _finish_solve(x, a, fwd, innovations, n_done, norm, obs,
         health_verdicts=verdicts, cap_bailout_count=cap,
         damped_recovered_count=damped, quarantined_count=quar,
         nonfinite_count=nonfin, clip_saturated_count=clip_sat,
+        mean_trips=mean_trips,
     )
     return x, a, diags
 
@@ -1130,7 +1140,7 @@ def _fused_gn_fold(linearize, members, tol, min_iterations, max_iterations,
     return [
         _gn_rows_result(fg.summarise(
             tuple(t[:, m * n:(m + 1) * n].contiguous() for t in raw), n,
-            block, numels[m]))
+            block, numels[m], mean_trips=True))
         for m in range(len(members))
     ]
 
@@ -1384,6 +1394,7 @@ class ScanWindowStats(NamedTuple):
     nonfinite_count: Any = None         # (K,) int32
     clip_saturated_count: Any = None    # (K, p) int32
     health_verdicts: Any = None         # (K, n_pix) int32 QA bitmask
+    mean_trips: Any = None              # (K,) float32, fused_gn only
 
 
 def stack_aux(auxes):
@@ -1493,6 +1504,8 @@ def _windows_scan(linearize, obs_stacked, x_analysis0, p_inv_analysis0,
             "cap_bailout_count", "damped_recovered_count",
             "quarantined_count", "nonfinite_count", "clip_saturated_count",
             "health_verdicts")}
+    if steps[0][2].mean_trips is not None:
+        health["mean_trips"] = stacked("mean_trips")
     stats = ScanWindowStats(
         chi2_per_band=stacked("chi2_per_band"),
         clipped_count=stacked("clipped_count"),

@@ -61,6 +61,10 @@ class SolveDiagnostics(NamedTuple):
     quarantined_count: Any = None
     nonfinite_count: Any = None
     clip_saturated_count: Any = None
+    #: the mean Gauss-Newton trips over the date's ``fused_gn``
+    #: convergence groups (float32 scalar); None off that route and on a
+    #: mesh.
+    mean_trips: Any = None
 
 
 def flat_to_pixel_major(x_flat: torch.Tensor, n_params: int) -> torch.Tensor:

@@ -57,7 +57,14 @@ As in the JAX engine:
 
 - the device plane as in the JAX engine: the one packed diagnostic read
   per date or fused block goes through ``telemetry.fetch_scalars``
-  (counted by ``kafka_engine_device_reads_total``); every window feeds
+  (counted by ``kafka_engine_device_reads_total``); inside each date (or
+  fused block) the sub-date spans (``telemetry.spans``: ``date_fetch``,
+  ``date_solve``, ``date_record``, and in the solver ``linearize``,
+  ``loop_sync``, ``row_layout``) add up in a ``DateSums`` that lands in
+  the date's record and ``solve`` event as ``date_host_ms``,
+  ``linearize_ms`` and, traced on a card, ``row_layout_ms`` (device
+  time, read after that packed read's sync), beside ``mean_trips`` of
+  the ``fused_gn`` route, which joins the packed read; every window feeds
   ``perf.record_window`` from that host record (no added read or
   synchronisation); every window or fused block ticks
   ``record_memory_watermark`` (the CUDA memory gauges and the allocator
@@ -88,6 +95,7 @@ from ..resilience import (DEFAULT_READ_POLICY, TRANSIENT, DegradedDateError,
 from ..telemetry import (devprof, fetch_scalars, get_registry, perf, quality,
                          record_memory_watermark, span, stopwatch, tracing)
 from ..telemetry.device import use_device
+from ..telemetry.spans import DateSums
 from ..utils.profiling import trace
 from .prefetch import ObservationPrefetcher
 from .protocols import DateObservation, ObservationSource, OutputWriter, Prior
@@ -424,42 +432,56 @@ class KalmanFilter:
                 t.float()))
         self._window_verdicts = None
         for date in dates:
-            obs = self._fetch(date)
-            if obs is None:
-                # Degraded date: the forecast passes through unchanged.
-                LOG.info("Skipping degraded date %s (predict-only)", date)
-                continue
-            faults.fault_point("device.oom", date=str(date))
-            t0 = stopwatch()
-            opts = self.date_solver_options(obs.operator)
-            if self.band_sequential:
-                x_a, p_inv_a, diags = self._assimilate_band_sequential(
-                    obs, x_a, p_inv_a, opts)
-            elif self.date_dispatcher is not None:
-                if self.mesh is not None:
-                    raise ValueError("a date_dispatcher coalesces whole "
-                                     "batches; it does not take a mesh")
-                x_a, p_inv_a, diags = self.date_dispatcher(
-                    obs.operator.linearize, obs.bands, x_a, p_inv_a,
-                    obs.aux, opts or None,
-                    self._hessian_forward(obs.operator),
-                )
-            else:
-                x_a, p_inv_a, diags = self._date_solve(
-                    obs.operator.linearize, obs.bands, x_a, p_inv_a,
-                    obs.aux, opts, self._hessian_forward(obs.operator),
-                    obs.operator)
-            p_a = None
-            if diags.health_verdicts is not None:
-                self._window_verdicts = (
-                    diags.health_verdicts if self._window_verdicts is None
-                    else solver_health.merge_verdicts(
-                        self._window_verdicts, diags.health_verdicts)
-                )
-            if self.diagnostics:
-                self._record_window(self._date_record(date, obs, diags, t0),
-                                    obs.operator)
+            with DateSums() as sums:
+                with span("date_fetch", per_date=True):
+                    obs = self._fetch(date)
+                if obs is None:
+                    # Degraded date: the forecast passes through unchanged.
+                    LOG.info("Skipping degraded date %s (predict-only)",
+                             date)
+                    continue
+                x_a, p_inv_a = self._assimilate_obs(date, obs, x_a, p_inv_a,
+                                                    sums)
+                p_a = None
         return x_a, p_a, p_inv_a
+
+    def _assimilate_obs(self, date, obs, x_a, p_inv_a, sums: DateSums):
+        """One fetched acquisition of ``assimilate_dates``, its record
+        landed with the date's sums: ``(x_a, p_inv_a)`` after it."""
+        faults.fault_point("device.oom", date=str(date))
+        t0 = stopwatch()
+        with span("date_solve", per_date=True):
+            x_a, p_inv_a, diags = self._dispatch_date(obs, x_a, p_inv_a)
+        if diags.health_verdicts is not None:
+            self._window_verdicts = (
+                diags.health_verdicts if self._window_verdicts is None
+                else solver_health.merge_verdicts(
+                    self._window_verdicts, diags.health_verdicts)
+            )
+        if self.diagnostics:
+            with span("date_record", per_date=True):
+                rec = self._date_record(date, obs, diags, t0)
+                self._record_window(rec, obs.operator)
+            self._emit_solve([rec], sums)
+        return x_a, p_inv_a
+
+    def _dispatch_date(self, obs, x_a, p_inv_a):
+        """The date's solve by its route: ``(x_a, p_inv_a, diags)``."""
+        opts = self.date_solver_options(obs.operator)
+        if self.band_sequential:
+            return self._assimilate_band_sequential(obs, x_a, p_inv_a, opts)
+        if self.date_dispatcher is not None:
+            if self.mesh is not None:
+                raise ValueError("a date_dispatcher coalesces whole "
+                                 "batches; it does not take a mesh")
+            return self.date_dispatcher(
+                obs.operator.linearize, obs.bands, x_a, p_inv_a,
+                obs.aux, opts or None,
+                self._hessian_forward(obs.operator),
+            )
+        return self._date_solve(
+            obs.operator.linearize, obs.bands, x_a, p_inv_a, obs.aux, opts,
+            self._hessian_forward(obs.operator), obs.operator)
 
     def _hessian_forward(self, operator):
         """The per-pixel forward model for the Hessian correction, or
@@ -496,7 +518,7 @@ class KalmanFilter:
         innovations, residuals and chi^2 concatenated, nodata summed,
         the last band's clipped counts; verdicts ORed (NODATA only where
         no band observed) with their counts recomputed, non-finite
-        counts summed."""
+        counts summed; no ``fused_gn`` mean trips (one band's groups)."""
         n_bands = obs.bands.y.shape[0]
         iters_total = 0
         norms, masks, innovations, fwds, chi2s = [], [], [], [], []
@@ -531,6 +553,7 @@ class KalmanFilter:
                             else None),
             chi2_per_band=torch.cat(chi2s),
             nodata_count=nodata_total,
+            mean_trips=None,
         )
         if verds and len(verds) == n_bands:
             merged = verds[0]
@@ -552,7 +575,8 @@ class KalmanFilter:
 
     def _date_record(self, date, obs, diags, t0) -> dict:
         """The per-date diagnostic record, from ONE packed device->host
-        read of every scalar (the wall time includes that sync)."""
+        read of every scalar (the wall time includes that sync), the
+        ``fused_gn`` groups' mean trips among them."""
         n_bands = obs.bands.y.shape[0]
         parts = [
             torch.stack([
@@ -577,6 +601,9 @@ class KalmanFilter:
                 diags.nonfinite_count.float(),
             ]))
             parts.append(diags.clip_saturated_count.float())
+        has_trips = diags.mean_trips is not None
+        if has_trips:
+            parts.append(torch.as_tensor(diags.mean_trips).float()[None])
         packed = fetch_scalars(torch.cat(parts))
         rec = {
             "date": date,
@@ -597,6 +624,8 @@ class KalmanFilter:
             rec["nonfinite"] = int(packed[h0 + 3])
             rec["clip_saturated"] = [
                 int(v) for v in packed[h0 + 4:h0 + 4 + self.n_params]]
+        if has_trips:
+            rec["mean_trips"] = float(packed[-1])
         LOG.info("Assimilated %s: %d iterations, norm %.3g, %.2fs", date,
                  rec["n_iterations"], rec["convergence_norm"], rec["wall_s"])
         return rec
@@ -685,8 +714,26 @@ class KalmanFilter:
             operator=operator,
             registry=reg,
         )
-        reg.emit("solve", **{k: (str(v) if k == "date" else v)
-                             for k, v in rec.items()})
+
+    @staticmethod
+    def _emit_solve(recs, sums: DateSums) -> None:
+        """Land the sub-date sums of a date, or of a fused block split
+        evenly over its windows' ``recs`` as ``wall_s`` is, in each
+        record, then emit each record's one ``solve`` event.  The device
+        time of ``row_layout`` is read here, after the packed read's
+        sync (absent off a card)."""
+        k = len(recs)
+        host_ms = sums.ms("date_fetch", "date_record") / k
+        lin_ms = sums.ms("linearize") / k
+        dev_ms = sums.device_ms()
+        reg = get_registry()
+        for rec in recs:
+            rec["date_host_ms"] = host_ms
+            rec["linearize_ms"] = lin_ms
+            if dev_ms is not None:
+                rec["row_layout_ms"] = dev_ms / k
+            reg.emit("solve", **{key: (str(v) if key == "date" else v)
+                                 for key, v in rec.items()})
 
     def _record_solver_health(self, reg, rec: dict) -> None:
         """Solve-health counters and events of one window's record."""
@@ -925,9 +972,10 @@ class KalmanFilter:
 
     def _run_fused_block(self, block, x_analysis, p_analysis,
                          p_analysis_inverse, checkpointer,
-                         is_last: bool = True):
+                         is_last: bool = True, sums: DateSums = None):
         """Run K collected (timestep, obs) windows as one
-        ``assimilate_windows_scan`` call."""
+        ``assimilate_windows_scan`` call (its sub-date spans adding up
+        in ``sums``, the block's, which already hold its fetches)."""
         from ..core.solvers import assimilate_windows_scan, stack_aux
 
         p_inv = p_analysis_inverse
@@ -941,25 +989,25 @@ class KalmanFilter:
         opts = self.date_solver_options(first.operator)
         faults.fault_point("device.oom", date=str(block[0][0]))
         t0 = stopwatch()
-        bands = BandBatch(*(_stack_block([getattr(o.bands, f)
-                                          for _, o in block])
-                            for f in BandBatch._fields))
-        aux_stacked = stack_aux([o.aux for _, o in block])
         scan = assimilate_windows_scan
         if self.mesh is not None:
             from ..shard.step import sharded_windows_scan
 
             scan = functools.partial(sharded_windows_scan, self.mesh,
                                      operator=first.operator)
-        x_fin, p_inv_fin, xs, diag_s, iters, norms, converged, wstats = (
-            scan(
-                first.operator.linearize, bands, x_analysis, p_inv,
-                aux_stacked, self.trajectory_model,
-                self.trajectory_uncertainty, prior_mean, prior_inv,
-                self._state_propagator, opts or None,
-                self._hessian_forward(first.operator),
-            )
-        )
+        with span("date_solve", per_date=True):
+            bands = BandBatch(*(_stack_block([getattr(o.bands, f)
+                                              for _, o in block])
+                                for f in BandBatch._fields))
+            aux_stacked = stack_aux([o.aux for _, o in block])
+            x_fin, p_inv_fin, xs, diag_s, iters, norms, converged, \
+                wstats = scan(
+                    first.operator.linearize, bands, x_analysis, p_inv,
+                    aux_stacked, self.trajectory_model,
+                    self.trajectory_uncertainty, prior_mean, prior_inv,
+                    self._state_propagator, opts or None,
+                    self._hessian_forward(first.operator),
+                )
         xs, diag_s, converged = (self._full(t) for t in (xs, diag_s,
                                                          converged))
         if wstats.health_verdicts is not None:
@@ -986,8 +1034,10 @@ class KalmanFilter:
                             qa_one(ts, wstats.health_verdicts[k],
                                    self.gather)
         if self.diagnostics:
-            self._block_records(timesteps, first, iters, norms, converged,
-                                wstats, t0)
+            with span("date_record", per_date=True):
+                recs = self._block_records(timesteps, first, iters, norms,
+                                           converged, wstats, t0)
+            self._emit_solve(recs, DateSums() if sums is None else sums)
         self._maybe_checkpoint(
             checkpointer, timesteps[-1], x_fin, None, p_inv_fin,
             n_windows=len(timesteps), is_last=is_last,
@@ -995,10 +1045,11 @@ class KalmanFilter:
         return x_fin, None, p_inv_fin
 
     def _block_records(self, timesteps, first, iters, norms, converged,
-                       wstats, t0) -> None:
+                       wstats, t0) -> list:
         """One record per fused window, from ONE packed device->host read
         of the whole block's scalars; ``wall_s`` is the block's wall time
-        over its windows and ``fused`` the block's length."""
+        over its windows and ``fused`` the block's length.  Returns the
+        records, landed in the registry."""
         k = len(timesteps)
         n_bands = first.bands.y.shape[0]
         p = self.n_params
@@ -1016,10 +1067,14 @@ class KalmanFilter:
                         wstats.quarantined_count.float(),
                         wstats.nonfinite_count.float(),
                         wstats.clip_saturated_count.float().reshape(-1)]
+        has_trips = wstats.mean_trips is not None
+        if has_trips:
+            scalars.append(wstats.mean_trips.float())
         packed = fetch_scalars(torch.cat(scalars))
         wall = t0.elapsed()
         chi0 = 4 * k
         h0 = chi0 + k * n_bands + (k if converged is not None else 0)
+        recs = []
         for j, ts in enumerate(timesteps):
             rec = {
                 "date": ts,
@@ -1044,9 +1099,13 @@ class KalmanFilter:
                 sat0 = h0 + 4 * k + j * p
                 rec["clip_saturated"] = [int(v)
                                          for v in packed[sat0:sat0 + p]]
+            if has_trips:
+                rec["mean_trips"] = float(packed[len(packed) - k + j])
             self._record_window(rec, first.operator)
+            recs.append(rec)
         LOG.info("Assimilated %d fused windows ending %s in %.2fs", k,
                  timesteps[-1], wall)
+        return recs
 
     def _run_loop(self, windows, x_forecast, p_forecast,
                   p_forecast_inverse, checkpointer, advance_first):
@@ -1067,12 +1126,15 @@ class KalmanFilter:
                         and ((not is_first) or advance_first)
                         and len(locate_times) == 1):
                     block, block_dates = [], []
+                    # The block's sub-date sums, its fetches first.
+                    sums = DateSums()
                     j = idx
                     while j < len(windows) and len(block) < self.scan_window:
                         ts_j, lt_j, _ = windows[j]
                         if len(lt_j) != 1:
                             break
-                        obs_j = self._fetch(lt_j[0])
+                        with sums, span("date_fetch", per_date=True):
+                            obs_j = self._fetch(lt_j[0])
                         if obs_j is None:
                             # A degraded date can't join a fused block;
                             # park it so the unfused path sees None again.
@@ -1103,13 +1165,14 @@ class KalmanFilter:
                         LOG.info("Advancing + assimilating %d fused windows "
                                  "%s..%s", len(block), block[0][0],
                                  block[-1][0])
-                        with span("fused_scan"):
+                        with span("fused_scan"), sums:
                             x_analysis, p_analysis, p_analysis_inverse = (
                                 self._run_fused_block(
                                     block, x_analysis, p_analysis,
                                     p_analysis_inverse, checkpointer,
                                     is_last=(idx + len(block)
                                              == len(windows)),
+                                    sums=sums,
                                 ))
                         idx += len(block)
                         record_memory_watermark()

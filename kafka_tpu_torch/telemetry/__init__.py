@@ -5,7 +5,10 @@ package's tools read the other's artifacts):
 - :mod:`registry` — the thread-safe metrics store (counters / gauges /
   histograms with labels), JSONL events and Prometheus text;
 - :mod:`spans` — timed engine phases in the registry, the trace timeline
-  and ``torch.profiler`` (``record_function``);
+  and ``torch.profiler`` (``record_function``); inside ``assimilate`` /
+  ``fused_scan`` the sub-date phases ``date_fetch``, ``date_solve``,
+  ``date_record``, ``linearize``, ``loop_sync`` and ``row_layout``, summed
+  a date (``DateSums``) into the engine's date records;
 - :mod:`tracing` — the trace timeline and its run/chunk/window context;
 - :mod:`flight_recorder` — ``crash_<ts>.json`` on an unhandled
   exception, SIGTERM/SIGINT or an unhealthy probe, with OOM forensics;

@@ -521,15 +521,18 @@ def stitch_traces(root: str, run_id: Optional[str] = None,
     else:
         # Device lanes (telemetry.devprof): every profiler capture
         # session under the root joins as its own pid track, device kernel
-        # spans aligned on the capture_meta.json epoch sidecar — the
-        # host phase spans and the kernels they dispatched share one
+        # spans aligned on the host phase spans their kafka/<phase>
+        # ranges match (else on the capture_meta.json epoch sidecar) —
+        # the host phase spans and the kernels they dispatched share one
         # Perfetto window.  Request waterfalls skip this: kernels carry
         # no request_id.  Late import keeps aggregate importable
         # standalone (it has no other package dependencies).
         from . import devprof
 
         dev_events, dev_sources = devprof.device_lane_tracks(
-            root, epoch0, first_pid=len(sources) + 1
+            root, epoch0, first_pid=len(sources) + 1,
+            host_spans=[e for e in events if e.get("ph") == "X"
+                        and e.get("cat") == "phase"],
         )
         events.extend(dev_events)
         out_sources.extend(dev_sources)

@@ -38,6 +38,7 @@ ledger and mesh introspection (port of ``kafka_tpu/telemetry/devprof.py``).
 
 from __future__ import annotations
 
+import bisect
 import gzip
 import json
 import os
@@ -474,18 +475,91 @@ def kernel_summary(registry: Optional[MetricsRegistry] = None,
 # Stitched-trace fold-in: device lanes beside the host phase spans.
 # ---------------------------------------------------------------------------
 
+#: longest ``kafka/<phase>`` annotations of a capture matched against
+#: the host's phase spans (the long ones are the rare, telling ones).
+ALIGN_MAX_ANNOTATIONS = 200
+#: microseconds: how far from the epoch-pinned guess a matching host
+#: span may start, how far two spans' durations may differ, and the
+#: width of one offset cluster.
+ALIGN_WINDOW_US = 5e6
+ALIGN_DUR_US = 50.0
+ALIGN_CLUSTER_US = 100.0
+
+
+def _phase_annotations(raw: List[dict]) -> List[dict]:
+    """The host ``kafka/<phase>`` ranges (``record_function``) of a
+    capture, not their copies on a device lane."""
+    procs, _ = _track_names(raw)
+    return [e for e in raw
+            if e.get("ph") == "X" and str(e.get("name", "")).startswith(
+                "kafka/")
+            and str(e.get("cat", "")).lower() != "gpu_user_annotation"
+            and not procs.get(e.get("pid"), "").startswith("/device:")]
+
+
+def phase_offset(annotations: List[dict], host_spans: List[dict],
+                 guess: float) -> Optional[float]:
+    """Microseconds to add to a capture's timestamps to put them on the
+    host spans' axis: the median offset of the matched pairs, where an
+    annotation ``kafka/<phase>`` matches a host ``cat: "phase"`` span of
+    that phase whose duration agrees within ``ALIGN_DUR_US`` and whose
+    start lies within ``ALIGN_WINDOW_US`` of ``guess`` (the epoch-pinned
+    offset).  The offsets vote in clusters ``ALIGN_CLUSTER_US`` wide;
+    the cluster with the most votes wins, the nearest to ``guess`` among
+    equals (a periodic phase alone can match a period off).  None when
+    nothing matches."""
+    by_name: Dict[str, List[Tuple[float, float]]] = {}
+    for h in host_spans:
+        by_name.setdefault(h.get("name"), []).append(
+            (float(h.get("ts", 0)), float(h.get("dur") or 0)))
+    for spans in by_name.values():
+        spans.sort()
+    longest = sorted(annotations, key=lambda e: -float(e.get("dur") or 0))
+    offsets: List[float] = []
+    for a in longest[:ALIGN_MAX_ANNOTATIONS]:
+        spans = by_name.get(str(a["name"])[len("kafka/"):])
+        if not spans:
+            continue
+        ts, dur = float(a.get("ts", 0)), float(a.get("dur") or 0)
+        lo = bisect.bisect_left(spans, (ts + guess - ALIGN_WINDOW_US,))
+        hi = bisect.bisect_right(spans, (ts + guess + ALIGN_WINDOW_US,))
+        offsets.extend(h_ts - ts for h_ts, h_dur in spans[lo:hi]
+                       if abs(h_dur - dur) <= ALIGN_DUR_US)
+    if not offsets:
+        return None
+    offsets.sort()
+    best, j = None, 0
+    for i, d in enumerate(offsets):
+        while offsets[j] < d - ALIGN_CLUSTER_US:
+            j += 1
+        cluster = offsets[j:i + 1]
+        key = (len(cluster), -abs(cluster[len(cluster) // 2] - guess))
+        if best is None or key > best[0]:
+            best = (key, cluster)
+    cluster = best[1]
+    mid = len(cluster) // 2
+    return cluster[mid] if len(cluster) % 2 else \
+        (cluster[mid - 1] + cluster[mid]) / 2
+
+
 def device_lane_tracks(root: str, epoch0: float, first_pid: int,
+                       host_spans: Optional[List[dict]] = None,
                        ) -> Tuple[List[dict], List[dict]]:
     """Device-lane Chrome-trace tracks for every capture session under
     ``root``, pid-remapped from ``first_pid`` and shifted onto the
     stitched timeline's shared epoch axis.
 
     The profiler's timestamps are monotonic ticks with no wall-clock
-    anchor, so alignment pins each session's EARLIEST device event to
-    the ``capture_meta.json`` epoch recorded when the capture started —
-    exact to within profiler startup latency, which is enough to read
-    "which host phase was live during this kernel burst" off one
-    Perfetto window.  Sessions with no sidecar pin to ``epoch0``
+    anchor.  Where the capture holds ``kafka/<phase>`` annotations (the
+    ``record_function`` ranges of ``telemetry.spans.span``) that match
+    ``host_spans`` — the stitched ``TraceBuffer`` phase spans, already on
+    the shared axis — the session is shifted by the median offset of the
+    matched ranges (:func:`phase_offset`), so a kernel lands under the
+    host span that launched it, to within the spans' own microseconds.
+    Otherwise the session's EARLIEST device event is pinned to the
+    ``capture_meta.json`` epoch recorded when the capture started, which
+    shifts every kernel early by however long the host took to launch
+    its first one; sessions with no sidecar pin to ``epoch0``
     (trace-relative time zero).  Returns ``(events, sources)`` in
     ``stitch_traces``'s vocabulary.
     """
@@ -501,6 +575,11 @@ def device_lane_tracks(root: str, epoch0: float, first_pid: int,
         ts_min = min(e.get("ts", 0) for e in dev)
         shift = ((epoch - epoch0) * 1e6 if epoch is not None else 0.0) \
             - ts_min
+        if host_spans:
+            matched = phase_offset(_phase_annotations(raw), host_spans,
+                                   shift)
+            if matched is not None:
+                shift = matched
         rel = os.path.relpath(session, root).replace(os.sep, "/")
         _, threads = _track_names(raw)
         events.append({

@@ -20,6 +20,7 @@ package's names.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import json
 import math
@@ -44,6 +45,9 @@ LabelKey = Tuple[Tuple[str, str], ...]
 
 
 def _label_key(labels: Dict[str, Any]) -> LabelKey:
+    if len(labels) == 1:  # the common case, kept cheap
+        ((k, v),) = labels.items()
+        return ((k, str(v)),)
     return tuple(sorted((k, str(v)) for k, v in labels.items()))
 
 
@@ -130,6 +134,11 @@ class Histogram(_Metric):
 
     def observe(self, value: float, **labels) -> None:
         key = _label_key(labels)
+        v = float(value)
+        # The cumulative buckets from the first with le >= v (a NaN
+        # falls in none); the engine observes several spans a date.
+        first = len(self.buckets) if v != v \
+            else bisect.bisect_left(self.buckets, v)
         with self._lock:
             st = self._values.get(key)
             if st is None:
@@ -139,12 +148,12 @@ class Histogram(_Metric):
                     "buckets": [0] * len(self.buckets),
                 }
             st["count"] += 1
-            st["sum"] += float(value)
-            st["min"] = min(st["min"], float(value))
-            st["max"] = max(st["max"], float(value))
-            for i, le in enumerate(self.buckets):
-                if value <= le:
-                    st["buckets"][i] += 1
+            st["sum"] += v
+            st["min"] = min(st["min"], v)
+            st["max"] = max(st["max"], v)
+            counts = st["buckets"]
+            for i in range(first, len(counts)):
+                counts[i] += 1
 
 
 class MetricsRegistry:

@@ -315,12 +315,21 @@ def _registrations(pkg: pathlib.Path) -> dict:
 #: healthy values): the port states its own.
 HELP_WITH_TPU_FIGURES = ("kafka_health_probe_device_ms",
                          "kafka_health_probe_host_ms")
+#: help strings the port extends: the JAX text with the port's own
+#: additions inside its closing parenthesis (the sub-date phases).
+HELP_EXTENDED = {
+    "kafka_engine_phase_seconds": (
+        "wall seconds per engine phase (advance/assimilate/dump/"
+        "fused_scan, and inside a date date_fetch/date_solve/date_record/"
+        "linearize/loop_sync/row_layout)"),
+}
 
 
 def test_the_port_registers_the_jax_names_less_the_routers():
     """Every metric name of the JAX package, the router's nine
     ``kafka_route_*`` included (nothing is left out now), with the JAX
-    kinds, help strings and buckets."""
+    kinds, help strings (``HELP_EXTENDED``: the JAX text extended) and
+    buckets."""
     from kafka_tpu_torch.tools.kafkalint.rules_telemetry import \
         REGISTRATION_RE
 
@@ -342,6 +351,9 @@ def test_the_port_registers_the_jax_names_less_the_routers():
         assert (kind, buckets) == (jkind, jbuckets), name
         if name in HELP_WITH_TPU_FIGURES:
             assert help_text is None  # computed from the port's constants
+        elif name in HELP_EXTENDED:
+            assert help_text == HELP_EXTENDED[name], name
+            assert jhelp.endswith(")") and help_text.startswith(jhelp[:-1])
         else:
             assert help_text == jhelp, name
 

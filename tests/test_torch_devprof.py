@@ -301,6 +301,60 @@ class TestDeviceLaneStitching:
                 root, request_id="req-1")["otherData"]["sources"]
                 if not s.get("device_lane")]
 
+    def test_device_lane_aligns_on_the_program_phase_spans(self, tmp_path):
+        """A capture whose first kernel comes 300 ms after the capture
+        started: pinned to the capture epoch, every kernel would land
+        300 ms early; matched on its ``kafka/<phase>`` ranges, each
+        kernel lands within 1 ms of the host span that launched it."""
+        root = str(tmp_path / "tel")
+        os.makedirs(root)
+        # Host spans (TraceBuffer, us from the buffer epoch).
+        spans = [("assimilate", 400_000.0, 200_000.0),
+                 ("date_fetch", 410_000.0, 1_500.0),
+                 ("linearize", 420_000.0, 30_000.0),
+                 ("date_record", 560_000.0, 5_000.0),
+                 ("dump", 650_000.0, 40_000.0)]
+        host = {"traceEvents": [
+            {"name": n, "cat": "phase", "ph": "X", "ts": ts, "dur": dur,
+             "pid": 7, "tid": 1, "args": {}} for n, ts, dur in spans],
+            "otherData": {"epoch_unix_s": 1700000000.0,
+                          "run_ids": ["r1"]}}
+        with open(os.path.join(root, "trace.json"), "w") as f:
+            json.dump(host, f)
+        # The capture started at host 100 ms, Kineto tick 5 s there; its
+        # ranges read a few us off the buffer's, as two clocks do.
+        def tick(host_us):
+            return host_us - 100_000.0 + 5_000_000.0
+
+        ev = [{"ph": "M", "name": "process_name", "pid": 4242, "tid": 0,
+               "args": {"name": "python3"}},
+              {"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
+               "args": {"name": "GPU 0"}}]
+        for k, (n, ts, dur) in enumerate(spans):
+            ev.append({"ph": "X", "cat": "user_annotation",
+                       "name": f"kafka/{n}", "pid": 4242, "tid": 1,
+                       "ts": tick(ts) + 3.0 * (k % 2), "dur": dur - 2.0,
+                       "args": {}})
+        # One kernel a span, launched 20 us into it.
+        for n, ts, _ in spans:
+            ev.append({"ph": "X", "cat": "kernel", "name": f"k_{n}",
+                       "pid": 0, "tid": 7, "ts": tick(ts) + 20.0,
+                       "dur": 10.0, "args": {"device": 0}})
+        devprof.write_capture({"traceEvents": ev}, os.path.join(
+            root, "profile"), epoch_unix_s=1700000000.1)
+        doc = stitch_traces(root)
+        lane = [s["pid"] for s in doc["otherData"]["sources"]
+                if s.get("device_lane")]
+        kernels = {e["name"]: e["ts"] for e in doc["traceEvents"]
+                   if e.get("pid") in lane and e.get("ph") == "X"}
+        for n, ts, _ in spans:
+            assert abs(kernels[f"k_{n}"] - (ts + 20.0)) < 1_000.0, n
+        # The epoch pin alone puts the first kernel at the capture's
+        # start, 300 ms before its span.
+        pinned, _ = devprof.device_lane_tracks(root, 1700000000.0, 1)
+        first = min(e["ts"] for e in pinned if e.get("ph") == "X")
+        assert first == pytest.approx(100_000.0, abs=1.0)
+
 
 class TestCaptureRetention:
     def test_prune_keeps_newest_n_and_counts_evictions(self, tmp_path):

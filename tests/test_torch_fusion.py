@@ -140,8 +140,12 @@ def test_block_plan_and_diagnostics_match_jax(runs):
     assert any(f == 4 for _, f in plan(kf_t))
     assert [r["n_iterations"] for r in kf_t.diagnostics_log] == \
         [r["n_iterations"] for r in kf_j.diagnostics_log]
+    # The port's own per-date fields: the sub-date spans' sums and the
+    # fused_gn groups' mean trips (telemetry.spans, engine.filter).
+    port_fields = {"wall_s", "date_host_ms", "linearize_ms",
+                   "row_layout_ms", "mean_trips"}
     for rt, rj in zip(kf_t.diagnostics_log, kf_j.diagnostics_log):
-        assert set(rt) <= set(rj) | {"wall_s"}
+        assert set(rt) <= set(rj) | port_fields
         for key in ("bounds_clipped", "nodata", "quarantined",
                     "cap_bailouts", "damped_recovered", "nonfinite"):
             assert rt[key] == rj[key], key

@@ -4,9 +4,9 @@
 
 Needs one CUDA device; exits non-zero without one, and without the
 kafka_tpu_torch package beside it.  Imports neither JAX nor kafka_tpu.
-The three kernels (csrc/fused_gn.cu, fused_update.cu with its nine
-(p, bands) instances, solve_rows.cu) are built at the start, one nvcc
-each, in parallel.  Phases, each printing
+The four kernels (csrc/fused_gn.cu, fused_update.cu with its nine
+(p, bands) instances, solve_rows.cu, prosail_rows.cu) are built at the
+start, one nvcc each, in parallel.  Phases, each printing
 one JSON line:
 
 1. device — card, torch/CUDA versions, build time, registers and spills;
@@ -51,6 +51,16 @@ one JSON line:
    escalation, NaN y under a false mask and a non-finite Jacobian entry:
    x, A and the flags identical to the plain version's on those pixels,
    and no NaN leaks;
+9b. prosail_rows — the PROSAIL row kernel (the row loop's
+   linearisation) against its plain version, the eager torch.func
+   linearisation, at 65,536 and 1,205,760 px of states with 1/16 of the
+   pixels on each bound of every parameter, under the benchmark's four
+   S2 geometries (0-d angles) and per-pixel angles: both held to the
+   plain version in float64 (``prosail_rows_case``); timed beside its
+   bound; then one chunk date of make_prosail_problem through
+   assimilate_date on the kernel and the torch.func route: trips and
+   verdicts equal, x within the torch.func route's own one-ulp spread
+   (``prosail_rows_date``).  Phase main_s2 gates one launch per trip;
 10. kernel_solve — the packed solve on the normal equations of the kept
    S2 date (p=10), on them with 64 planted non-SPD and 64 zero-pivot
    pixels, on the kept TIP date's (p=7), and on the SOLVE_CASES (seeded
@@ -423,6 +433,30 @@ TILE = 2400
 KERNEL_REPLACES = "kafka_tpu/core/pallas_solve.py:255"
 UPDATE_REPLACES = "kafka_tpu/core/pallas_solve.py:124"
 SOLVE_REPLACES = "kafka_tpu/core/pallas_solve.py:72"
+PROSAIL_ROWS_REPLACES = ("none: the JAX package leaves the PROSAIL "
+                         "linearisation to jax.jacfwd under XLA "
+                         "(kafka_tpu/obsops/protocol.py:101)")
+#: the benchmark's Sentinel-2 acquisition geometries (sza, vza, raa in
+#: degrees; benchmark/workloads/s2_prosail.july_chunks.json).
+S2_GEOMETRIES = ((24.6, 5.2, -48.0), (25.1, 8.9, 62.5), (25.7, 3.1, -55.0),
+                 (26.2, 7.4, 70.0))
+#: pixel counts the PROSAIL row kernel is held to its plain version at: a
+#: quarter of the engine's block and one 1098 x 1098 chunk's padded width.
+PROSAIL_ROWS_SIZES = (65536, 1205760)
+#: the floors of its float64 rule (``prosail_rows_case``): the value's
+#: absolute error and each Jacobian entry's, of its column's largest
+#: magnitude; and the chunk date's x budget against the torch.func route.
+PROSAIL_H0_ATOL = 2e-6
+PROSAIL_JAC_RTOL = 1e-4
+PROSAIL_DATE_X_ATOL = 1e-5
+#: bytes a pixel moves once (reads x, 10 floats; writes h0 and the
+#: Jacobian rows, 110) and float32 operations a pixel needs: one per IEEE
+#: operation, comparison or select and one per exp, log, sqrt, pow, cos,
+#: sin or tan of csrc/prosail_rows.cu, 19,286 in its dual-number
+#: operations (counted on a host build with a counter in each) and 760
+#: in its scalar code (counted from the source).
+PROSAIL_ROWS_BYTES_PER_PX = 4 * (10 + 110)
+PROSAIL_ROWS_OPS_PER_PX = 20046
 #: one Sentinel-2 sub-tile: the JAX harness's S2 chunk (BASELINE.md:32-33).
 S2_TILE = 1098
 #: kernel inputs kept from this main-path date (0-based).
@@ -1327,9 +1361,7 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
 
     from kafka_tpu_torch.core import fused_update as fu_mod
     from kafka_tpu_torch.core import solvers
-    from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
-    from kafka_tpu_torch.core.solve_rows import solve_rows
 
     t_setup = time.perf_counter()
     kf, out, x0, p_inv0, grid, obs_days = s2_tile_filter(device, ny, nx,
@@ -1369,15 +1401,12 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
     solvers.iterated_solve = date_wrap
     solvers.fused_update_rows = keep
     try:
-        fused_gn_rows.launches = fused_update_rows.launches = \
-            solve_rows.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         x_a, _, p_inv_a = kf.run(grid, x0, None, p_inv0)
         _sync(device)
         run_s = time.perf_counter() - t0
-        launches = {"fused_gn": fused_gn_rows.launches,
-                    "fused_update": fused_update_rows.launches,
-                    "solve_rows": solve_rows.launches}
+        launches = launch_counts()
     finally:
         solvers.iterated_solve = real_solve
         solvers.fused_update_rows = fu_mod.fused_update_rows
@@ -1399,6 +1428,9 @@ def phase_main_s2(device, ny: int = S2_TILE, nx: int = S2_TILE,
     if launches["fused_update"] != iterations or iterations == 0:
         raise AssertionError(f"{launches} launches for {iterations} "
                              "iterations")
+    if device.type == "cuda" and launches["prosail_rows"] != iterations:
+        raise AssertionError(f"{launches['prosail_rows']} PROSAIL row "
+                             f"kernel launches for {iterations} iterations")
     if not finite:
         raise AssertionError("non-finite output raster")
     if not kept or not kept_date_args:
@@ -1528,6 +1560,233 @@ def phase_kernel_update(device, label: str, rows: dict,
     if failures:
         raise AssertionError(f"kernel_update ({label}): "
                              + "; ".join(failures))
+    return rec
+
+
+def prosail_rows_states(n: int, device, seed: int):
+    """``(10, n)`` float32 states inside ProsailOperator's bounds, with
+    1/16 of the pixels on each bound of every parameter: the ties the
+    solver's projection leaves, where the clips' half-tangent rule
+    decides the Jacobian."""
+    import torch
+
+    from kafka_tpu_torch.obsops.prosail import ProsailOperator
+
+    lo, hi = ProsailOperator.state_bounds
+    rng = np.random.default_rng(seed)
+    x = (lo + (hi - lo) * rng.uniform(0.0, 1.0, (n, 10))).astype(np.float32)
+    for k in range(10):
+        idx = rng.permutation(n)[: n // 8]
+        x[idx[: n // 16], k] = lo[k]
+        x[idx[n // 16:], k] = hi[k]
+    return torch.as_tensor(np.ascontiguousarray(x.T), device=device)
+
+
+def prosail_rows_aux(case, n: int, device, seed: int, dtype):
+    """A ``ProsailAux`` in ``dtype``: case g in 0-3 the g-th of
+    S2_GEOMETRIES as 0-d angles; ``per_pixel`` each pixel one of them,
+    moved by up to 2 degrees."""
+    import torch
+
+    from kafka_tpu_torch.obsops.prosail import ProsailAux
+
+    if case != "per_pixel":
+        return ProsailAux(*(torch.tensor(v, dtype=dtype, device=device)
+                            for v in S2_GEOMETRIES[case]))
+    rng = np.random.default_rng(seed)
+    geo = np.asarray(S2_GEOMETRIES, np.float32)[rng.integers(0, 4, n)]
+    geo = geo + rng.uniform(-2.0, 2.0, geo.shape).astype(np.float32)
+    geo[:, 1] = np.abs(geo[:, 1])
+    return ProsailAux(*(torch.as_tensor(geo[:, i], device=device)
+                        .to(dtype).contiguous() for i in range(3)))
+
+
+def prosail_rows_case(op, x_rows, aux, aux64) -> dict:
+    """The PROSAIL row kernel against its plain version (the eager
+    ``torch.func`` linearisation in the engine's blocks) and both against
+    the plain version in float64 on the same inputs.  Per pixel the
+    errors are the value's largest absolute error over the bands
+    (``h0``) and the Jacobian's largest over its 100 entries, each
+    divided by its (band, parameter) column's largest float64 magnitude
+    (``jac``).  The gate is the file head's float64 rule with the issue's
+    budgets as floors: at each of QUANTILES and at the maximum the
+    kernel may be at most ERR_MARGIN times as far off as the float32
+    plain version, or PROSAIL_H0_ATOL / PROSAIL_JAC_RTOL.  Float32
+    PROSAIL is ill-conditioned where ko meets m (the SAIL fluxes'
+    removable singularities): there the plain version's own Jacobian is
+    off float64 by up to ~1e-1 of its column, so no direct budget
+    between the two float32 versions holds everywhere; the direct
+    numbers are recorded."""
+    import torch
+
+    from kafka_tpu_torch.core import solvers
+    from kafka_tpu_torch.core.fused_update import jac_to_rows
+    from kafka_tpu_torch.core.prosail_rows import (linearize_rows_plain,
+                                                   prosail_linearize_rows)
+
+    dev = x_rows.device
+    h_k, j_k = prosail_linearize_rows(op, aux, x_rows)
+    _sync(dev)
+    h_p, j_p = linearize_rows_plain(op, aux, x_rows, ENGINE_BLOCK)
+    lin = solvers._blocked_linearize(op.linearize, aux64,
+                                     x_rows.T.to(torch.float64),
+                                     ENGINE_BLOCK)
+    h_r, j_r = lin.h0, jac_to_rows(lin.jac)
+    del lin
+    col = j_r.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    col_p = j_p.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    jac_vs_plain = ((j_k - j_p).abs() / col_p).amax(dim=1)
+
+    def errors(h, j):
+        return {"h0": (h.double() - h_r).abs().amax(dim=0),
+                "jac": ((j.double() - j_r).abs() / col).amax(dim=0)}
+
+    kernel_vs_ref = {k: quantile_summary(v)
+                     for k, v in errors(h_k, j_k).items()}
+    plain_vs_ref = {k: quantile_summary(v)
+                    for k, v in errors(h_p, j_p).items()}
+    floors = {"h0": PROSAIL_H0_ATOL, "jac": PROSAIL_JAC_RTOL}
+    failures = []
+    for nm, floor in floors.items():
+        for q in (*map(str, QUANTILES), "max"):
+            kq, pq = kernel_vs_ref[nm][q], plain_vs_ref[nm][q]
+            if kq > max(ERR_MARGIN * pq, floor):
+                failures.append(f"{nm} error at {q}: kernel {kq:.3g} > "
+                                f"max({ERR_MARGIN} x plain {pq:.3g}, "
+                                f"{floor:g})")
+    nonfinite = int((~torch.isfinite(h_k)).sum() + (~torch.isfinite(j_k))
+                    .sum())
+    if nonfinite:
+        failures.append(f"{nonfinite} non-finite kernel outputs")
+    return {
+        "n_pix": int(x_rows.shape[1]),
+        "h0_vs_plain_max": float((h_k - h_p).abs().max()),
+        "jac_vs_plain_worst_column": float(jac_vs_plain.max()),
+        "jac_columns_within_rtol": int((jac_vs_plain <= PROSAIL_JAC_RTOL)
+                                       .sum()),
+        "kernel_vs_f64": kernel_vs_ref, "plain_vs_f64": plain_vs_ref,
+        "nonfinite": nonfinite, "failures": failures}
+
+
+def prosail_rows_date(device, n_pix: int = PROSAIL_ROWS_SIZES[-1],
+                      seed: int = 11) -> dict:
+    """One chunk date of make_prosail_problem through ``assimilate_date``
+    on both routes of the row loop: the kernel (``op.linearize``, whose
+    operator advertises ``linearize_rows``) and the eager ``torch.func``
+    linearisation (a closure hides the operator), which also runs with
+    x_f moved one ulp up: its own spread.  Trip counts and QA verdicts
+    must be equal; at each of QUANTILES and at the maximum the kernel's
+    x may differ from the torch.func route's by PROSAIL_DATE_X_ATOL or
+    ERR_MARGIN times that route's one-ulp spread, whichever is larger
+    (the file head's rule: the float32 solve resolves some pixels no
+    better); the route counter must show every trip on the kernel."""
+    import torch
+
+    from kafka_tpu_torch.core.solvers import assimilate_date
+    from kafka_tpu_torch.telemetry import MetricsRegistry, use
+    from kafka_tpu_torch.testing.synthetic import make_prosail_problem
+
+    op, bands, x0, p0, aux = make_prosail_problem(n_pix, seed=seed,
+                                                  device=device)
+    lo, hi = (torch.as_tensor(v, device=device) for v in op.state_bounds)
+    opts = {"relaxation": 0.7, "linearize_block": ENGINE_BLOCK,
+            "state_bounds": (lo, hi)}
+
+    def torch_func(a, x):
+        return op.linearize(a, x)
+
+    out = {}
+    for route, lin, x_f in (
+            ("kernel", op.linearize, x0), ("torch_func", torch_func, x0),
+            ("torch_func_ulp", torch_func,
+             torch.nextafter(x0, torch.full_like(x0, float("inf"))))):
+        reg = MetricsRegistry()
+        with use(reg):
+            t0 = time.perf_counter()
+            x, _a, diags = assimilate_date(lin, bands, x_f, p0, aux, opts,
+                                           device=device)
+            trips = int(diags.n_iterations)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in reg.flat().items()
+                  if k.startswith("kafka_rowloop_linearizations_total")}
+        out[route] = {"x": x, "verdicts": diags.health_verdicts.cpu(),
+                      "trips": trips, "wall_ms": wall_ms, "counter": counts}
+    k, t, u = out["kernel"], out["torch_func"], out["torch_func_ulp"]
+    x_err = quantile_summary((k["x"] - t["x"]).abs().amax(dim=1))
+    spread = quantile_summary((u["x"] - t["x"]).abs().amax(dim=1))
+    rec = {"n_pix": n_pix, "trips": [k["trips"], t["trips"], u["trips"]],
+           "wall_ms": [k["wall_ms"], t["wall_ms"]],
+           "verdicts_equal": bool(torch.equal(k["verdicts"],
+                                              t["verdicts"])),
+           "x_vs_torch_func": x_err, "torch_func_ulp_spread": spread,
+           "counter": {"kernel": k["counter"], "torch_func":
+                       t["counter"]}}
+    failures = []
+    if k["trips"] != t["trips"]:
+        failures.append(f"trips differ: {rec['trips']}")
+    if not rec["verdicts_equal"]:
+        failures.append("QA verdicts differ")
+    for q in (*map(str, QUANTILES), "max"):
+        if x_err[q] > max(PROSAIL_DATE_X_ATOL, ERR_MARGIN * spread[q]):
+            failures.append(f"x at {q}: {x_err[q]:.3g} > max("
+                            f"{PROSAIL_DATE_X_ATOL:g}, {ERR_MARGIN} x the "
+                            f"one-ulp spread {spread[q]:.3g})")
+    want = {'kafka_rowloop_linearizations_total{route="kernel"}':
+            float(k["trips"])}
+    if k["counter"] != want:
+        failures.append(f"route counter {k['counter']}, expected {want}")
+    rec["failures"] = failures
+    return rec
+
+
+def phase_prosail_rows(device, sizes=PROSAIL_ROWS_SIZES, seed: int = 21,
+                       kernel_reps: int = 20, plain_reps: int = 2) -> dict:
+    """The PROSAIL row kernel against its plain version at each of
+    ``sizes`` on the S2 geometries (0-d angles) and per-pixel angles
+    (``prosail_rows_case``), timed at the largest size, and one chunk
+    date through ``assimilate_date`` on both routes
+    (``prosail_rows_date``)."""
+    import torch
+
+    from kafka_tpu_torch.core import prosail_rows
+    from kafka_tpu_torch.core.prosail_rows import (linearize_rows_plain,
+                                                   prosail_linearize_rows)
+    from kafka_tpu_torch.obsops.prosail import ProsailOperator
+
+    op = ProsailOperator()
+    cases, failures = [], []
+    for i, n in enumerate(sizes):
+        x_rows = prosail_rows_states(n, device, seed + i)
+        for case in (0, 1, 2, 3, "per_pixel"):
+            aux, aux64 = (prosail_rows_aux(case, n, device, seed + i, dt)
+                          for dt in (torch.float32, torch.float64))
+            r = prosail_rows_case(op, x_rows, aux, aux64)
+            r["case"] = case if case == "per_pixel" else f"geometry_{case}"
+            cases.append(r)
+            failures += [f"{n} px {r['case']}: {f}" for f in r["failures"]]
+    n = sizes[-1]
+    x_rows = prosail_rows_states(n, device, seed)
+    aux = prosail_rows_aux(0, n, device, seed, torch.float32)
+    launches = prosail_linearize_rows.launches
+    ms = time_ms(lambda: prosail_linearize_rows(op, aux, x_rows), device,
+                 kernel_reps)
+    plain_ms = time_ms(lambda: linearize_rows_plain(op, aux, x_rows,
+                                                    ENGINE_BLOCK),
+                       device, plain_reps)
+    roof = bound(PROSAIL_ROWS_BYTES_PER_PX * n, PROSAIL_ROWS_OPS_PER_PX * n)
+    date = prosail_rows_date(device)
+    failures += [f"date: {f}" for f in date["failures"]]
+    attr = prosail_rows.kernel_attributes()
+    rec = {"phase": "prosail_rows", "cases": cases, "n_pix": n,
+           "ms": ms, "plain_ms": plain_ms, **roof,
+           "ops_per_px": PROSAIL_ROWS_OPS_PER_PX,
+           "timed_launches": prosail_linearize_rows.launches - launches,
+           "max_abs_err": max(c["h0_vs_plain_max"] for c in cases),
+           "registers": attr["registers"], "spill_bytes": attr["local_bytes"],
+           "date": date, "failures": failures}
+    emit(rec)
+    if failures:
+        raise AssertionError(f"prosail_rows: {failures}")
     return rec
 
 
@@ -2245,16 +2504,18 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.prosail_rows import prosail_linearize_rows
     from kafka_tpu_torch.core.solve_rows import solve_rows
 
     fused_gn_rows.launches = fused_update_rows.launches = \
-        solve_rows.launches = 0
+        solve_rows.launches = prosail_linearize_rows.launches = 0
     fused_update_rows.launches_by_instance = {}
 
 
 def launch_counts() -> dict:
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.prosail_rows import prosail_linearize_rows
     from kafka_tpu_torch.core.solve_rows import solve_rows
 
     return {"fused_gn": fused_gn_rows.launches,
@@ -2262,7 +2523,8 @@ def launch_counts() -> dict:
             "fused_update_by_instance": {
                 f"{p}x{nb}": n for (p, nb), n in
                 sorted(fused_update_rows.launches_by_instance.items())},
-            "solve_rows": solve_rows.launches}
+            "solve_rows": solve_rows.launches,
+            "prosail_rows": prosail_linearize_rows.launches}
 
 
 UPDATE_ROW_NAMES = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
@@ -7702,7 +7964,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kafka_tpu_torch.core import _build, fused_gn, fused_update, \
-        solve_rows
+        prosail_rows, solve_rows
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -7724,6 +7986,7 @@ def main() -> int:
                for p, nb in fused_update.INSTANCES},
             **{f"solve_rows_{p}": solve_rows.kernel_attributes(p, 2 ** 19)
                for p in solve_rows.INSTANCES},
+            "prosail_rows": prosail_rows.kernel_attributes(),
         },
     })
     phase_reference(device)
@@ -7746,6 +8009,7 @@ def main() -> int:
     upd_small = phase_kernel_update(device, "2^19",
                                     prosail_update_rows(2 ** 19, device))
     phase_faults_update(device, kept_s2)
+    lin_rec = phase_prosail_rows(device)
     s2_a, s2_b = normal_equation_rows(kept_s2)
     del kept_s2
     solve_s2 = phase_kernel_solve(device, "main_s2_date", s2_a, s2_b)
@@ -8059,6 +8323,17 @@ def main() -> int:
                 "bound_by", "library_ms")},
             routes_run=routes_run,
             cases={rec["case"]: solve_at(rec) for rec in solve_recs[1:]}),
+        kernel_entry(
+            "prosail_rows", "cuda", "kafka_tpu_torch/csrc/prosail_rows.cu",
+            PROSAIL_ROWS_REPLACES, s2_rec["kernel_launches"]["prosail_rows"],
+            "phase main_s2: KalmanFilter.run, S2 sub-tile, one launch a "
+            "Gauss-Newton trip", lin_rec,
+            registers=lin_rec["registers"],
+            spill_bytes=lin_rec["spill_bytes"],
+            ops_per_px=lin_rec["ops_per_px"],
+            paths={"main_s2": s2_rec["kernel_launches"]["prosail_rows"],
+                   "cli_s2": s2_cli_rec["kernel_launches"]["prosail_rows"]},
+            date=lin_rec["date"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

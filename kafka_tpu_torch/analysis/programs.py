@@ -21,7 +21,8 @@ def in the port's device packages that launches a hand kernel
 (``core._build.count_launch``) or enters a kernel region
 (``core._build.kernel_region``) must be listed here
 (``tests/test_torch_programlint.py`` scans for them), and each name is
-reached by a registered program — ``solve_rows`` excepted (below).
+reached by a registered program — ``solve_rows`` and
+``prosail_linearize_rows`` excepted (below).
 """
 
 from __future__ import annotations
@@ -48,6 +49,13 @@ COVERED_ENTRY_POINTS = {
     "fused_update_rows",
     "solve_rows",
     "_launch_cuda",
+    # core/prosail_rows.py — the row loop's PROSAIL linearisation (a
+    # kernel region, ``csrc/prosail_rows.cu`` on a card).  No registered
+    # program reaches it: the registry keeps the JAX package's programs
+    # name for name, and the JAX package has no such kernel.  Its tests
+    # (tests/test_torch_prosail_rows.py) and chip_smoke.py's phase
+    # prosail_rows hold it instead.
+    "prosail_linearize_rows",
     # smoother/rts_pass.py — the reverse RTS sweep.
     "rts_sweep",
     # shard/step.py — the mesh-partitioned per-date step and forward.

@@ -46,12 +46,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: flags of one source beside NVCC_FLAGS.  The per-iteration kernels
-#: (fused update, packed solve) make every product and sum its own IEEE
-#: operation, without FMA contraction, in their plain versions' order:
-#: kernel and plain version then round alike.
+#: (fused update, packed solve, PROSAIL linearisation) make every product
+#: and sum its own IEEE operation, without FMA contraction, in their
+#: plain versions' order: kernel and plain version then round alike.
 SOURCE_FLAGS = {
     "fused_update": ("-fmad=false",),
     "solve_rows": ("-fmad=false",),
+    "prosail_rows": ("-fmad=false",),
 }
 #: callables ``(name, cached, seconds)`` told of every build.
 BUILD_LISTENERS: list = []
@@ -62,7 +63,7 @@ _LOAD_LOCK = threading.Lock()
 #: from one thread each (``shard.step``).
 _COUNT_LOCK = threading.Lock()
 #: every kernel source of the package (``csrc/<name>.cu``).
-KERNEL_SOURCES = ("fused_gn", "fused_update", "solve_rows")
+KERNEL_SOURCES = ("fused_gn", "fused_update", "solve_rows", "prosail_rows")
 #: name -> {"path", "seconds", "log", "cached"} of the builds made or
 #: found by this process.
 BUILDS: dict = {}

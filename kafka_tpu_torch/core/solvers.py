@@ -63,6 +63,7 @@ from .linalg import (
     unpack_symmetric,
 )
 from .types import BandBatch, Linearization, SolveDiagnostics
+from ..telemetry import get_registry
 from ..telemetry.spans import span
 
 CONVERGENCE_TOL = 1e-3
@@ -413,6 +414,31 @@ def _joint_update(args, joined):
             for m in range(len(args))]
 
 
+def linearize_rows(linearize, operator_params, x_rows, linearize_block=None):
+    """``(h0 (B, n), jac_rows (B*p, n))`` float32 by ``linearize`` at the
+    row-layout state ``x_rows`` (p, n): in sequential blocks when
+    ``linearize_block`` is smaller than the batch, then ``jac_to_rows``."""
+    f32 = torch.float32
+    x = x_rows.T
+    if linearize_block is not None and 0 < int(linearize_block) < x.shape[0]:
+        lin = _blocked_linearize(linearize, operator_params, x,
+                                 int(linearize_block))
+    else:
+        lin = _call_linearize(linearize, operator_params, x)
+    return lin.h0.to(f32), jac_to_rows(lin.jac.to(f32))
+
+
+def _rows_route(linearize):
+    """The operator's row-layout linearisation when ``linearize`` is the
+    ``linearize`` of an operator that advertises one (``linearize_rows``,
+    ``ProsailOperator``), else None."""
+    owner = getattr(linearize, "__self__", None)
+    rows = getattr(owner, "linearize_rows", None)
+    if rows is None or linearize != owner.linearize:
+        return None
+    return rows
+
+
 def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
               tol, min_iterations, max_iterations, relaxation, state_bounds,
               norm_denominator, linearize_block=None, corrupt=None):
@@ -431,8 +457,14 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
     numel = (n_pix * p) if norm_denominator is None else norm_denominator
     y, w, mask_f, xf_rows, pf_rows, _ = _gn_rows_inputs(
         obs, x_forecast, p_inv_forecast, None)
-    use_block = linearize_block is not None \
-        and 0 < int(linearize_block) < n_pix
+    rows_route = _rows_route(linearize)
+    route = ("torch_func" if rows_route is None
+             else "kernel" if dev.type == "cuda" else "plain")
+    linearizations = get_registry().counter(
+        "kafka_rowloop_linearizations_total",
+        "row-loop linearisations by route: kernel (the operator's row "
+        "kernel on a card), plain (its plain version on the CPU), "
+        "torch_func (linearize and jac_to_rows)")
     lo = hi = None
     if state_bounds is not None:
         lo, hi = _bounds_rows(state_bounds, n_pix, p, dev)
@@ -456,19 +488,17 @@ def _row_loop(linearize, obs, x_forecast, p_inv_forecast, operator_params,
         below = yield "sync", norm < tol_t
         if (below and n_done >= min_iterations) or n_done > max_iterations:
             break
-        x_cols = x_rows.T
         with span("linearize", per_date=True):
-            if use_block:
-                lin = _blocked_linearize(linearize, operator_params, x_cols,
-                                         int(linearize_block))
+            if rows_route is not None:
+                h0, jac_rows = rows_route(operator_params, x_rows,
+                                          linearize_block=linearize_block)
             else:
-                lin = _call_linearize(linearize, operator_params, x_cols)
-        h0 = lin.h0.to(f32)
+                h0, jac_rows = linearize_rows(linearize, operator_params,
+                                              x_rows, linearize_block)
+        linearizations.inc(route=route)
         if corrupt is not None:
             h0 = solver_health.corrupt_h0(h0, corrupt)
         h0 = h0.contiguous()
-        jac_rows = jac_to_rows(lin.jac.to(f32))
-        del lin
         x_raw, a_rows, inn, hb = yield "update", (
             jac_rows, h0, y, w, mask_f, x_rows, xf_rows, pf_rows,
             esc[None, :].contiguous())

@@ -360,6 +360,17 @@ class ProsailOperator(ObservationModel):
     def __init__(self, hotspot: float = 0.01):
         self.hotspot = float(hotspot)
 
+    def linearize_rows(self, aux: Optional[ProsailAux], x_rows,
+                       linearize_block=None):
+        """The row loop's linearisation: ``(h0 (10, n), jac_rows (100,
+        n))`` at the row-layout state ``x_rows`` (10, n), row ``b*10 + k``
+        of ``jac_rows`` holding dh0[b]/dx[k] — one launch of the PROSAIL
+        row kernel on a card, ``linearize`` and ``jac_to_rows`` on the CPU
+        (``core.prosail_rows``)."""
+        from ..core.prosail_rows import prosail_linearize_rows
+
+        return prosail_linearize_rows(self, aux, x_rows, linearize_block)
+
     def forward_pixel(self, aux: Optional[ProsailAux], x_pixel):
         if aux is None:
             aux = ProsailAux(*(device_constant(v, torch.float32,

@@ -37,9 +37,15 @@ def test_every_registration_found():
     assert {"engine", "prefetch", "shard", "io", "health"} <= subsystems
 
 
+#: the port's registrations with no JAX counterpart: the row loop's
+#: linearisation routes (the JAX package has no PROSAIL row kernel).
+PORT_ONLY = {("kafka_rowloop_linearizations_total", "counter")}
+
+
 def test_the_port_and_the_jax_package_register_the_same_names():
     """The two collectors find the same names with the same kinds on
-    their packages (95 today, the router's nine included)."""
+    their packages (95 today, the router's nine included), the port
+    besides them only ``PORT_ONLY``."""
     from tools.kafkalint import rules_telemetry as jax_rules
 
     def kinds(regs, prefix):
@@ -50,8 +56,8 @@ def test_the_port_and_the_jax_package_register_the_same_names():
     ours = kinds(checker.collect_registrations(REPO_ROOT),
                  "kafka_tpu_torch/")
     theirs = kinds(jax_rules.collect_registrations(REPO_ROOT), "kafka_tpu/")
-    assert ours == theirs
-    assert len({name for name, _ in ours}) == 95
+    assert ours == theirs | PORT_ONLY
+    assert len({name for name, _ in theirs}) == 95
 
 
 def test_checker_flags_violations(tmp_path):
@@ -126,4 +132,4 @@ def test_exact_duplicates_across_sites_allowed(tmp_path):
 
 def test_checker_main_exits_zero_on_repo(capsys):
     assert checker.main([REPO_ROOT]) == 0
-    assert "95 metric names OK" in capsys.readouterr().out
+    assert "96 metric names OK" in capsys.readouterr().out

@@ -4,9 +4,9 @@
 
 Needs one CUDA device; exits non-zero without one, and without the
 kafka_tpu_torch package beside it.  Imports neither JAX nor kafka_tpu.
-The four kernels (csrc/fused_gn.cu, fused_update.cu with its nine
-(p, bands) instances, solve_rows.cu, prosail_rows.cu) are built at the
-start, one nvcc each, in parallel.  Phases, each printing
+The five kernels (csrc/fused_gn.cu, fused_update.cu with its nine
+(p, bands) instances, solve_rows.cu, prosail_rows.cu, gp_rows.cu) are
+built at the start, one nvcc each, in parallel.  Phases, each printing
 one JSON line:
 
 1. device — card, torch/CUDA versions, build time, registers and spills;
@@ -61,6 +61,24 @@ one JSON line:
    assimilate_date on the kernel and the torch.func route: trips and
    verdicts equal, x within the torch.func route's own one-ulp spread
    (``prosail_rows_date``).  Phase main_s2 gates one launch per trip;
+9c. main_gp — KalmanFilter.run over one 2196 x 2196 chunk of the
+   benchmark's s2_gp_bank.july_chunks cell on its four July dates, set
+   up by the cell's own scenario (eight geometries' banks fitted by
+   fit_gp, each date's picked by geometry_bank_aux_builder) and run as
+   its harness runs a job: one gp_rows launch, one fused-update launch,
+   one route-counter ``kernel`` tick and one kafka_gp_rows_launches_total
+   tick a Gauss-Newton trip; the sampled outputs within the cell's
+   limits of the float64 reference filter; the banks unchanged through
+   save_bank_npz / load_bank_npz (``phase_main_gp``);
+9d. gp_rows — the GP emulator bank's row kernel (the row loop's
+   linearisation of GPBankOperator) against its plain version, the
+   closed form in float32, at 65,536 and 4,822,528 px of the same states
+   as 9b, on phase main_gp's eight banks: both held to the closed form
+   in float64 (``gp_rows_case``); timed beside
+   its bound; then one date through assimilate_date on the kernel and
+   the torch.func route: trips and verdicts equal, x within
+   GP_DATE_X_ATOL, one launch and one route-counter tick a trip
+   (``gp_rows_date``);
 10. kernel_solve — the packed solve on the normal equations of the kept
    S2 date (p=10), on them with 64 planted non-SPD and 64 zero-pivot
    pixels, on the kept TIP date's (p=7), and on the SOLVE_CASES (seeded
@@ -436,6 +454,9 @@ SOLVE_REPLACES = "kafka_tpu/core/pallas_solve.py:72"
 PROSAIL_ROWS_REPLACES = ("none: the JAX package leaves the PROSAIL "
                          "linearisation to jax.jacfwd under XLA "
                          "(kafka_tpu/obsops/protocol.py:101)")
+GP_ROWS_REPLACES = ("none: the JAX package leaves the GP bank's "
+                    "linearisation to jax.jacfwd under XLA "
+                    "(kafka_tpu/obsops/protocol.py:101)")
 #: the benchmark's Sentinel-2 acquisition geometries (sza, vza, raa in
 #: degrees; benchmark/workloads/s2_prosail.july_chunks.json).
 S2_GEOMETRIES = ((24.6, 5.2, -48.0), (25.1, 8.9, 62.5), (25.7, 3.1, -55.0),
@@ -457,6 +478,28 @@ PROSAIL_DATE_X_ATOL = 1e-5
 #: in its scalar code (counted from the source).
 PROSAIL_ROWS_BYTES_PER_PX = 4 * (10 + 110)
 PROSAIL_ROWS_OPS_PER_PX = 20046
+#: the benchmark cell whose scenario fits the GP emulator banks
+#: (``benchmark/configs/s2_gp_bank_chunk.json``: one bank a geometry of
+#: its grid) and whose one chunk phase main_gp runs; its seed, as large
+#: as a benchmark run's.
+GP_CELL = "s2_gp_bank.july_chunks"
+GP_SEED = 2 ** 31 + 22
+#: pixel counts the GP row kernel is held to its plain version at: a
+#: quarter of the engine's block and one 2196 x 2196 chunk's padded width.
+GP_ROWS_SIZES = (65536, 4822528)
+#: the floors of its float64 rule (``gp_rows_case``): the value's absolute
+#: error, a two-hundredth of the smallest observation sigma of the cell
+#: (its floor, 1e-3), and each Jacobian entry's, of its column's largest
+#: magnitude, as PROSAIL's; the pixel blocks of its plain versions; the
+#: date's size, blocks and x budget against the torch.func route (whose
+#: (block, p, m, k) tangents bound its block).
+GP_H0_ATOL = 5e-6
+GP_JAC_RTOL = 1e-4
+GP_F64_BLOCK = 65536
+GP_DATE_PX = 16384
+GP_DATE_BLOCK = 2048
+GP_DATE_X_ATOL = 1e-5
+
 #: one Sentinel-2 sub-tile: the JAX harness's S2 chunk (BASELINE.md:32-33).
 S2_TILE = 1098
 #: kernel inputs kept from this main-path date (0-based).
@@ -1790,6 +1833,312 @@ def phase_prosail_rows(device, sizes=PROSAIL_ROWS_SIZES, seed: int = 21,
     return rec
 
 
+def phase_main_gp(device, seed: int = GP_SEED) -> tuple:
+    """KalmanFilter.run over one chunk of the benchmark's GP_CELL, as its
+    harness runs a job: the cell's scenario
+    (``benchmark/scenarios/s2_gp_bank.py``) fits the banks of its
+    geometries, picks each acquisition's by the program's
+    ``geometry_bank_aux_builder`` and makes the chunk's data, and the
+    job runs the row loop on the GP row kernel and the fused update at
+    (10, 10).  Launch counts are reset and a fresh registry installed
+    just before the job: gp_rows and fused-update launches, the route
+    counter's ``kernel`` ticks and ``kafka_gp_rows_launches_total`` must
+    each equal the dates' Gauss-Newton trips, every window must be
+    dumped and its sampled outputs pass the cell's limits against the
+    float64 reference filter.  Every bank also goes through
+    ``save_bank_npz`` / ``load_bank_npz`` unchanged.  Returns the record
+    and the banks."""
+    import tempfile
+
+    import torch
+
+    from benchmark import harness
+    from benchmark.sink import HostSink
+    from kafka_tpu_torch.obsops.gp_import import load_bank_npz, \
+        save_bank_npz
+    from kafka_tpu_torch.telemetry import MetricsRegistry, use
+
+    spec = harness.cell(GP_CELL)
+    config = harness._merge(spec["config"], {"n_chunks": 1})
+    work = spec["workload"]
+    t0 = time.perf_counter()
+    scn = harness.scenario_class(config)(config, work, seed, device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as folder:
+        npz_equal = True
+        for i, bank in enumerate(scn.banks.values()):
+            path = os.path.join(folder, f"bank_{i}.npz")
+            save_bank_npz(path, bank)
+            back = load_bank_npz(path, device)
+            npz_equal &= all(torch.equal(a, b) for a, b in zip(bank, back))
+    sink = HostSink(scn.n_pad, len(scn.cfg.parameter_list), scn.n_valid,
+                    pinned=device.type == "cuda")
+    records, reg = [], MetricsRegistry()
+    cuda = device.type == "cuda"
+    reset_launches()
+    if cuda:
+        _mem().reset_peak(device)
+    with use(reg):
+        t1 = time.perf_counter()
+        harness.run_jobs(scn, sink, device, 0, 0.0, True, records,
+                         max_jobs=1)
+        _sync(device)
+        run_s = time.perf_counter() - t1
+    launches = launch_counts()
+    peak = _mem().peak_bytes(device) if cuda else None
+    counts = {k: v for k, v in reg.flat().items()
+              if k.startswith(("kafka_rowloop_linearizations_total",
+                               "kafka_gp_rows_launches_total"))}
+    trips = sum(int(r["n_iterations"]) for r in records)
+    scn.reference_inputs()
+    scn.release()
+    values, correct, checks, failed = harness.check(
+        scn, sink, work["limits"], torch.float64, work.get("share_over"))
+    banks = scn.banks
+    rec = {"phase": "main_gp", "cell": GP_CELL, "seed": seed,
+           "chunk": config["chunk"], "n_valid": scn.n_valid,
+           "n_pad": scn.n_pad, "dates_assimilated": len(records),
+           "windows_dumped": len(sink.completed), "trips": trips,
+           "kernel_launches": launches, "counter": counts,
+           "setup_s": setup_s, "run_s": run_s, "peak_bytes": peak,
+           "banks": len(banks), "banks_npz_equal": bool(npz_equal),
+           "values": values, "checks": checks, "correct": bool(correct),
+           "failed": failed, "per_date": date_records(records)}
+    emit(rec)
+    failures = []
+    if len(records) != len(scn.dates) or trips == 0:
+        failures.append(f"{len(records)} dates and {trips} trips "
+                        f"assimilated, {len(scn.dates)} dates expected")
+    if len(sink.completed) != len(scn.windows(0)):
+        failures.append(f"{len(sink.completed)} windows dumped")
+    want = {'kafka_rowloop_linearizations_total{route="kernel"}':
+            float(trips), "kafka_gp_rows_launches_total": float(trips)}
+    if counts != want or launches["gp_rows"] != trips \
+            or launches["fused_update"] != trips:
+        failures.append(f"launches {launches} and counters {counts} for "
+                        f"{trips} trips, expected one of each a trip")
+    if not correct or failed:
+        failures.append(f"against the float64 reference: {checks}, "
+                        f"{failed} non-finite windows")
+    if not npz_equal:
+        failures.append("a bank changed through save_bank_npz / "
+                        "load_bank_npz")
+    if failures:
+        raise AssertionError(f"main_gp: {failures}")
+    del scn, sink
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec, banks
+
+
+def gp_rows_case(op, bank, x_rows, block: int = GP_F64_BLOCK) -> dict:
+    """The GP row kernel against its plain version (the closed form in
+    float32, in the engine's blocks) and both against the plain version
+    in float64 on the same inputs.  Per pixel the errors are the value's
+    largest absolute error over the bands (``h0``) and the Jacobian's
+    largest over its entries, each divided by its (band, parameter)
+    column's largest float64 magnitude (``jac``).  The gate is the file
+    head's float64 rule with GP_H0_ATOL / GP_JAC_RTOL as floors: at each
+    of QUANTILES and at the maximum the kernel may be at most ERR_MARGIN
+    times as far off as the float32 plain version, or the floor."""
+    import torch
+
+    from kafka_tpu_torch.core.gp_rows import (gp_linearize_rows,
+                                              linearize_rows_plain)
+
+    dev = x_rows.device
+    h_k, j_k = gp_linearize_rows(op, bank, x_rows)
+    _sync(dev)
+    h_p, j_p = linearize_rows_plain(op, bank, x_rows, block)
+    h_r, j_r = linearize_rows_plain(op, bank, x_rows.double(), block,
+                                    dtype=torch.float64)
+    col = j_r.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+
+    def errors(h, j):
+        return {"h0": (h.double() - h_r).abs().amax(dim=0),
+                "jac": ((j.double() - j_r).abs() / col).amax(dim=0)}
+
+    kernel_vs_ref = {k: quantile_summary(v)
+                     for k, v in errors(h_k, j_k).items()}
+    plain_vs_ref = {k: quantile_summary(v)
+                    for k, v in errors(h_p, j_p).items()}
+    failures = []
+    for nm, floor in (("h0", GP_H0_ATOL), ("jac", GP_JAC_RTOL)):
+        for q in (*map(str, QUANTILES), "max"):
+            kq, pq = kernel_vs_ref[nm][q], plain_vs_ref[nm][q]
+            if kq > max(ERR_MARGIN * pq, floor):
+                failures.append(f"{nm} error at {q}: kernel {kq:.3g} > "
+                                f"max({ERR_MARGIN} x plain {pq:.3g}, "
+                                f"{floor:g})")
+    nonfinite = int((~torch.isfinite(h_k)).sum() + (~torch.isfinite(j_k))
+                    .sum())
+    if nonfinite:
+        failures.append(f"{nonfinite} non-finite kernel outputs")
+    return {"n_pix": int(x_rows.shape[1]),
+            "h0_vs_plain_max": float((h_k - h_p).abs().max()),
+            "jac_vs_plain_max": float(((j_k - j_p).abs() / col).max()),
+            "kernel_vs_f64": kernel_vs_ref, "plain_vs_f64": plain_vs_ref,
+            "nonfinite": nonfinite, "failures": failures}
+
+
+def gp_rows_date(device, bank, n_pix: int = GP_DATE_PX,
+                 seed: int = 13) -> dict:
+    """One date of a GP-bank problem (states about the SAIL prior's
+    mean, the bank's values there plus noise as observations) through
+    ``assimilate_date`` on both routes of the row loop: the kernel
+    (``op.linearize``, whose operator advertises ``linearize_rows``) and
+    the eager ``torch.func`` linearisation (a closure hides the
+    operator), which also runs with x_f moved one ulp up: its own
+    spread.  Trip counts and QA verdicts must be equal; at each of
+    QUANTILES and at the maximum the kernel's x may differ from the
+    torch.func route's by GP_DATE_X_ATOL or ERR_MARGIN times that
+    route's one-ulp spread, whichever is larger (``prosail_rows_date``'s
+    rule); the route counter must show every trip on the kernel, and
+    the kernel one launch a trip."""
+    import torch
+
+    from kafka_tpu_torch.core.gp_rows import gp_linearize_rows
+    from kafka_tpu_torch.core.solvers import assimilate_date
+    from kafka_tpu_torch.core.types import BandBatch
+    from kafka_tpu_torch.engine.priors import sail_prior_arrays
+    from kafka_tpu_torch.obsops.gp import GPBankOperator
+    from kafka_tpu_torch.obsops.prosail import ProsailOperator
+    from kafka_tpu_torch.telemetry import MetricsRegistry, use
+
+    op = GPBankOperator(n_params=10, n_bands=10)
+    rng = np.random.default_rng(seed)
+    lo, hi = (np.asarray(v, np.float32) for v in
+              ProsailOperator.state_bounds)
+    mean, _, inv_cov = sail_prior_arrays()
+    truth = np.clip(mean + 0.02 * rng.normal(size=(n_pix, 10)), lo, hi)
+    x_t = torch.as_tensor(truth.astype(np.float32), device=device)
+    clean = op.forward(bank, x_t)
+    sigma = torch.clamp(0.05 * clean.abs(), min=1e-3)
+    y = clean + sigma * torch.as_tensor(rng.normal(size=tuple(clean.shape)),
+                                        dtype=torch.float32, device=device)
+    bands = BandBatch(y=y, r_inv=1.0 / sigma ** 2,
+                      mask=torch.ones_like(y, dtype=torch.bool))
+    x0 = torch.as_tensor(mean, device=device).expand(n_pix, 10) \
+        .contiguous()
+    p0 = torch.as_tensor(inv_cov, device=device).expand(n_pix, 10, 10) \
+        .contiguous()
+    opts = {"relaxation": 0.7, "linearize_block": GP_DATE_BLOCK,
+            "state_bounds": (torch.as_tensor(lo, device=device),
+                             torch.as_tensor(hi, device=device))}
+
+    def torch_func(a, x):
+        return op.linearize(a, x)
+
+    out = {}
+    for route, lin, x_f in (
+            ("kernel", op.linearize, x0), ("torch_func", torch_func, x0),
+            ("torch_func_ulp", torch_func,
+             torch.nextafter(x0, torch.full_like(x0, float("inf"))))):
+        reg = MetricsRegistry()
+        launches = gp_linearize_rows.launches
+        with use(reg):
+            t0 = time.perf_counter()
+            x, _a, diags = assimilate_date(lin, bands, x_f, p0, bank, opts,
+                                           device=device)
+            trips = int(diags.n_iterations)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in reg.flat().items()
+                  if k.startswith(("kafka_rowloop_linearizations_total",
+                                   "kafka_gp_rows_launches_total"))}
+        out[route] = {"x": x, "verdicts": diags.health_verdicts.cpu(),
+                      "trips": trips, "wall_ms": wall_ms, "counter": counts,
+                      "launches": gp_linearize_rows.launches - launches}
+    k, t, u = out["kernel"], out["torch_func"], out["torch_func_ulp"]
+    x_err = quantile_summary((k["x"] - t["x"]).abs().amax(dim=1))
+    spread = quantile_summary((u["x"] - t["x"]).abs().amax(dim=1))
+    rec = {"n_pix": n_pix, "trips": [k["trips"], t["trips"], u["trips"]],
+           "wall_ms": [k["wall_ms"], t["wall_ms"]],
+           "launches": [k["launches"], t["launches"]],
+           "verdicts_equal": bool(torch.equal(k["verdicts"],
+                                              t["verdicts"])),
+           "x_vs_torch_func": x_err, "torch_func_ulp_spread": spread,
+           "counter": {"kernel": k["counter"], "torch_func": t["counter"]}}
+    failures = []
+    if k["trips"] != t["trips"]:
+        failures.append(f"trips differ: {rec['trips']}")
+    if not rec["verdicts_equal"]:
+        failures.append("QA verdicts differ")
+    for q in (*map(str, QUANTILES), "max"):
+        if x_err[q] > max(GP_DATE_X_ATOL, ERR_MARGIN * spread[q]):
+            failures.append(f"x at {q}: {x_err[q]:.3g} > max("
+                            f"{GP_DATE_X_ATOL:g}, {ERR_MARGIN} x the "
+                            f"one-ulp spread {spread[q]:.3g})")
+    want = {'kafka_rowloop_linearizations_total{route="kernel"}':
+            float(k["trips"]), "kafka_gp_rows_launches_total":
+            float(k["trips"])}
+    if k["counter"] != want or k["launches"] != k["trips"] \
+            or t["launches"] != 0:
+        failures.append(f"route counter {k['counter']} and launches "
+                        f"{rec['launches']}, expected {want}")
+    rec["failures"] = failures
+    return rec
+
+
+def phase_gp_rows(device, banks: dict, sizes=GP_ROWS_SIZES, seed: int = 22,
+                  kernel_reps: int = 10) -> dict:
+    """The GP row kernel against its plain version at each of ``sizes``
+    on every bank of ``banks`` (phase main_gp's), the states of
+    ``prosail_rows_states``
+    (1/16 of the pixels on each bound) (``gp_rows_case``), timed at the
+    largest size beside its bound, and one date through
+    ``assimilate_date`` on both routes (``gp_rows_date``)."""
+    import torch
+
+    from kafka_tpu_torch.core import gp_rows
+    from kafka_tpu_torch.core.gp_rows import (gp_linearize_rows,
+                                              linearize_rows_plain)
+    from kafka_tpu_torch.obsops.gp import GPBankOperator
+
+    op = GPBankOperator(n_params=10, n_bands=10)
+    cases, failures = [], []
+    for i, n in enumerate(sizes):
+        x_rows = prosail_rows_states(n, device, seed + i)
+        for gi, (geo, bank) in enumerate(banks.items()):
+            r = gp_rows_case(op, bank, x_rows)
+            r["case"] = f"geometry_{gi}"
+            cases.append(r)
+            failures += [f"{n} px {geo}: {f}" for f in r["failures"]]
+    n = sizes[-1]
+    bank = next(iter(banks.values()))
+    x_rows = prosail_rows_states(n, device, seed)
+    launches = gp_linearize_rows.launches
+    ms = time_ms(lambda: gp_linearize_rows(op, bank, x_rows), device,
+                 kernel_reps)
+    plain_ms = time_ms(lambda: linearize_rows_plain(op, bank, x_rows,
+                                                    GP_F64_BLOCK),
+                       device, 1)
+    # The benchmark's count of the kernel (operations and bytes from
+    # csrc/gp_rows.cu).
+    from benchmark.gp_roofline import gp_rows_work
+
+    m, k = (int(v) for v in bank.x_train.shape[1:])
+    roof = bound(*gp_rows_work(n, op.n_params, op.n_bands, m, k))
+    date = gp_rows_date(device, bank)
+    failures += [f"date: {f}" for f in date["failures"]]
+    attr = gp_rows.kernel_attributes(k)
+    rec = {"phase": "gp_rows", "cases": cases, "n_pix": n,
+           "ms": ms, "plain_ms": plain_ms, **roof,
+           "share_of_bound": roof["bound_ms"] / ms,
+           "timed_launches": gp_linearize_rows.launches - launches,
+           "max_abs_err": {nm: max(c[f"{nm}_vs_plain_max"] for c in cases)
+                           for nm in ("h0", "jac")},
+           "max_err_vs_f64": {nm: max(c["kernel_vs_f64"][nm]["max"]
+                                      for c in cases)
+                              for nm in ("h0", "jac")},
+           "registers": attr["registers"], "spill_bytes": attr["local_bytes"],
+           "date": date, "failures": failures}
+    emit(rec)
+    if failures:
+        raise AssertionError(f"gp_rows: {failures}")
+    return rec
+
+
 def phase_faults_update(device, rows: dict, n_each: int = 64) -> dict:
     """Planted pixels on the kept fused-update inputs: indefinite P_f^-1
     (breakdown), LM escalation, NaN y under a false mask in half the
@@ -2504,17 +2853,20 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.gp_rows import gp_linearize_rows
     from kafka_tpu_torch.core.prosail_rows import prosail_linearize_rows
     from kafka_tpu_torch.core.solve_rows import solve_rows
 
     fused_gn_rows.launches = fused_update_rows.launches = \
-        solve_rows.launches = prosail_linearize_rows.launches = 0
+        solve_rows.launches = prosail_linearize_rows.launches = \
+        gp_linearize_rows.launches = 0
     fused_update_rows.launches_by_instance = {}
 
 
 def launch_counts() -> dict:
     from kafka_tpu_torch.core.fused_gn import fused_gn_rows
     from kafka_tpu_torch.core.fused_update import fused_update_rows
+    from kafka_tpu_torch.core.gp_rows import gp_linearize_rows
     from kafka_tpu_torch.core.prosail_rows import prosail_linearize_rows
     from kafka_tpu_torch.core.solve_rows import solve_rows
 
@@ -2524,7 +2876,8 @@ def launch_counts() -> dict:
                 f"{p}x{nb}": n for (p, nb), n in
                 sorted(fused_update_rows.launches_by_instance.items())},
             "solve_rows": solve_rows.launches,
-            "prosail_rows": prosail_linearize_rows.launches}
+            "prosail_rows": prosail_linearize_rows.launches,
+            "gp_rows": gp_linearize_rows.launches}
 
 
 UPDATE_ROW_NAMES = ("jac_rows", "h0", "y", "w", "m", "xl_rows", "xf_rows",
@@ -7964,7 +8317,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kafka_tpu_torch.core import _build, fused_gn, fused_update, \
-        prosail_rows, solve_rows
+        gp_rows, prosail_rows, solve_rows
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -7987,6 +8340,7 @@ def main() -> int:
             **{f"solve_rows_{p}": solve_rows.kernel_attributes(p, 2 ** 19)
                for p in solve_rows.INSTANCES},
             "prosail_rows": prosail_rows.kernel_attributes(),
+            "gp_rows_10": gp_rows.kernel_attributes(10),
         },
     })
     phase_reference(device)
@@ -8010,6 +8364,9 @@ def main() -> int:
                                     prosail_update_rows(2 ** 19, device))
     phase_faults_update(device, kept_s2)
     lin_rec = phase_prosail_rows(device)
+    gp_main, gp_banks = phase_main_gp(device)
+    gp_rec = phase_gp_rows(device, gp_banks)
+    del gp_banks
     s2_a, s2_b = normal_equation_rows(kept_s2)
     del kept_s2
     solve_s2 = phase_kernel_solve(device, "main_s2_date", s2_a, s2_b)
@@ -8334,6 +8691,20 @@ def main() -> int:
             paths={"main_s2": s2_rec["kernel_launches"]["prosail_rows"],
                    "cli_s2": s2_cli_rec["kernel_launches"]["prosail_rows"]},
             date=lin_rec["date"]),
+        kernel_entry(
+            "gp_rows", "cuda", "kafka_tpu_torch/csrc/gp_rows.cu",
+            GP_ROWS_REPLACES, gp_main["kernel_launches"]["gp_rows"],
+            f"phase main_gp: KalmanFilter.run, one chunk of {GP_CELL}, "
+            "one launch a Gauss-Newton trip", gp_rec, err_key="h0",
+            max_abs_err_jac=gp_rec["max_abs_err"]["jac"],
+            max_err_vs_f64=gp_rec["max_err_vs_f64"],
+            paths={"main_gp": gp_main["kernel_launches"]["gp_rows"],
+                   "main_gp_trips": gp_main["trips"],
+                   "gp_rows_date": gp_rec["date"]["launches"][0]},
+            registers=gp_rec["registers"],
+            spill_bytes=gp_rec["spill_bytes"],
+            share_of_bound=gp_rec["share_of_bound"],
+            date=gp_rec["date"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

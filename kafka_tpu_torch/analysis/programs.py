@@ -21,8 +21,8 @@ def in the port's device packages that launches a hand kernel
 (``core._build.count_launch``) or enters a kernel region
 (``core._build.kernel_region``) must be listed here
 (``tests/test_torch_programlint.py`` scans for them), and each name is
-reached by a registered program — ``solve_rows`` and
-``prosail_linearize_rows`` excepted (below).
+reached by a registered program — ``solve_rows``,
+``prosail_linearize_rows`` and ``gp_linearize_rows`` excepted (below).
 """
 
 from __future__ import annotations
@@ -56,6 +56,11 @@ COVERED_ENTRY_POINTS = {
     # (tests/test_torch_prosail_rows.py) and chip_smoke.py's phase
     # prosail_rows hold it instead.
     "prosail_linearize_rows",
+    # core/gp_rows.py — the row loop's GP emulator bank linearisation
+    # (a kernel region, ``csrc/gp_rows.cu`` on a card).  No registered
+    # program reaches it, for the same reason; tests/test_torch_gp_rows.py
+    # and chip_smoke.py's phase gp_rows hold it.
+    "gp_linearize_rows",
     # smoother/rts_pass.py — the reverse RTS sweep.
     "rts_sweep",
     # shard/step.py — the mesh-partitioned per-date step and forward.

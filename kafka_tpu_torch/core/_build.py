@@ -63,7 +63,8 @@ _LOAD_LOCK = threading.Lock()
 #: from one thread each (``shard.step``).
 _COUNT_LOCK = threading.Lock()
 #: every kernel source of the package (``csrc/<name>.cu``).
-KERNEL_SOURCES = ("fused_gn", "fused_update", "solve_rows", "prosail_rows")
+KERNEL_SOURCES = ("fused_gn", "fused_update", "solve_rows", "prosail_rows",
+                  "gp_rows")
 #: name -> {"path", "seconds", "log", "cached"} of the builds made or
 #: found by this process.
 BUILDS: dict = {}

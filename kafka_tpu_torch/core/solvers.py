@@ -430,8 +430,8 @@ def linearize_rows(linearize, operator_params, x_rows, linearize_block=None):
 
 def _rows_route(linearize):
     """The operator's row-layout linearisation when ``linearize`` is the
-    ``linearize`` of an operator that advertises one (``linearize_rows``,
-    ``ProsailOperator``), else None."""
+    ``linearize`` of an operator that advertises one (``linearize_rows``:
+    ``ProsailOperator`` and ``GPBankOperator``), else None."""
     owner = getattr(linearize, "__self__", None)
     rows = getattr(owner, "linearize_rows", None)
     if rows is None or linearize != owner.linearize:

@@ -60,10 +60,12 @@ As in the JAX engine:
   (counted by ``kafka_engine_device_reads_total``); inside each date (or
   fused block) the sub-date spans (``telemetry.spans``: ``date_fetch``,
   ``date_solve``, ``date_record``, and in the solver ``linearize``,
-  ``loop_sync``, ``row_layout``) add up in a ``DateSums`` that lands in
-  the date's record and ``solve`` event as ``date_host_ms``,
-  ``linearize_ms`` and, traced on a card, ``row_layout_ms`` (device
-  time, read after that packed read's sync), beside ``mean_trips`` of
+  ``loop_sync``, ``row_layout``, ``gp_rows``) add up in a ``DateSums``
+  that lands in the date's record and ``solve`` event as
+  ``date_host_ms``, ``linearize_ms`` and, traced on a card,
+  ``row_layout_ms`` and ``gp_rows_ms`` (device time, read after that
+  packed read's sync; the latter where the GP bank's row kernel ran),
+  beside ``mean_trips`` of
   the ``fused_gn`` route, which joins the packed read; every window feeds
   ``perf.record_window`` from that host record (no added read or
   synchronisation); every window or fused block ticks
@@ -720,18 +722,21 @@ class KalmanFilter:
         """Land the sub-date sums of a date, or of a fused block split
         evenly over its windows' ``recs`` as ``wall_s`` is, in each
         record, then emit each record's one ``solve`` event.  The device
-        time of ``row_layout`` is read here, after the packed read's
-        sync (absent off a card)."""
+        times of ``row_layout`` and ``gp_rows`` are read here, after the
+        packed read's sync (absent off a card, or where no such span
+        ran)."""
         k = len(recs)
         host_ms = sums.ms("date_fetch", "date_record") / k
         lin_ms = sums.ms("linearize") / k
-        dev_ms = sums.device_ms()
+        dev_ms = {field: sums.device_ms(phase) for field, phase in (
+            ("row_layout_ms", "row_layout"), ("gp_rows_ms", "gp_rows"))}
         reg = get_registry()
         for rec in recs:
             rec["date_host_ms"] = host_ms
             rec["linearize_ms"] = lin_ms
-            if dev_ms is not None:
-                rec["row_layout_ms"] = dev_ms / k
+            for field, ms in dev_ms.items():
+                if ms is not None:
+                    rec[field] = ms / k
             reg.emit("solve", **{key: (str(v) if key == "date" else v)
                                  for key, v in rec.items()})
 

@@ -6,10 +6,13 @@ An ARD-RBF GP whose predictive mean
     m(x*) = k(x*, X) @ alpha,   alpha = (K + sigma_n^2 I)^-1 y
 
 is a plain PyTorch function of one pixel's input, with its Jacobian from
-``torch.func``.  ``fit_gp`` conditions it on (X, y) samples of any
-forward model (hyperparameters optionally tuned by ``torch.optim.Adam``
-on the negative log marginal likelihood, where the JAX package uses
-optax); ``save_gp`` / ``load_gp`` keep the result as ``.npz``.
+``torch.func``; on the row loop ``GPBankOperator.linearize_rows`` gives
+a bank's value and Jacobian rows in closed form (``core/gp_rows.py``,
+one kernel launch on a card).  ``fit_gp`` conditions it, or a whole
+bank at once, on (X, y) samples of any forward model (hyperparameters
+optionally tuned by Adam on the negative log marginal likelihood, where
+the JAX package uses optax); ``save_gp`` / ``load_gp`` keep the result
+as ``.npz``.
 """
 
 from __future__ import annotations
@@ -49,62 +52,88 @@ def gp_predict_pixel(params: GPParams, x_star: torch.Tensor) -> torch.Tensor:
 
 
 def _gram(xt, log_ell, log_amp):
-    z = xt / torch.exp(log_ell)
+    z = xt / torch.exp(log_ell)[..., None, :]
     sq = torch.sum(z * z, -1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * z @ z.T
-    return torch.exp(log_amp) * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * z @ z.mT
+    return torch.exp(log_amp)[..., None, None] * torch.exp(
+        -0.5 * torch.clamp(d2, min=0.0))
+
+
+def _adam_step(param, grad, m1, m2, step: int, lr: float = 1e-2,
+               betas=(0.9, 0.999), eps: float = 1e-8) -> None:
+    """One Adam update of ``param`` in place (``torch.optim.Adam``'s
+    single-tensor rule, written out: ``torch.optim``'s optimizers import
+    ``torch._dynamo`` when built, seconds of a cold process's set-up)."""
+    b1, b2 = betas
+    m1.lerp_(grad, 1.0 - b1)
+    m2.mul_(b2).addcmul_(grad, grad, value=1.0 - b2)
+    denom = (m2.sqrt() / np.sqrt(1.0 - b2 ** step)).add_(eps)
+    param.addcdiv_(m1, denom, value=-lr / (1.0 - b1 ** step))
 
 
 def fit_gp(x_train: np.ndarray, y_train: np.ndarray,
            lengthscales: Optional[np.ndarray] = None,
-           amplitude: float = 1.0, noise: float = 1e-4,
+           amplitude=1.0, noise: float = 1e-4,
            optimize: bool = False, steps: int = 200,
            device=None) -> GPParams:
     """Condition a GP on training samples, on ``device``.
 
-    With ``optimize=True`` the (log) hyperparameters are tuned by Adam
-    (learning rate 1e-2, ``steps`` steps) on the negative log marginal
-    likelihood; otherwise the lengthscales default to the per-dimension
-    input std."""
+    ``x_train`` (..., m, k) and ``y_train`` (..., m) may carry leading
+    batch axes: each batch entry is its own GP (its own target mean,
+    hyperparameters and noise), and the returned leaves carry the same
+    axes, so ``(bands, m, k)`` samples give a stacked bank at once.
+    ``amplitude`` (and ``lengthscales``, (..., k)) may be given per
+    entry.  With ``optimize=True`` the (log) hyperparameters are tuned
+    by Adam (learning rate 1e-2, ``steps`` steps, ``_adam_step``) on the
+    negative log marginal likelihood, summed over the batch (Adam's
+    update is elementwise, so each entry follows its own likelihood);
+    otherwise the lengthscales default to the per-dimension input
+    std."""
     dev = resolve_device(device)
     f32 = torch.float32
     x_train = np.asarray(x_train, np.float32)
     y_train = np.asarray(y_train, np.float32)
-    y_mean = float(y_train.mean())
+    batch = x_train.shape[:-2]
+    y_mean = y_train.mean(axis=-1, keepdims=True)
     if lengthscales is None:
-        lengthscales = x_train.std(0) + 1e-3
+        lengthscales = x_train.std(-2) + 1e-3
     xt = torch.as_tensor(x_train, device=dev)
     yt = torch.as_tensor(y_train - y_mean, device=dev)
-    log_ell = torch.log(torch.as_tensor(np.asarray(lengthscales), dtype=f32,
-                                        device=dev))
-    log_amp = torch.log(torch.tensor(float(amplitude), dtype=f32,
-                                     device=dev))
-    eye = torch.eye(x_train.shape[0], dtype=f32, device=dev)
+    log_ell = torch.log(torch.as_tensor(
+        np.broadcast_to(np.asarray(lengthscales, np.float32),
+                        batch + x_train.shape[-1:]).copy(), device=dev))
+    log_amp = torch.log(torch.as_tensor(
+        np.broadcast_to(np.asarray(amplitude, np.float32), batch).copy(),
+        device=dev))
+    eye = torch.eye(x_train.shape[-2], dtype=f32, device=dev)
+    noise = torch.full(batch, float(noise), dtype=f32, device=dev)
 
     if optimize:
         params = [log_ell.clone().requires_grad_(),
                   log_amp.clone().requires_grad_(),
-                  torch.log(torch.tensor(float(noise), dtype=f32,
-                                         device=dev)).requires_grad_()]
-        opt = torch.optim.Adam(params, lr=1e-2)
-        for _ in range(steps):
-            opt.zero_grad()
+                  torch.log(noise).requires_grad_()]
+        moments = [(torch.zeros_like(q), torch.zeros_like(q))
+                   for q in params]
+        for step in range(1, steps + 1):
             k = _gram(xt, params[0], params[1]) \
-                + (noise + torch.exp(params[2])) * eye
+                + (noise + torch.exp(params[2]))[..., None, None] * eye
             chol = torch.linalg.cholesky(k)
-            w = torch.cholesky_solve(yt[:, None], chol)[:, 0]
-            nll = 0.5 * yt @ w + torch.sum(torch.log(torch.diagonal(chol)))
-            nll.backward()
-            opt.step()
+            w = torch.cholesky_solve(yt[..., None], chol)[..., 0]
+            nll = 0.5 * torch.sum(yt * w, -1) + torch.sum(
+                torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), -1)
+            grads = torch.autograd.grad(nll.sum(), params)
+            with torch.no_grad():
+                for q, g, (m1, m2) in zip(params, grads, moments):
+                    _adam_step(q, g, m1, m2, step)
         log_ell, log_amp = params[0].detach(), params[1].detach()
-        noise = noise + float(torch.exp(params[2].detach()))
+        noise = noise + torch.exp(params[2].detach())
 
-    k = _gram(xt, log_ell, log_amp) + noise * eye
+    k = _gram(xt, log_ell, log_amp) + noise[..., None, None] * eye
     chol = torch.linalg.cholesky(k)
-    alpha = torch.cholesky_solve(yt[:, None], chol)[:, 0]
+    alpha = torch.cholesky_solve(yt[..., None], chol)[..., 0]
     return GPParams(x_train=xt, alpha=alpha, log_lengthscales=log_ell,
                     log_amplitude=log_amp,
-                    y_mean=torch.tensor(y_mean, dtype=f32, device=dev))
+                    y_mean=torch.as_tensor(y_mean[..., 0], device=dev))
 
 
 def save_gp(path: str, params: GPParams) -> None:
@@ -138,6 +167,16 @@ class GPBankOperator(ObservationModel):
         self.mappers = (
             None if state_mappers is None else np.asarray(state_mappers)
         )
+
+    def linearize_rows(self, aux: GPParams, x_rows, linearize_block=None):
+        """The row loop's linearisation: ``(h0 (n_bands, n), jac_rows
+        (n_bands * n_params, n))`` at the row-layout state ``x_rows``
+        (n_params, n), row ``b*n_params + j`` of ``jac_rows`` holding
+        dh0[b]/dx[j] — one launch of the GP row kernel on a card, the
+        closed form in plain PyTorch on the CPU (``core.gp_rows``)."""
+        from ..core.gp_rows import gp_linearize_rows
+
+        return gp_linearize_rows(self, aux, x_rows, linearize_block)
 
     def forward_pixel(self, aux: GPParams, x_pixel):
         # A bank whose band axis disagrees with the operator fails loudly

@@ -7,7 +7,8 @@ package's tools read the other's artifacts):
 - :mod:`spans` — timed engine phases in the registry, the trace timeline
   and ``torch.profiler`` (``record_function``); inside ``assimilate`` /
   ``fused_scan`` the sub-date phases ``date_fetch``, ``date_solve``,
-  ``date_record``, ``linearize``, ``loop_sync`` and ``row_layout``, summed
+  ``date_record``, ``linearize``, ``loop_sync``, ``row_layout`` and
+  ``gp_rows``, summed
   a date (``DateSums``) into the engine's date records;
 - :mod:`tracing` — the trace timeline and its run/chunk/window context;
 - :mod:`flight_recorder` — ``crash_<ts>.json`` on an unhandled

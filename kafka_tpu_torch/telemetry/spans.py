@@ -11,10 +11,12 @@ date and nest inside ``assimilate`` / ``fused_scan``: ``date_fetch``
 its options to its last launch), ``date_record`` (the packed diagnostic
 read and the host bookkeeping of the date's record), and inside the
 solve ``linearize`` (one linearisation call of a Gauss-Newton round),
-``loop_sync`` (a round's loop-condition read) and ``row_layout``
-(``linalg.pack_rows`` / ``unpack_rows``).  They write no JSONL event
-each: their host seconds add up in the date's :class:`DateSums`, which
-the engine lands in the date's record and its one ``solve`` event.
+``loop_sync`` (a round's loop-condition read), ``row_layout``
+(``linalg.pack_rows`` / ``unpack_rows``) and, inside ``linearize``,
+``gp_rows`` (a launch of the GP bank's row kernel).  They write no
+JSONL event each: their host seconds add up in the date's
+:class:`DateSums`, which the engine lands in the date's record and its
+one ``solve`` event.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ class DateSums:
     context manager is: host seconds per phase, the spans themselves
     (their histogram observations and trace spans are written when the
     date closes, in one pass), and the CUDA event pair of each
-    device-timed span (``span(..., device=...)``, under a profiler).
+    device-timed span (``span(..., device=...)``, under a profiler) with
+    its phase.
     The pairs are resolved by :meth:`device_ms` after the engine's
     packed read has synchronised the stream, so timing adds no sync."""
 
@@ -66,13 +69,16 @@ class DateSums:
         """Host milliseconds of ``phases``' spans."""
         return 1e3 * sum(self.seconds.get(p, 0.0) for p in phases)
 
-    def device_ms(self) -> Optional[float]:
-        """Device milliseconds of the device-timed spans whose work has
-        completed (``Event.query``, which never blocks); None when none
-        was timed (the CPU, or no profiler recording)."""
-        if not self.pairs:
+    def device_ms(self, phase: str) -> Optional[float]:
+        """Device milliseconds of ``phase``'s device-timed spans whose
+        work has completed (``Event.query``, which never blocks); None
+        when none was timed (the CPU, no profiler recording, or no such
+        span in the date)."""
+        pairs = [(start, end) for ph, start, end in self.pairs
+                 if ph == phase]
+        if not pairs:
             return None
-        return sum(start.elapsed_time(end) for start, end in self.pairs
+        return sum(start.elapsed_time(end) for start, end in pairs
                    if end.query())
 
 
@@ -94,7 +100,7 @@ def _phase_histogram(reg: MetricsRegistry):
         "kafka_engine_phase_seconds",
         "wall seconds per engine phase (advance/assimilate/"
         "dump/fused_scan, and inside a date date_fetch/"
-        "date_solve/date_record/linearize/loop_sync/row_layout)",
+        "date_solve/date_record/linearize/loop_sync/row_layout/gp_rows)",
     )
 
 
@@ -195,7 +201,7 @@ class _Span:
                 if self.pair is not None:
                     start, end, stream = self.pair
                     end.record(stream)
-                    sums.pairs.append((start, end))
+                    sums.pairs.append((phase, start, end))
                 sums.seconds[phase] = sums.seconds.get(phase, 0.0) \
                     + (t1 - t0)
                 sums.spans.append((reg, phase, t0, t1, self.span_id,

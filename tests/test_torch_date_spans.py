@@ -183,10 +183,14 @@ class _Event:
 
 def test_date_sums_read_device_pairs_that_completed():
     sums = DateSums()
-    assert sums.device_ms() is None
-    sums.pairs += [(_Event(0.0), _Event(1.5)), (_Event(2.0), _Event(2.25)),
-                   (_Event(3.0), _Event(9.0, done=False))]
-    assert sums.device_ms() == pytest.approx(1.75)
+    assert sums.device_ms("row_layout") is None
+    sums.pairs += [("row_layout", _Event(0.0), _Event(1.5)),
+                   ("row_layout", _Event(2.0), _Event(2.25)),
+                   ("row_layout", _Event(3.0), _Event(9.0, done=False)),
+                   ("gp_rows", _Event(4.0), _Event(4.5))]
+    assert sums.device_ms("row_layout") == pytest.approx(1.75)
+    assert sums.device_ms("gp_rows") == pytest.approx(0.5)
+    assert sums.device_ms("linearize") is None
 
 
 def test_per_date_spans_outside_a_date_add_nothing():

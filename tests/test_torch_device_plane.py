@@ -321,13 +321,15 @@ HELP_EXTENDED = {
     "kafka_engine_phase_seconds": (
         "wall seconds per engine phase (advance/assimilate/dump/"
         "fused_scan, and inside a date date_fetch/date_solve/date_record/"
-        "linearize/loop_sync/row_layout)"),
+        "linearize/loop_sync/row_layout/gp_rows)"),
 }
 
 
 #: metric names of the port with no JAX counterpart: the row loop's
-#: linearisation routes (the JAX package has no PROSAIL row kernel).
-PORT_ONLY_NAMES = {"kafka_rowloop_linearizations_total"}
+#: linearisation routes and the GP bank's row-kernel launches (the JAX
+#: package has no PROSAIL or GP row kernel).
+PORT_ONLY_NAMES = {"kafka_rowloop_linearizations_total",
+                   "kafka_gp_rows_launches_total"}
 
 
 def test_the_port_registers_the_jax_names_less_the_routers():
@@ -347,7 +349,7 @@ def test_the_port_registers_the_jax_names_less_the_routers():
     route = {n for n in jax_names if n.startswith("kafka_route_")}
     assert len(jax_names) == 95 and len(route) == 9
     assert port_names == jax_names | PORT_ONLY_NAMES
-    assert route <= port_names and len(port_names) == 96
+    assert route <= port_names and len(port_names) == 97
     jax_regs = _registrations(REPO / "kafka_tpu")
     port_regs = _registrations(REPO / "kafka_tpu_torch")
     for name in sorted(jax_names):

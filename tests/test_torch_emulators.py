@@ -11,11 +11,15 @@ to the JAX package's accuracy thresholds.
   against the emulator's own predictive-mean formula, to that test's
   tolerances (rtol/atol 2e-4; 1e-3 where alpha is recomputed; 2e-3 for
   a stacked bank).
-- ``fit_gp`` / ``fit_mlp`` of the port (``torch.optim.Adam``, not optax,
-  so not the JAX fit's bits) meet the thresholds of
+- ``fit_gp`` / ``fit_mlp`` of the port (Adam in PyTorch, not optax, so
+  not the JAX fit's bits) meet the thresholds of
   ``tests/test_obsops.py``: a smooth function within 0.05, the GP's
   gradient within 1e-2 of finite differences, a two-stream GP bank
-  within 0.02 and a WCM MLP within 0.01.
+  within 0.02 and a WCM MLP within 0.01.  ``fit_gp`` without Adam
+  matches the JAX package's; its written-out Adam gives
+  ``torch.optim.Adam``'s bits; a batch of GPs fitted at once gives each
+  entry's own fit (hyperparameters to float32 rounding, predictive
+  means within 1e-4: alpha carries the Gram matrix's conditioning).
 - ``protocol``'s ``BandView`` and ``MappedStateModel`` against JAX's, to
   the same value / Jacobian tolerances.
 """
@@ -158,6 +162,101 @@ def test_fit_gp_optimize_runs_adam():
     fixed = tgp.fit_gp(x, np.sin(3 * x[:, 0]), device=CPU)
     assert not torch.equal(params.log_lengthscales,
                            fixed.log_lengthscales)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: beside other test processes on the same
+    cores, the fits' small threaded ops wait on each other's threads
+    (the batched fit took 17 s in a whole run, 0.2 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _fit_samples(seed=23, batch=3, m=40, k=3):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (batch, m, k)).astype(np.float32)
+    y = np.sin(x @ rng.normal(size=k)) \
+        + 0.3 * (x ** 2).sum(-1) * np.arange(1, batch + 1)[:, None]
+    return x, y.astype(np.float32), rng.uniform(0, 1, (50, k)) \
+        .astype(np.float32)
+
+
+def _gp_means(params, xs):
+    return torch.cat([tgp.gp_predict_pixel(params, torch.as_tensor(z))
+                      for z in xs])
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fit_gp_batched_equals_each_entry_fitted_alone():
+    x, y, xs = _fit_samples()
+    amp = y.var(-1)
+    batched = tgp.fit_gp(x, y, amplitude=amp, optimize=True, steps=30,
+                         device=CPU)
+    assert batched.alpha.shape == (3, 40)
+    assert batched.log_lengthscales.shape == (3, 3)
+    assert batched.log_amplitude.shape == batched.y_mean.shape == (3,)
+    for i in range(3):
+        alone = tgp.fit_gp(x[i], y[i], amplitude=amp[i], optimize=True,
+                           steps=30, device=CPU)
+        entry = tgp.GPParams(*(leaf[i] for leaf in batched))
+        for f in ("x_train", "log_lengthscales", "log_amplitude",
+                  "y_mean"):
+            np.testing.assert_allclose(getattr(entry, f).numpy(),
+                                       getattr(alone, f).numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=f)
+        np.testing.assert_allclose(_gp_means(entry, xs).numpy(),
+                                   _gp_means(alone, xs).numpy(), atol=1e-4)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fit_gp_adam_is_torch_optim_adam():
+    """The fit's written-out Adam against ``torch.optim.Adam`` driving
+    the same negative log marginal likelihood: the same bits."""
+    x, y, _ = _fit_samples(seed=24)
+    x, y = x[0], y[0]
+    amp, noise, steps = float(y.var()), 1e-4, 30
+    fit = tgp.fit_gp(x, y, amplitude=amp, noise=noise, optimize=True,
+                     steps=steps, device=CPU)
+    xt = torch.as_tensor(x)
+    yt = torch.as_tensor(y - y.mean())
+    params = [torch.log(torch.as_tensor(x.std(0) + 1e-3)),
+              torch.log(torch.tensor(amp, dtype=torch.float32)),
+              torch.log(torch.tensor(noise, dtype=torch.float32))]
+    for q in params:
+        q.requires_grad_()
+    opt = torch.optim.Adam(params, lr=1e-2)
+    eye = torch.eye(x.shape[0])
+    for _ in range(steps):
+        opt.zero_grad()
+        k = tgp._gram(xt, params[0], params[1]) \
+            + (noise + torch.exp(params[2])) * eye
+        chol = torch.linalg.cholesky(k)
+        w = torch.cholesky_solve(yt[:, None], chol)[:, 0]
+        nll = 0.5 * yt @ w + torch.sum(torch.log(torch.diagonal(chol)))
+        nll.backward()
+        opt.step()
+    assert torch.equal(fit.log_lengthscales, params[0].detach())
+    assert torch.equal(fit.log_amplitude, params[1].detach())
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fit_gp_without_adam_matches_jax():
+    x, y, xs = _fit_samples(seed=25)
+    x, y = x[0], y[0]
+    amp = float(y.var())
+    jfit = jgp.fit_gp(x, y, amplitude=amp)
+    fit = tgp.fit_gp(x, y, amplitude=amp, device=CPU)
+    for f in ("x_train", "log_lengthscales", "log_amplitude", "y_mean"):
+        np.testing.assert_allclose(getattr(fit, f).numpy(),
+                                   np.asarray(getattr(jfit, f)),
+                                   rtol=1e-6, atol=1e-6, err_msg=f)
+    jmean = np.array([np.asarray(jgp.gp_predict_pixel(
+        jfit, jnp.asarray(z))).reshape(-1)[0] for z in xs])
+    np.testing.assert_allclose(_gp_means(fit, xs).numpy(), jmean,
+                               atol=VAL_ATOL)
 
 
 def test_gp_bank_emulates_twostream():

@@ -288,7 +288,7 @@ def test_source_lints_pass_the_checkout_with_jax_kafka_tpu_and_tools_blocked():
     for name, (text, rc) in out.items():
         assert rc == 0 and "ModuleNotFoundError" not in text, (name, text)
     assert "kafkalint: clean" in out["kafkalint"][0]
-    assert "96 metric names OK" in out["check_metric_names"][0]
+    assert "97 metric names OK" in out["check_metric_names"][0]
 
 
 def _entry_points():
@@ -523,7 +523,7 @@ def test_build_key_tracks_sources_and_flags(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["fused_gn", "fused_update", "solve_rows",
-                                  "prosail_rows"])
+                                  "prosail_rows", "gp_rows"])
 def test_every_kernel_source_exists_with_a_c_interface(name):
     """Each kernel's source is in csrc/ and exports its launch function
     and the error-string helper the wrapper reads on failure."""

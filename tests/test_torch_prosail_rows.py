@@ -4,9 +4,10 @@
 - The wrapper's plain version is today's path, bit for bit:
   ``jac_to_rows(op.linearize(aux, x_rows.T))``, with 0-d and per-pixel
   angles, with and without blocks.
-- The row loop takes the route for ``ProsailOperator`` only (a spy and
-  the ``kafka_rowloop_linearizations_total`` counter), and its S2 result
-  keeps the bits of the ``torch.func`` path.
+- The row loop takes the PROSAIL route for ``ProsailOperator`` only (a
+  spy and the ``kafka_rowloop_linearizations_total`` counter; the GP
+  bank takes its own, ``core/gp_rows.py``), and its S2 result keeps the
+  bits of the ``torch.func`` path.
 - The wrapper refuses what the kernel does not take; the kernel source
   is built with the others and its C entry takes every pointer and the
   stream as ``c_void_p``.
@@ -141,17 +142,23 @@ def _band_view():
         2, 64, CPU, 0, torch.float32)
 
 
-@pytest.mark.parametrize("make", [_joint, _band_view, _gp_bank],
+@pytest.mark.parametrize("make,route", [(_joint, "torch_func"),
+                                        (_band_view, "torch_func"),
+                                        (_gp_bank, "plain")],
                          ids=["joint", "band_view", "gp_bank"])
-def test_row_loop_keeps_torch_func_for_other_operators(monkeypatch, make):
+def test_row_loop_keeps_torch_func_for_other_operators(monkeypatch, make,
+                                                       route):
+    """Operators without a row linearisation keep ``torch.func``; the GP
+    bank takes its own (``core/gp_rows.py``, its plain version on the
+    CPU), never the PROSAIL kernel's."""
     op, aux = make()
-    assert not hasattr(op, "linearize_rows")
+    assert hasattr(op, "linearize_rows") == (route == "plain")
     bands, x0, p0 = _random_problem(op, aux, 64, 5)
     calls = _spy(monkeypatch)
     (_x, _a, d), counts = _solve(op.linearize, bands, x0, p0, aux,
                                  {"use_pallas": True})
     assert calls == []
-    assert counts == {f'{COUNTER}{{route="torch_func"}}':
+    assert counts == {f'{COUNTER}{{route="{route}"}}':
                       int(d.n_iterations)}
 
 
